@@ -9,17 +9,23 @@ Phases, each of which ends the run with a non-zero exit code on failure:
 1. build: one ``nvcc`` per CUDA source of the port, all started together,
    while Triton compiles the fused loss kernel.
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the flagship shapes, with the tolerance printed beside the
-   error; median times over repeated launches (CUDA events) of the kernel,
-   the plain version and, where one exists, the one PyTorch call that
-   computes the same function (``library_ms``, timed here only).
+   the card, at every shape the flagship gives it (wgrad: the 24 distinct
+   3x3x3 convs of the net in bf16, and float32 at two of them), with the
+   tolerance printed beside the error; times from CUDA events around many
+   back-to-back launches divided by their count, after a warm-up, of the
+   kernel, the plain version and, where one exists, the one PyTorch call
+   that computes the same function (``library_ms``, timed here only; the
+   float32 ``conv3d_weight`` with TF32 off). The sum of launches x ms over
+   the 32 wgrad launches of an iteration is printed as wgrad ms/iteration.
 3. small: a tiny 3D solve with both kernels on the card against the same
    solve on the CPU (plain versions), same canvas and weights.
 4. main path: ``DIPSolver(cfg).solve(img, mask, seed=0)`` on the flagship
    (256, 128, 128) volume, MulResUnet 3D at filters [16..256], inputdepth 64,
    bf16, ``fused_loss`` and ``DPI_PALLAS_WGRAD=1``, 9 iterations in chunks
    of 3. The launch counters are set to 0 just before and read just after;
-   every kernel must have launched (fused loss 9 times, wgrad 9 x 32).
+   every kernel must have launched (fused loss 9 times, wgrad 9 x 32), and
+   a hook on the conv's weight gradient checks that the wgrad shapes are the
+   24 of phase 2, each as often as listed there.
    A 3-step solve with the kernels off must give the same iteration-0 loss.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON, the last line
@@ -27,6 +33,7 @@ The next-to-last line is the ``{"kernels": [...]}`` JSON, the last line
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -41,7 +48,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and flop/s by input type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-REPEATS = 7
+REPEATS = 3
 
 
 def log(*a) -> None:
@@ -53,20 +60,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, repeats: int = REPEATS) -> float:
-    """Median milliseconds of ``fn()`` over ``repeats`` runs (CUDA events),
-    after one warm-up run."""
-    fn()
-    times = []
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+def _events_ms(fn, n: int) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
         fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def time_ms(fn, window_ms: float = 20.0, repeats: int = REPEATS) -> float:
+    """Milliseconds of one ``fn()``: CUDA events around n back-to-back calls
+    divided by n, n chosen so a window lasts about ``window_ms`` (3 to 500
+    calls), after a warm-up; the median of ``repeats`` windows."""
+    fn()
+    n = max(3, min(500, math.ceil(window_ms / max(_events_ms(fn, 1), 1e-3))))
+    return statistics.median(_events_ms(fn, n) for _ in range(repeats))
 
 
 def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
@@ -146,14 +157,25 @@ def check_fused_loss(dev):
     return entry
 
 
-# the 3x3x3 stride-1 convs of the flagship MulResUnet 3D whose dW is largest:
-# (Ci, Co, spatial)
+# the 24 distinct 3x3x3 stride-1 convs of the flagship MulResUnet 3D
+# (filters [16, 32, 64, 128, 256], skip [16, 32, 64, 128], input depth 64)
+# and their wgrad launches an iteration: (Ci, Co, spatial, launches)
+_L = [(256, 128, 128), (128, 64, 64), (64, 32, 32), (32, 16, 16), (16, 8, 8)]
 WGRAD_SHAPES = [
-    (64, 4, (256, 128, 128)), (4, 8, (256, 128, 128)), (8, 13, (256, 128, 128)),
-    (25, 16, (256, 128, 128)), (67, 4, (256, 128, 128)), (4, 8, (256, 128, 128)),
-    (8, 13, (256, 128, 128)), (25, 1, (256, 128, 128)),
-    (137, 8, (128, 64, 64)), (554, 35, (32, 16, 16)),
+    (64, 4, _L[0], 1), (4, 8, _L[0], 2), (8, 13, _L[0], 2), (25, 16, _L[0], 1),
+    (67, 4, _L[0], 1), (25, 1, _L[0], 1),
+    (25, 8, _L[1], 1), (8, 17, _L[1], 2), (17, 26, _L[1], 2), (51, 32, _L[1], 1),
+    (137, 8, _L[1], 1),
+    (51, 17, _L[2], 1), (17, 35, _L[2], 2), (35, 53, _L[2], 2), (105, 64, _L[2], 1),
+    (276, 17, _L[2], 1),
+    (105, 35, _L[3], 1), (35, 71, _L[3], 2), (71, 106, _L[3], 2), (212, 128, _L[3], 1),
+    (554, 35, _L[3], 1),
+    (212, 71, _L[4], 1), (71, 142, _L[4], 1), (142, 213, _L[4], 1),
 ]
+# shapes whose plain version is timed too (the others only checked)
+PLAIN_TIMED = {(64, 4), (4, 8), (8, 13), (25, 16), (67, 4), (25, 1), (137, 8), (554, 35)}
+# float32 (Config's default dtype): the full-resolution 25 -> 16 and a deep shape
+FLOAT32_SHAPES = [(25, 16, _L[0]), (554, 35, _L[3])]
 
 
 def _valid_products(sp, k: int) -> int:
@@ -171,11 +193,11 @@ def check_wgrad(dev):
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
 
     k = 3
-    cases = [(ci, co, sp, torch.bfloat16) for ci, co, sp in WGRAD_SHAPES]
-    cases.append((25, 16, (256, 128, 128), torch.float32))
+    cases = [(ci, co, sp, n, torch.bfloat16) for ci, co, sp, n in WGRAD_SHAPES]
+    cases += [(ci, co, sp, 0, torch.float32) for ci, co, sp in FLOAT32_SHAPES]
     g = torch.Generator(device=dev).manual_seed(5)
-    rows, max_abs = [], 0.0
-    for ci, co, sp, dt in cases:
+    rows, max_abs, per_iter = [], 0.0, 0.0
+    for ci, co, sp, n, dt in cases:
         x = torch.randn((1, ci) + sp, generator=g, device=dev).to(dt)
         dy = torch.randn((1, co) + sp, generator=g, device=dev).to(dt)
         got = WG.wgrad3d(x, dy, k)
@@ -184,30 +206,44 @@ def check_wgrad(dev):
         err = float((got - ref).abs().max())
         # both sum float32 products of the same inputs, in other orders
         lim = 1e-4 * float(ref.abs().max()) + 1e-4
-        row = {"ci": ci, "co": co, "spatial": list(sp), "dtype": str(dt).split(".")[-1],
-               "max_abs_err": err, "tol": lim}
-        log(f"wgrad {ci}->{co} {sp} {row['dtype']}: max abs err {err:.3e} "
+        name = str(dt).split(".")[-1]
+        row = {"ci": ci, "co": co, "spatial": list(sp), "dtype": name,
+               "launches_per_iteration": n, "max_abs_err": err, "tol": lim}
+        log(f"wgrad {ci}->{co} {sp} {name}: max abs err {err:.3e} "
             f"(tol {lim:.3e}, 1e-4 of max |dW| + 1e-4)")
         if not err <= lim:
-            fail(f"wgrad {ci}->{co} {sp} disagrees with the plain version")
+            fail(f"wgrad {ci}->{co} {sp} {name} disagrees with the plain version")
         max_abs = max(max_abs, err)
+        del got, ref
         w = torch.empty((co, ci, k, k, k), device=dev, dtype=dt)
         row["ms"] = time_ms(lambda: WG.wgrad3d(x, dy, k))
-        row["plain_ms"] = time_ms(lambda: WG.wgrad3d_plain(x, dy, k), 5)
-        row["library_ms"] = time_ms(lambda: torch.nn.grad.conv3d_weight(
-            x, w.shape, dy, stride=1, padding=1))
+        row["plain_ms"] = (time_ms(lambda: WG.wgrad3d_plain(x, dy, k))
+                           if (ci, co) in PLAIN_TIMED else None)
+        # cuDNN with TF32 off: a float32 yardstick for the float32 kernel
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            row["library_ms"] = time_ms(lambda: torch.nn.grad.conv3d_weight(
+                x, w.shape, dy, stride=1, padding=1))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
         n_bytes = (ci + co) * math.prod(sp) * x.element_size() + co * ci * k ** 3 * 4
         n_flops = 2.0 * ci * co * _valid_products(sp, k)
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops, dt)
-        log(f"  ms {row['ms']:.3f} plain {row['plain_ms']:.3f} "
-            f"library {row['library_ms']:.3f} bound {row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+        per_iter += n * row["ms"]
+        plain = "not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.4f}"
+        log(f"  ms {row['ms']:.4f} plain {plain} conv3d_weight {row['library_ms']:.4f}"
+            f"{' (TF32 off)' if dt == torch.float32 else ''} bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}), {n} launches/iteration, "
+            f"{'not slower' if row['ms'] <= row['library_ms'] else 'SLOWER'} than conv3d_weight")
         rows.append(row)
-        del x, dy
+        del x, dy, w
+    log(f"wgrad ms/iteration: sum of launches x ms over the {len(WGRAD_SHAPES)} bf16 "
+        f"shapes ({sum(n for *_, n in WGRAD_SHAPES)} launches) = {per_iter:.4f}")
     entry = {"name": "wgrad3d", "route": "cuda",
              "source": "deep_prior_interpolation_tpu_torch/csrc/wgrad3d.cu",
              "replaces": "deep_prior_interpolation_tpu/ops/pallas_wgrad.py:182",
-             "max_abs_err": max_abs,
+             "max_abs_err": max_abs, "ms_per_iteration": per_iter,
              "tolerance": "1e-4 of max |dW| + 1e-4 per shape", "shapes": rows}
     # the headline numbers: the heaviest flagship shape, 67 -> 4 at full res
     head = rows[4]
@@ -295,9 +331,25 @@ def main_path(dev) -> dict:
     solver = DIPSolver(cfg, outchannel=1, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # a hook on the conv's weight gradient records the shapes it is asked for
+    from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+    seen, real = collections.Counter(), conv_vjp.wgrad3d
+
+    def hook(x, dy, k):
+        seen[(x.shape[1], dy.shape[1], tuple(x.shape[2:]))] += 1
+        return real(x, dy, k)
+
+    conv_vjp.wgrad3d = hook
     reset_counts()
-    res = solver.solve(img, mask, seed=0)
+    try:
+        res = solver.solve(img, mask, seed=0)
+    finally:
+        conv_vjp.wgrad3d = real
     counts = read_counts()
+    want = {(ci, co, sp): 9 * n for ci, co, sp, n in WGRAD_SHAPES}
+    if dict(seen) != want:
+        fail(f"the main path's wgrad shapes are {dict(seen)}, not {want}")
+    log(f"main path: wgrad shapes as listed in the kernel phase ({len(seen)} distinct)")
     peak = torch.cuda.max_memory_allocated()
     loss = np.asarray(res.history.loss)
     log(f"main path: losses {loss.tolist()}")
@@ -329,19 +381,45 @@ def main_path(dev) -> dict:
     return {"counts": counts, "s_per_iter": steady, "peak_bytes": peak}
 
 
+# kernel families of the profile, by the first pattern a kernel name holds
+FAMILIES = [
+    ("wgrad3d (kernel 2)", ("wgrad3d",)),
+    ("fused loss (kernel 1)", ("_sums_kernel",)),
+    ("cuDNN conv forward", ("fprop",)),
+    ("cuDNN conv dgrad", ("dgrad",)),
+    ("cuDNN NCDHW<->NDHWC transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("trilinear upsample fwd + bwd", ("upsample",)),
+    ("reductions (Norm statistics)", ("reduce_kernel",)),
+    ("GEMMs (1x1 convs)", ("gemm",)),
+    ("elementwise, casts, copies", ("elementwise", "copy", "Memset", "Memcpy")),
+]
+
+
 def profile_flagship(dev, out_dir: str) -> None:
-    """Trace the second 3-iteration chunk of the flagship solve, kernels on."""
+    """Trace the second 3-iteration chunk of the flagship solve, kernels on,
+    and print its device time an iteration by kernel family."""
     from deep_prior_interpolation_tpu_torch import DIPSolver
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
 
     img, mask = flagship_problem(256, 128, 128)
     set_kernels(True)
-    res = DIPSolver(flagship_config(epochs=6), device=dev).solve(
-        img, mask, seed=0, profile_dir=out_dir)
+    cfg = flagship_config(epochs=6)
+    res = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, profile_dir=out_dir)
     log(f"profile: chunk seconds {res.chunk_seconds} (chunk 2 traced)")
     with open(os.path.join(out_dir, "ops.txt")) as fh:
-        for line in fh.read().splitlines()[:30]:
-            log(f"profile: {line}")
+        head, *rows = fh.read().splitlines()
+    log(f"profile: {head}")
+    total = float(head.split("device kernels ")[1].split(" ms")[0])
+    fams = collections.Counter()
+    for line in rows:  # "<ms> ms <count>x  <kernel>", the kernels by time
+        ms, _, _, name = line.split(maxsplit=3)
+        fam = next((f for f, pats in FAMILIES if any(p in name for p in pats)), "other")
+        fams[fam] += float(ms)
+    fams["below the listed kernels"] = total - sum(fams.values())
+    per = cfg.scan_chunk
+    log(f"profile: device ms an iteration by family ({per} iterations traced):")
+    for fam, ms in fams.most_common():
+        log(f"profile:   {fam:34s} {ms / per:9.3f} ms  {ms / total:6.1%}")
 
 
 def main() -> None:
