@@ -6,16 +6,20 @@
 
 Phases, each of which ends the run with a non-zero exit code on failure:
 
-1. build: one ``nvcc`` per CUDA source of the port, all started together,
-   while Triton compiles the fused loss kernel.
+1. build: one ``nvcc`` per CUDA source of the port, all started together.
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at every shape the flagship gives it (wgrad: the 24 distinct
-   3x3x3 convs of the net in bf16, and float32 at two of them), with the
-   tolerance printed beside the error; times from CUDA events around many
-   back-to-back launches divided by their count, after a warm-up, of the
-   kernel, the plain version and, where one exists, the one PyTorch call
-   that computes the same function (``library_ms``, timed here only; the
-   float32 ``conv3d_weight`` with TF32 off). The sum of launches x ms over
+   the card, at every shape the flagship gives it (fused loss forward and
+   backward: the flagship volume with bf16 and float32 ``out``, the
+   backward with the main path's incoming gradient and a random one; wgrad:
+   the 24 distinct 3x3x3 convs of the net in bf16, and float32 at two of
+   them), with the tolerance printed beside the error; times from CUDA
+   events around many back-to-back launches divided by their count, after a
+   warm-up, of the kernel, the plain version and, where one exists, the one
+   PyTorch call that computes the same function (``library_ms``, timed here
+   only; the float32 ``conv3d_weight`` with TF32 off). The fused loss's
+   kernels are shorter than the host's dispatch of a call, so their times
+   come from a CUDA graph of many calls, over copies of the inputs that
+   together exceed L2; the eager times are printed beside them. The sum of launches x ms over
    the 32 wgrad launches of an iteration is printed as wgrad ms/iteration.
 3. small: a tiny 3D solve with both kernels on the card against the same
    solve on the CPU (plain versions), same canvas and weights.
@@ -23,7 +27,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    (256, 128, 128) volume, MulResUnet 3D at filters [16..256], inputdepth 64,
    bf16, ``fused_loss`` and ``DPI_PALLAS_WGRAD=1``, 9 iterations in chunks
    of 3. The launch counters are set to 0 just before and read just after;
-   every kernel must have launched (fused loss 9 times, wgrad 9 x 32), and
+   every kernel must have launched (fused loss forward and backward 9 times
+   each, wgrad 9 x 32), and
    a hook on the conv's weight gradient checks that the wgrad shapes are the
    24 of phase 2, each as often as listed there.
    A 3-step solve with the kernels off must give the same iteration-0 loss.
@@ -80,6 +85,36 @@ def time_ms(fn, window_ms: float = 20.0, repeats: int = REPEATS) -> float:
     return statistics.median(_events_ms(fn, n) for _ in range(repeats))
 
 
+def graph_ms(fn, calls: int = 60) -> float:
+    """Milliseconds of one ``fn()`` on the card alone: ``calls`` calls
+    captured in one CUDA graph (after a warm-up on the capture stream) and
+    the graph replayed back to back by ``time_ms``, so no host dispatch sits
+    between the launches."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay) / calls
+
+
+def cycling(fn, inputs: list):
+    """A call of ``fn`` on the next of ``inputs`` each time: with copies
+    that together exceed the 50 MB L2, each call finds its inputs in device
+    memory, as the solver's loss does once an iteration."""
+    state = {"i": 0}
+
+    def call():
+        fn(*inputs[state["i"] % len(inputs)])
+        state["i"] += 1
+    return call
+
+
 def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_flops / PEAK_FLOPS[dtype] * 1e3
@@ -90,7 +125,20 @@ def bound_ms(n_bytes: float, n_flops: float, dtype) -> tuple:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
+def _loss_bounds(n: int, out_dtype) -> tuple:
+    """(forward, backward) bounds of the fused loss: each input read once,
+    each output written once; ~17 and ~16 float32 flops a voxel."""
+    esz = torch.empty((), dtype=out_dtype).element_size()
+    fwd = bound_ms(n * (esz + 4 + 4) + 8 * 4, 17.0 * n, torch.float32)
+    bwd = bound_ms(n * (esz + 4 + 4 + esz) + 8 * 4, 16.0 * n, torch.float32)
+    return fwd, bwd
+
+
 def check_fused_loss(dev):
+    """Both fused-loss kernels against their plain versions at the flagship
+    size, bf16 and float32 ``out``; returns the forward's and the backward's
+    entries of the kernels line (bf16, the main path's, with float32 as a
+    variant)."""
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
     from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
     from deep_prior_interpolation_tpu_torch.ops import losses as L
@@ -98,31 +146,47 @@ def check_fused_loss(dev):
     img_np, mask_np = flagship_problem(256, 128, 128)
     img = torch.from_numpy(img_np[..., 0])[None, None].to(dev)
     mask = torch.from_numpy(mask_np[..., 0])[None, None].to(dev)
-    g = torch.Generator(device=dev).manual_seed(3)
-    out = (img + torch.randn(img.shape, generator=g, device=dev)).to(torch.bfloat16)
+    n = img.numel()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noisy = img + torch.randn(img.shape, generator=gen, device=dev)
+    outs = {"bfloat16": noisy.to(torch.bfloat16), "float32": noisy}
+    # the main path's incoming gradient (mae alone) and one with all 8 non-zero
+    g_main = torch.zeros(8, device=dev)
+    g_main[0] = 1.0 / n
+    g_rand = torch.randn(8, generator=gen, device=dev)
+    if not bool((g_rand != 0).all()):
+        fail("the random incoming gradient has a zero")
 
-    sums_k = FL.fused_sums(out, img, mask)
-    sums_p = FL.fused_sums_plain(out, img, mask)
+    # forward: float32 sums of 4.19 M terms in another order, relative 1e-4;
+    # one launch and no float atomics, so repeated calls are bit-identical
+    sums_abs = 0.0
+    for name, out in outs.items():
+        sums_k = FL.fused_sums(out, img, mask)
+        sums_p = FL.fused_sums_plain(out, img, mask)
+        rel = float(((sums_k - sums_p).abs() / sums_p.abs().clamp_min(1e-30)).max())
+        sums_abs = max(sums_abs, float((sums_k - sums_p).abs().max()))
+        same = all(torch.equal(FL.fused_sums(out, img, mask), sums_k) for _ in range(5))
+        log(f"fused_loss sums, {name} out: max rel err {rel:.3e} (tol 1e-4), "
+            f"5 repeated calls bit-identical: {same}")
+        if not rel <= 1e-4:
+            fail(f"fused_loss sums ({name} out) disagree with the plain version")
+        if not same:
+            fail(f"fused_loss sums ({name} out) differ from call to call")
+
+    # the metrics, against the plain path of the loss as the solver computes it
+    out = outs["bfloat16"]
     loss_k, mets_k = FL.fused_loss_metrics(out, img, mask, "mae")
-    # the plain path of the loss and its metrics, as the solver computes them
-    loss_p = L.masked_mae(out, img, mask)
     out32 = out.float()
-    ref = {"loss": loss_p, "snr": L.snr(out32, img), "pcorr": L.pcorr(out32, img),
-           "mse": L.masked_mse(out, img, mask)}
+    ref = {"loss": L.masked_mae(out, img, mask), "snr": L.snr(out32, img),
+           "pcorr": L.pcorr(out32, img), "mse": L.masked_mse(out, img, mask)}
     got = {"loss": loss_k, "snr": mets_k["snr"], "pcorr": mets_k["pcorr"],
            "mse": mets_k["mse"]}
-    # float32 sums over 4.19 M terms in another order: relative 1e-4; the
-    # one-pass covariance of pcorr against the two-pass form: absolute 1e-3
+    # float32 sums in another order: relative 1e-4; the one-pass covariance
+    # of pcorr against the two-pass form: absolute 1e-3
     tol = {"loss": ("rel", 1e-4), "snr": ("rel", 1e-4), "pcorr": ("abs", 1e-3),
            "mse": ("rel", 1e-4)}
-    max_abs = 0.0
-    sums_rel = float(((sums_k - sums_p).abs() / sums_p.abs().clamp_min(1e-30)).max())
-    log(f"fused_loss sums: max rel err {sums_rel:.3e} (tol 1e-4)")
-    if not sums_rel <= 1e-4:
-        fail("fused_loss sums disagree with the plain version")
     for k in ref:
         err = abs(float(got[k]) - float(ref[k]))
-        max_abs = max(max_abs, err)
         kind, t = tol[k]
         lim = t * abs(float(ref[k])) if kind == "rel" else t
         log(f"fused_loss {k}: kernel {float(got[k]):.7g} plain {float(ref[k]):.7g} "
@@ -130,31 +194,81 @@ def check_fused_loss(dev):
         if not err <= lim:
             fail(f"fused_loss {k} disagrees with the plain version")
 
-    # gradient: the kernel path's analytic backward against autograd of the
+    # backward: the same float32 formula, term by term; within one bf16 ulp
+    # of the plain value for bf16 out, 1e-5 of max |plain| for float32
+    grad_abs = 0.0
+    for name, out in outs.items():
+        for gname, g in (("main-path g", g_main), ("random g", g_rand)):
+            got = FL.loss_sums_grad(out, img, mask, g).float()
+            ref = FL.loss_sums_grad_plain(out, img, mask, g).float()
+            err = (got - ref).abs()
+            grad_abs = max(grad_abs, float(err.max()))
+            if name == "bfloat16":
+                ok = bool((err <= 2.0 ** -7 * ref.abs()).all())
+                tol_s = "|k-p| <= 2^-7 |p| per element"
+            else:
+                ok = float(err.max()) <= 1e-5 * float(ref.abs().max())
+                tol_s = f"{1e-5 * float(ref.abs().max()):.3e}, 1e-5 of max |p|"
+            log(f"fused_loss_grad, {name} out, {gname}: max abs err {float(err.max()):.3e} "
+                f"(tol {tol_s})")
+            if not ok:
+                fail(f"fused_loss_grad ({name} out, {gname}) disagrees with the plain version")
+            del got, ref, err
+
+    # end to end: the kernels' gradient of the loss against autograd of the
     # plain masked_mae
-    o1 = out.clone().requires_grad_(True)
+    o1 = outs["bfloat16"].clone().requires_grad_(True)
     FL.fused_loss_metrics(o1, img, mask, "mae")[0].backward()
-    o2 = out.clone().requires_grad_(True)
+    o2 = outs["bfloat16"].clone().requires_grad_(True)
     L.masked_mae(o2, img, mask).backward()
     gerr = float((o1.grad.float() - o2.grad.float()).abs().max())
     glim = 1e-3 * float(o2.grad.float().abs().max())
-    log(f"fused_loss grad: max abs err {gerr:.3e} (tol {glim:.3e}, 1e-3 of max |grad|)")
+    log(f"fused_loss autograd: max abs err {gerr:.3e} (tol {glim:.3e}, 1e-3 of max |grad|)")
     if not gerr <= glim:
-        fail("fused_loss gradient disagrees with the plain version")
+        fail("fused_loss gradient disagrees with autograd of masked_mae")
+    del o1, o2
 
-    entry = {"name": "fused_loss", "route": "triton",
-             "source": "deep_prior_interpolation_tpu_torch/ops/fused_loss.py",
-             "replaces": "deep_prior_interpolation_tpu/ops/pallas_kernels.py:85",
-             "shape": list(out.shape), "max_abs_err": max_abs,
-             "tolerance": "sums rel 1e-4; loss/snr/mse rel 1e-4; pcorr abs 1e-3; grad 1e-3 of max",
-             "library_ms": None}
-    n = out.numel()
-    entry["ms"] = time_ms(lambda: FL.fused_sums(out, img, mask))
-    entry["plain_ms"] = time_ms(lambda: FL.fused_sums_plain(out, img, mask))
-    # ~17 float32 flops an element; each input read once, 8 sums written
-    n_bytes = n * (out.element_size() + img.element_size() + mask.element_size()) + 8 * 4
-    entry["bound_ms"], entry["bound_by"] = bound_ms(n_bytes, 17.0 * n, torch.float32)
-    return entry
+    fwd = {"name": "fused_loss", "route": "cuda",
+           "source": "deep_prior_interpolation_tpu_torch/csrc/fused_loss.cu",
+           "replaces": "deep_prior_interpolation_tpu/ops/pallas_kernels.py:85",
+           "shape": list(img.shape), "max_abs_err": sums_abs,
+           "tolerance": "sums rel 1e-4; loss/snr/mse rel 1e-4; pcorr abs 1e-3",
+           "library_ms": None, "variants": []}
+    bwd = {"name": "fused_loss_grad", "route": "cuda",
+           "source": "deep_prior_interpolation_tpu_torch/csrc/fused_loss.cu",
+           "replaces": "deep_prior_interpolation_tpu/ops/pallas_kernels.py:128",
+           "shape": list(img.shape), "max_abs_err": grad_abs,
+           "tolerance": "bf16 |k-p| <= 2^-7 |p|; float32 1e-5 of max |p|",
+           "library_ms": None, "variants": []}
+    # times: "ms" and "plain_ms" on the card alone (CUDA-graph replay), the
+    # "eager_" ones back-to-back eager calls, which add the host's dispatch
+    # where it is the longer; both over three copies of the inputs (126-151
+    # MB), so no call finds its inputs in L2
+    fns = {"ms": (FL.fused_sums, FL.loss_sums_grad),
+           "plain_ms": (FL.fused_sums_plain, FL.loss_sums_grad_plain)}
+    for name, out in outs.items():
+        copies = [(out.clone(), img.clone(), mask.clone()) for _ in range(3)]
+        grads = [c + (g_main,) for c in copies]
+        (fb, fby), (bb, bby) = _loss_bounds(n, out.dtype)
+        rows = {"fwd": {"bound_ms": fb, "bound_by": fby},
+                "bwd": {"bound_ms": bb, "bound_by": bby}}
+        for key, (f_fwd, f_bwd) in fns.items():
+            for row, fn, ins in (("fwd", f_fwd, copies), ("bwd", f_bwd, grads)):
+                rows[row][key] = graph_ms(cycling(fn, ins))
+                rows[row]["eager_" + key] = time_ms(cycling(fn, ins))
+        for row, label in (("fwd", "forward"), ("bwd", "backward")):
+            r = rows[row]
+            log(f"fused_loss {label}, {name} out: ms {r['ms']:.4f} (eager {r['eager_ms']:.4f}) "
+                f"plain {r['plain_ms']:.4f} (eager {r['eager_plain_ms']:.4f}) bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}), {r['bound_ms'] / r['ms']:.0%} of "
+                f"the bound's speed")
+        for entry, row in ((fwd, rows["fwd"]), (bwd, rows["bwd"])):
+            if name == "bfloat16":
+                entry.update(row)
+            else:
+                entry["variants"].append({"out_dtype": name, **row})
+        del copies, grads
+    return fwd, bwd
 
 
 # the 24 distinct 3x3x3 stride-1 convs of the flagship MulResUnet 3D
@@ -276,13 +390,15 @@ def reset_counts() -> None:
     from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
     FL.fused_sums.launches = 0
+    FL.loss_sums_grad.launches = 0
     WG.wgrad3d.launches = 0
 
 
 def read_counts() -> dict:
     from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
-    return {"fused_loss": FL.fused_sums.launches, "wgrad3d": WG.wgrad3d.launches}
+    return {"fused_loss": FL.fused_sums.launches,
+            "fused_loss_grad": FL.loss_sums_grad.launches, "wgrad3d": WG.wgrad3d.launches}
 
 
 def check_small_solve(dev) -> None:
@@ -317,7 +433,7 @@ def check_small_solve(dev) -> None:
         f"launches {counts}")
     if not err <= 1e-4:
         fail("the small solve on the card disagrees with the CPU")
-    if counts["fused_loss"] != 6 or counts["wgrad3d"] == 0:
+    if counts["fused_loss"] != 6 or counts["fused_loss_grad"] != 6 or counts["wgrad3d"] == 0:
         fail(f"small solve did not go through the kernels: {counts}")
 
 
@@ -354,12 +470,13 @@ def main_path(dev) -> dict:
     loss = np.asarray(res.history.loss)
     log(f"main path: losses {loss.tolist()}")
     log(f"main path: snr {np.asarray(res.history.snr).tolist()}")
-    log(f"main path: launches {counts} (expected fused_loss 9, wgrad3d {9 * 32})")
+    log(f"main path: launches {counts} (expected fused_loss 9, fused_loss_grad 9, "
+        f"wgrad3d {9 * 32})")
     if not (len(loss) == 9 and np.all(np.isfinite(loss))):
         fail("the flagship loss is not finite for 9 iterations")
     if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
         fail(f"out_best has shape {res.out_best.shape} or is not finite")
-    if counts != {"fused_loss": 9, "wgrad3d": 9 * 32}:
+    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 32}:
         fail(f"the main path's launch counts are {counts}")
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
     log(f"main path: chunk seconds {res.chunk_seconds}")
@@ -384,7 +501,8 @@ def main_path(dev) -> dict:
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
-    ("fused loss (kernel 1)", ("_sums_kernel",)),
+    ("fused loss forward (kernel 1)", ("loss_sums_kernel",)),
+    ("fused loss backward (kernel 1)", ("loss_grad_kernel",)),
     ("cuDNN conv forward", ("fprop",)),
     ("cuDNN conv dgrad", ("dgrad",)),
     ("cuDNN NCDHW<->NDHWC transposes", ("nchwToNhwc", "nhwcToNchw")),
@@ -428,7 +546,6 @@ def main() -> None:
     dev = torch.device("cuda:0")
     # fails here, before any output, when the port is not beside this script
     from deep_prior_interpolation_tpu_torch.ops import _build
-    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -438,8 +555,6 @@ def main() -> None:
 
     t0 = time.time()
     _build.start_builds()
-    probe = torch.ones(8, device=dev)
-    FL.fused_sums(probe, probe, probe)  # Triton compiles while nvcc runs
     for name in _build.SOURCES:
         _build.load_library(name)
     torch.cuda.synchronize()
@@ -447,7 +562,7 @@ def main() -> None:
     for name, text in _build.build_log.items():
         log(f"nvcc {name}:\n{text.strip()}")
 
-    fused = check_fused_loss(dev)
+    fused, fused_grad = check_fused_loss(dev)
     wgrad = check_wgrad(dev)
     torch.cuda.empty_cache()
     check_small_solve(dev)
@@ -456,10 +571,11 @@ def main() -> None:
     if "--profile" in sys.argv[1:]:
         profile_flagship(dev, sys.argv[sys.argv.index("--profile") + 1])
     fused["launches"] = main["counts"]["fused_loss"]
+    fused_grad["launches"] = main["counts"]["fused_loss_grad"]
     wgrad["launches"] = main["counts"]["wgrad3d"]
     log(json.dumps({"main_path": {"s_per_iter": main["s_per_iter"],
                                   "peak_memory_bytes": main["peak_bytes"]}}))
-    log(json.dumps({"kernels": [fused, wgrad]}))
+    log(json.dumps({"kernels": [fused, fused_grad, wgrad]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

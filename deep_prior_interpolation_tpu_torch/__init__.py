@@ -8,9 +8,9 @@ DIP solve of the MulResUnet (2D and 3D)::
     result = DIPSolver(Config(datadim="3d", dtype="bfloat16")).solve(img, mask)
 
 Two hand-written kernels sit on that path, each behind the JAX package's
-switch: the fused masked-loss/metrics reduction in Triton
-(``Config.fused_loss``, ``ops/fused_loss.py``) and the 3D conv weight
-gradient in CUDA C++ for sm_90a (``DPI_PALLAS_WGRAD=1``, ``ops/wgrad.py``).
+switch, both in CUDA C++ for sm_90a: the fused masked-loss/metrics
+reduction and its gradient (``Config.fused_loss``, ``ops/fused_loss.py``)
+and the 3D conv weight gradient (``DPI_PALLAS_WGRAD=1``, ``ops/wgrad.py``).
 """
 from .config import Config
 from .engine import DIPSolver

@@ -220,7 +220,7 @@ def _profiled(profile_dir: str, fn):
     with open(os.path.join(profile_dir, "ops.txt"), "w") as fh:
         fh.write(f"window {wall_us / 1e3:.3f} ms, {'device kernels' if cuda else 'cpu ops'} "
                  f"{busy / 1e3:.3f} ms, busy share {busy / wall_us:.4f}\n")
-        for t, e in rows[:60]:
+        for t, e in rows:
             fh.write(f"{t / 1e3:12.3f} ms {e.count:7d}x  {e.key}\n")
     return out
 

@@ -1,38 +1,38 @@
-"""Fused masked-loss + metrics reduction: a Triton kernel and its plain version.
+"""Fused masked-loss + metrics reduction and its gradient: CUDA kernels for
+sm_90a and their plain versions.
 
 Replaces the Pallas TPU kernel ``deep_prior_interpolation_tpu/ops/pallas_kernels.py``
-(``_metrics_kernel`` reached through ``_fused_sums``). With ``d = (o-t)*m``
+(``_metrics_kernel`` reached through ``_fused_sums``) and the one pass that
+XLA fuses its plain backward ``_loss_sums_bwd`` into. With ``d = (o-t)*m``
 one pass over ``out`` (o), ``img`` (t) and ``mask`` (m) yields eight float32
 sums: sum|d|, sum d^2, sum t^2, sum (t-o)^2, sum t, sum o, sum o^2, sum t*o.
 ``fused_loss_metrics`` combines them into mae, mse, snr and pcorr exactly as
 the JAX package does (one-pass covariance included).
 
-What bounds it on an H100: bytes. No tensor cores and no reuse; at the
-flagship size (4.19 M voxels, bf16 ``out``, f32 ``img``/``mask``) each call
-reads 42 MB, about 12.5 us at 3.35 TB/s, and does ~2 flops per byte read,
-far below the card's ridge. The design reads every input exactly once: each Triton
-program loads one block of the flattened inputs (masked loads, zero in the
-ragged tail, bf16 upcast in registers) and writes its 8 partial sums to an
-``(n_blocks, 8)`` buffer; ``torch.sum`` over the partials is the second stage
-(the JAX package also sums its per-lane partials outside the kernel). No
-float atomics, so the result is deterministic.
+Both kernels are in ``csrc/fused_loss.cu``, with their design and what bounds
+them on an H100 (bytes); ``ops/_build.py`` compiles it with ``nvcc`` at first
+use. The forward is one launch that ends in the 8 sums, bit-identical from
+call to call; the backward one elementwise pass that computes the gradient
+in float32 and rounds it once to ``out``'s dtype, as the JAX package does.
 
-The gradient is analytic and elementwise (plain tensor code, as in the JAX
-package's ``_loss_sums_bwd``), in a ``torch.autograd.Function``.
-
-``fused_sums`` takes the plain version for a tensor on the CPU and launches
-the kernel for a CUDA tensor; ``fused_sums.launches`` counts the launches.
+``fused_sums`` and ``loss_sums_grad`` take their plain versions for tensors
+on the CPU and launch the kernels for CUDA tensors (any other device raises);
+``fused_sums.launches`` and ``loss_sums_grad.launches`` count the launches.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["fused_loss_metrics", "fused_sums", "fused_sums_plain"]
+from . import _build
 
-_BLOCK = 4096  # elements per Triton program
+__all__ = ["fused_loss_metrics", "fused_sums", "fused_sums_plain", "loss_sums_grad",
+           "loss_sums_grad_plain"]
+
+_FORWARD, _BACKWARD = 0, 1
 
 
 def fused_sums_plain(out: torch.Tensor, img: torch.Tensor,
@@ -46,59 +46,138 @@ def fused_sums_plain(out: torch.Tensor, img: torch.Tensor,
                         (t * o).sum()])
 
 
+def loss_sums_grad_plain(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """d/d_out of ``g . fused_sums(out, img, mask)`` as plain tensor code, in
+    float32 and then rounded to out's dtype (the JAX package's
+    ``_loss_sums_bwd``)."""
+    o, t, m = out.float(), img.float(), mask.float()
+    d = (o - t) * m
+    # d/d_out of each sum that depends on out:
+    #   s0 = sum|d|      -> sign(d) * mask
+    #   s1 = sum d^2     -> 2 d mask
+    #   s3 = sum (t-o)^2 -> -2 (t-o)
+    #   s5 = sum o       -> 1
+    #   s6 = sum o^2     -> 2 o
+    #   s7 = sum t o     -> t
+    grad = (g[0] * torch.sign(d) * m
+            + g[1] * 2.0 * d * m
+            + g[3] * (-2.0) * (t - o)
+            + g[5] * torch.ones_like(d)
+            + g[6] * 2.0 * o
+            + g[7] * t)
+    return grad.to(out.dtype)
+
+
 @functools.cache
-def _triton_kernel():
-    import triton
-    import triton.language as tl
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("fused_loss")
+    # without argtypes ctypes would pass each pointer as a 32-bit int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dpi_loss_blocks.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.dpi_loss_sums.argtypes = [p, p, p, ll, i, i, p, p, p, p]
+    lib.dpi_loss_sums_grad.argtypes = [p, p, p, p, p, ll, i, i, p]
+    for fn in (lib.dpi_loss_blocks, lib.dpi_loss_sums, lib.dpi_loss_sums_grad):
+        fn.restype = i
+    return lib
 
-    @triton.jit
-    def _sums_kernel(o_ptr, t_ptr, m_ptr, part_ptr, n, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        valid = offs < n
-        o = tl.load(o_ptr + offs, mask=valid, other=0.0).to(tl.float32)
-        t = tl.load(t_ptr + offs, mask=valid, other=0.0).to(tl.float32)
-        m = tl.load(m_ptr + offs, mask=valid, other=0.0).to(tl.float32)
-        d = (o - t) * m
-        r = t - o
-        base = part_ptr + pid * 8
-        tl.store(base + 0, tl.sum(tl.abs(d), axis=0))
-        tl.store(base + 1, tl.sum(d * d, axis=0))
-        tl.store(base + 2, tl.sum(t * t, axis=0))
-        tl.store(base + 3, tl.sum(r * r, axis=0))
-        tl.store(base + 4, tl.sum(t, axis=0))
-        tl.store(base + 5, tl.sum(o, axis=0))
-        tl.store(base + 6, tl.sum(o * o, axis=0))
-        tl.store(base + 7, tl.sum(t * o, axis=0))
 
-    return _sums_kernel
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+
+@functools.cache
+def _blocks(device: int, which: int, bf16: bool) -> int:
+    """Blocks of a kernel that fit on the card at once: its persistent grid."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(_library().dpi_loss_blocks(which, int(bf16), ctypes.byref(n)),
+               "the fused loss occupancy query")
+    return n.value
+
+
+@functools.cache
+def _scratch(device: int, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's workspace (8 floats a block of the largest grid) and its
+    ticket counter, zeroed once; the kernel leaves it at zero. One pair for
+    each stream, so launches that may overlap never share one."""
+    blocks = max(_blocks(device, _FORWARD, bf16) for bf16 in (False, True))
+    dev = torch.device("cuda", device)
+    return (torch.empty(blocks * 8, dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def _cuda_inputs(name: str, out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor):
+    """The contiguous inputs of a launch, after the checks the kernels need:
+    one CUDA device, bfloat16 or float32 ``out``, float32 ``img`` and
+    ``mask``."""
+    if not out.is_cuda or not (img.device == mask.device == out.device):
+        raise ValueError(f"{name} needs all inputs on one CUDA device, got "
+                         f"{out.device}, {img.device}, {mask.device}")
+    if out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes a float32 or bfloat16 out, got {out.dtype}")
+    if img.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 img and mask, got {img.dtype}, {mask.dtype}")
+    return tuple(v if v.is_contiguous() else v.contiguous() for v in (out, img, mask))
+
+
+def _check_shapes(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor) -> None:
+    if not (out.shape == img.shape == mask.shape):
+        raise ValueError(f"shape mismatch: {out.shape} {img.shape} {mask.shape}")
 
 
 def fused_sums(out: torch.Tensor, img: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
-    """The eight float32 sums, shape (8,). Plain version on the CPU; the
-    Triton kernel on a CUDA tensor (any other device raises)."""
-    if not (out.shape == img.shape == mask.shape):
-        raise ValueError(f"shape mismatch: {out.shape} {img.shape} {mask.shape}")
+    """The eight float32 sums, shape (8,). Plain version on the CPU; one
+    launch of the CUDA kernel on CUDA tensors (any other device raises)."""
+    _check_shapes(out, img, mask)
     if out.device.type == "cpu":
         return fused_sums_plain(out, img, mask)
-    if not out.is_cuda or not (img.device == mask.device == out.device):
-        raise ValueError(f"fused_sums needs all inputs on one CUDA device, got "
-                         f"{out.device}, {img.device}, {mask.device}")
-    for v in (out, img, mask):
-        if v.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"fused_sums takes float32 or bfloat16, got {v.dtype}")
-    o, t, m = (v.contiguous().view(-1) for v in (out, img, mask))
-    n = o.numel()
-    n_blocks = -(-n // _BLOCK)
-    partials = torch.empty((n_blocks, 8), dtype=torch.float32, device=o.device)
-    _triton_kernel()[(n_blocks,)](o, t, m, partials, n, BLOCK=_BLOCK,
-                                  num_warps=8)
+    o, t, m = _cuda_inputs("fused_sums", out, img, mask)
+    dev = o.device.index
+    bf16 = o.dtype == torch.bfloat16
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws, ticket = _scratch(dev, stream)
+    sums = torch.empty(8, dtype=torch.float32, device=o.device)
+    _check(_library().dpi_loss_sums(
+        o.data_ptr(), t.data_ptr(), m.data_ptr(), o.numel(), int(bf16),
+        _blocks(dev, _FORWARD, bf16), ws.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
+        stream), "the fused loss kernel launch")
     fused_sums.launches += 1
-    return partials.sum(dim=0)
+    return sums
 
 
 fused_sums.launches = 0
+
+
+def loss_sums_grad(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """d/d_out of ``g . fused_sums(out, img, mask)`` in out's dtype and shape.
+    Plain version on the CPU; one launch of the CUDA kernel on CUDA tensors
+    (``g`` then on the same device; any other device raises)."""
+    _check_shapes(out, img, mask)
+    if g.numel() != 8:
+        raise ValueError(f"loss_sums_grad takes the 8 gradients of the sums, got {g.numel()}")
+    if out.device.type == "cpu":
+        return loss_sums_grad_plain(out, img, mask, g)
+    o, t, m = _cuda_inputs("loss_sums_grad", out, img, mask)
+    if g.device != o.device or g.dtype != torch.float32:
+        raise ValueError(f"loss_sums_grad takes float32 g on {o.device}, got "
+                         f"{g.dtype} on {g.device}")
+    g = g.contiguous()
+    dev = o.device.index
+    bf16 = o.dtype == torch.bfloat16
+    grad = torch.empty(out.shape, dtype=o.dtype, device=o.device)
+    _check(_library().dpi_loss_sums_grad(
+        o.data_ptr(), t.data_ptr(), m.data_ptr(), g.data_ptr(), grad.data_ptr(), o.numel(),
+        int(bf16), _blocks(dev, _BACKWARD, bf16), torch._C._cuda_getCurrentRawStream(dev)),
+        "the fused loss gradient kernel launch")
+    loss_sums_grad.launches += 1
+    return grad
+
+
+loss_sums_grad.launches = 0
 
 
 class _LossSums(torch.autograd.Function):
@@ -112,21 +191,7 @@ class _LossSums(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out, img, mask = ctx.saved_tensors
-        d = (out - img) * mask
-        # d/d_out of each sum that depends on out:
-        #   s0 = sum|d|      -> sign(d) * mask
-        #   s1 = sum d^2     -> 2 d mask
-        #   s3 = sum (t-o)^2 -> -2 (t-o)
-        #   s5 = sum o       -> 1
-        #   s6 = sum o^2     -> 2 o
-        #   s7 = sum t o     -> t
-        grad = (g[0] * torch.sign(d) * mask
-                + g[1] * 2.0 * d * mask
-                + g[3] * (-2.0) * (img - out)
-                + g[5] * torch.ones_like(d)
-                + g[6] * 2.0 * out
-                + g[7] * img)
-        return grad.to(out.dtype), None, None
+        return loss_sums_grad(out, img, mask, g), None, None
 
 
 def fused_loss_metrics(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,

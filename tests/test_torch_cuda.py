@@ -4,9 +4,9 @@ Imports only torch and the port, so it runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Every test skips without a CUDA card (there is no CPU mode of a Triton or
-CUDA kernel); the CPU tests of the port compare the plain versions with the
-JAX package instead."""
+Every test skips without a CUDA card (a CUDA kernel has no CPU mode); the
+CPU tests of the port compare the plain versions with the JAX package
+instead."""
 import pytest
 import torch
 
@@ -23,17 +23,51 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_fused_sums_kernel_matches_plain(cuda):
-    g = torch.Generator(device=cuda).manual_seed(5)
-    shape = (1, 1, 64, 64, 33)
-    out = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
-    img = torch.randn(shape, generator=g, device=cuda)
-    mask = (torch.rand(shape, generator=g, device=cuda) > 0.5).float()
-    before = FL.fused_sums.launches
-    got = FL.fused_sums(out, img, mask)
-    assert FL.fused_sums.launches == before + 1
-    # float32 sums of 135 k terms in another order
-    torch.testing.assert_close(got, FL.fused_sums_plain(out, img, mask), rtol=1e-5, atol=1e-3)
+def _loss_inputs(dev, n, out_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.randn(n, generator=g, device=dev).to(out_dtype)
+    img = torch.randn(n, generator=g, device=dev)
+    mask = (torch.rand(n, generator=g, device=dev) > 0.5).float()
+    return out, img, mask
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_fused_sums_kernel_matches_plain(cuda, out_dtype):
+    # a ragged n (no multiple of 8 voxels or of a block) on 16-byte aligned
+    # bases, then on bases one element past them: the scalar path
+    n = 64 * 64 * 33 + 5
+    out, img, mask = _loss_inputs(cuda, n + 1, out_dtype, 5)
+    for off in (0, 1):
+        o, t, m = (v[off:off + n] for v in (out, img, mask))
+        before = FL.fused_sums.launches
+        got = FL.fused_sums(o, t, m)
+        assert FL.fused_sums.launches == before + 1
+        # float32 sums of 135 k terms in another order
+        torch.testing.assert_close(got, FL.fused_sums_plain(o, t, m), rtol=1e-5, atol=1e-3)
+        # one launch and no float atomics: repeated calls are bit-identical
+        for _ in range(3):
+            assert torch.equal(FL.fused_sums(o, t, m), got)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_loss_sums_grad_kernel_matches_plain(cuda, out_dtype):
+    n = 64 * 64 * 33 + 5
+    out, img, mask = _loss_inputs(cuda, n + 1, out_dtype, 7)
+    g = torch.randn(8, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    for off in (0, 1):
+        o, t, m = (v[off:off + n] for v in (out, img, mask))
+        before = FL.loss_sums_grad.launches
+        got = FL.loss_sums_grad(o, t, m, g)
+        assert FL.loss_sums_grad.launches == before + 1
+        assert got.dtype == out_dtype and got.shape == o.shape
+        ref = FL.loss_sums_grad_plain(o, t, m, g).float()
+        # the same float32 formula: within one bf16 ulp of the plain value
+        # for bf16, 1e-5 of the largest value for float32
+        err = (got.float() - ref).abs()
+        if out_dtype == torch.bfloat16:
+            assert bool((err <= 2.0 ** -7 * ref.abs()).all())
+        else:
+            assert float(err.max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_fused_loss_gradient_on_cuda(cuda):
@@ -41,9 +75,30 @@ def test_fused_loss_gradient_on_cuda(cuda):
     out = torch.randn((1, 1, 16, 16, 16), generator=g, device=cuda).requires_grad_(True)
     img = torch.randn(out.shape, generator=g, device=cuda)
     mask = (torch.rand(out.shape, generator=g, device=cuda) > 0.5).float()
+    before = FL.loss_sums_grad.launches
     FL.fused_loss_metrics(out, img, mask, "mse")[0].backward()
+    assert FL.loss_sums_grad.launches == before + 1
     ref = 2.0 * (out.detach() - img) * mask * mask / out.numel()
     torch.testing.assert_close(out.grad, ref, rtol=1e-5, atol=1e-9)
+
+
+def test_fused_loss_wrappers_refuse_bad_inputs(cuda):
+    out, img, mask = _loss_inputs(cuda, 64, torch.float32, 9)
+    g = torch.ones(8, device=cuda)
+    with pytest.raises(TypeError):
+        FL.fused_sums(out.half(), img, mask)
+    with pytest.raises(TypeError):
+        FL.fused_sums(out, img.to(torch.bfloat16), mask)
+    with pytest.raises(ValueError):
+        FL.fused_sums(out, img.cpu(), mask)
+    with pytest.raises(ValueError):
+        FL.fused_sums(out, img[:32], mask)
+    with pytest.raises(ValueError):
+        FL.loss_sums_grad(out, img, mask, g.cpu())
+    with pytest.raises(ValueError):
+        FL.loss_sums_grad(out, img, mask, g.double())
+    with pytest.raises(ValueError):
+        FL.loss_sums_grad(out, img, mask, g[:7])
 
 
 @pytest.mark.parametrize("ci,co,sp,k,dtype", [

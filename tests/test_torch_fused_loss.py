@@ -1,9 +1,10 @@
 """The port's fused loss/metrics (ops/fused_loss.py) against the JAX package's
 Pallas kernel run in interpret mode, on the same numpy inputs.
 
-On the CPU the port takes the kernel's plain version; the Triton kernel
-itself is held against that plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+On the CPU the port takes the kernels' plain versions; the CUDA kernels
+themselves are held against those plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py). The gradient of every metric is
+tested in tests/test_torch_fused_loss_grad.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, flax or optax import, nothing of the
-JAX package, and a solver that runs on CUDA unless told to use the CPU."""
+"""The PyTorch port stands alone: no JAX, flax, optax or Triton import,
+nothing of the JAX package, and a solver that runs on CUDA unless told to
+use the CPU."""
 import ast
 from pathlib import Path
 
@@ -42,6 +43,13 @@ def test_package_has_the_slice_modules():
               "models/mulresunet.py", "engine/solver.py", "io/bridge.py"):
         assert m in rel
     assert (PKG / "csrc" / "wgrad3d.cu").exists()
+    assert (PKG / "csrc" / "fused_loss.cu").exists()
+
+
+def test_no_module_imports_triton():
+    # both kernels are CUDA C++ built by nvcc: the port needs no Triton
+    bad = [p.relative_to(PKG).as_posix() for p in MODULES if "triton" in _imported_modules(p)]
+    assert not bad, f"modules that import triton: {bad}"
 
 
 @pytest.mark.parametrize("part", PARTS)
