@@ -32,8 +32,29 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    a hook on the conv's weight gradient checks that the wgrad shapes are the
    24 of phase 2, each as often as listed there.
    A 3-step solve with the kernels off must give the same iteration-0 loss.
+5. the CLI (``cli.run``, on the card by default), three paths, the
+   launch counters set to 0 just before each and read just after:
+   a. a 3D survey at the flagship's width: a (256, 256, 128) hyperbolic
+      volume with 66 % of its traces NaN, written as ``.npy`` files, run
+      with the flagship's flags and ``--patch_shape 256 128 128 --gain 40
+      --epochs 6 --scan_chunk 3 --save_every 3 --pocs --savemodel``: 2
+      patches x 6 iterations, launches 12 / 12 / 384. It checks the bundle
+      keys (the JAX package's), one snapshot and one ``_model.pt`` a patch,
+      the reconstruction of the run directory against each bundle's
+      ``output / 40`` (rtol 1e-6), and that a second run on the same
+      directory skips both patches and launches nothing. It prints each
+      patch's steady s/iteration, the peak memory and the device ms of one
+      ``fk_projection`` at (1, 1, 256, 128, 128) float32;
+   b. the README's command on the bundled lines data (170, 100, 1) with
+      the default 2D net, ``--pocs --fused_loss --epochs 9``: launches 9 / 9,
+      a finite POCS history;
+   c. a checkpoint on the card: the small solve's net (nearest upsampling,
+      deterministic cuDNN), 6 iterations straight, then cut after chunk 1
+      and resumed; the restored state equals the saved one bit for bit and
+      iterations 3-5 agree with the straight run (rtol 1e-4).
 
-The next-to-last line is the ``{"kernels": [...]}`` JSON, the last line
+The ``{"kernels": [...]}`` JSON is the next-to-last line, the ``{"cli":
+...}`` and ``{"main_path": ...}`` lines before it, the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -42,9 +63,11 @@ import collections
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -371,15 +394,29 @@ def check_wgrad(dev):
 # phases 3 and 4: the solver
 # ----------------------------------------------------------------------
 
-def flagship_config(**kw):
-    from deep_prior_interpolation_tpu_torch import Config
-    base = dict(datadim="3d", inputdepth=64, filters=[16, 32, 64, 128, 256],
+FLAGSHIP = dict(datadim="3d", inputdepth=64, filters=[16, 32, 64, 128, 256],
                 skip=[16, 32, 64, 128], upsample="linear", loss="mae", lr=1e-3,
                 gain=40.0, reg_noise_std=0.03, dtype="bfloat16",
                 phase_space=False, remat=False, fused_loss=True, epochs=9,
                 scan_chunk=3)
-    base.update(kw)
-    return Config(**base)
+
+
+def flagship_config(**kw):
+    from deep_prior_interpolation_tpu_torch import Config
+    return Config(**{**FLAGSHIP, **kw})
+
+
+def flagship_flags() -> list:
+    """The flagship's configuration as command-line flags."""
+    flags = []
+    for k, v in FLAGSHIP.items():
+        if v is True:
+            flags.append(f"--{k}")
+        elif isinstance(v, list):
+            flags += [f"--{k}"] + [str(x) for x in v]
+        elif v is not False:
+            flags += [f"--{k}", str(v)]
+    return flags
 
 
 def set_kernels(on: bool) -> None:
@@ -498,6 +535,217 @@ def main_path(dev) -> dict:
     return {"counts": counts, "s_per_iter": steady, "peak_bytes": peak}
 
 
+# ----------------------------------------------------------------------
+# phase 5: the CLI
+# ----------------------------------------------------------------------
+
+# the keys of the JAX package's run bundle, in its order (io/results.py)
+BUNDLE_KEYS = ["device", "elapsed", "elapsed_seconds", "outpath", "history", "mask",
+               "image", "output", "noise", "pocs"]
+
+
+class solves:
+    """Records every ``DIPSolver.solve`` result while the block runs."""
+
+    def __enter__(self):
+        from deep_prior_interpolation_tpu_torch.engine import DIPSolver
+        self.results, self.real, cls = [], DIPSolver.solve, DIPSolver
+
+        def spy(solver, *a, **k):
+            res = self.real(solver, *a, **k)
+            self.results.append(res)
+            return res
+        cls.solve = spy
+        return self
+
+    def __exit__(self, *exc):
+        from deep_prior_interpolation_tpu_torch.engine import DIPSolver
+        DIPSolver.solve = self.real
+
+
+def cli_survey(dev, tmp: str) -> dict:
+    """A 3D survey of two flagship-size patches through ``cli.run``."""
+    from deep_prior_interpolation_tpu_torch import cli
+    from deep_prior_interpolation_tpu_torch.config import parse_arguments
+    from deep_prior_interpolation_tpu_torch.data import (hyperbolic_events,
+                                                         random_trace_mask,
+                                                         reconstruct_patches)
+    from deep_prior_interpolation_tpu_torch.io import load_run
+    from deep_prior_interpolation_tpu_torch.ops.pocs import fk_projection
+
+    vol = hyperbolic_events(256, 256, 128)
+    kept = random_trace_mask(vol.shape, 0.66, 1) > 0
+    np.save(os.path.join(tmp, "original.npy"), vol)
+    np.save(os.path.join(tmp, "corrupted.npy"), np.where(kept, vol, np.nan).astype(np.float32))
+    cfg = parse_arguments(flagship_flags() + [
+        "--imgdir", tmp, "--imgname", "original.npy", "--maskname", "corrupted.npy",
+        "--outdir", "survey", "--datadim", "3d", "--patch_shape", "256", "128", "128",
+        "--gain", "40", "--epochs", "6", "--scan_chunk", "3", "--save_every", "3",
+        "--pocs", "--savemodel"])
+    set_kernels(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with solves() as rec:
+        out = cli.run(cfg, results_root=tmp)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"cli survey: launches {counts} (expected fused_loss 12, fused_loss_grad 12, "
+        f"wgrad3d {2 * 6 * 32})")
+    if counts != {"fused_loss": 12, "fused_loss_grad": 12, "wgrad3d": 2 * 6 * 32}:
+        fail(f"the survey's launch counts are {counts}")
+    if len(rec.results) != 2:
+        fail(f"the survey solved {len(rec.results)} patches, not 2")
+
+    files = set(os.listdir(out))
+    for i, name in enumerate(("0", "1")):
+        for f in (f"{name}_run.npz", f"{name}_output3.npy", f"{name}_model.pt"):
+            if f not in files:
+                fail(f"the survey did not write {f}: {sorted(files)}")
+        with np.load(os.path.join(out, f"{name}_run.npz"), allow_pickle=True) as z:
+            if list(z.files) != BUNDLE_KEYS:
+                fail(f"bundle {name} has keys {z.files}, not {BUNDLE_KEYS}")
+        b = load_run(os.path.join(out, f"{name}_run.npz"))
+        hist = b["history"]
+        if not all(len(v) == 6 and np.all(np.isfinite(v)) for v in hist.values()):
+            fail(f"patch {name}'s history is not 6 finite iterations: {hist}")
+        log(f"cli survey: patch {name} loss {hist['loss']}\n"
+            f"            df {hist['df']}\n            reg {hist['reg']}\n"
+            f"            eps {hist['eps']}\n            th {hist['th']}")
+        if b["output"].shape != (256, 128, 128, 1) or not np.all(np.isfinite(b["pocs"])):
+            fail(f"patch {name}: output {b['output'].shape}, pocs finite "
+                 f"{np.all(np.isfinite(b['pocs']))}")
+        if b["device"] != f"{torch.cuda.get_device_name(0)} (0)":
+            fail(f"patch {name} was solved on {b['device']}")
+
+    rec_vol = reconstruct_patches(cfg, results_dir=out)
+    if rec_vol.shape != (256, 256, 128) or not np.all(np.isfinite(rec_vol)):
+        fail(f"the reconstruction has shape {rec_vol.shape} or is not finite")
+    rel = 0.0
+    for i, name in enumerate(("0", "1")):
+        want = load_run(os.path.join(out, f"{name}_run.npz"))["output"][..., 0] / 40.0
+        w = want.shape[1]  # the patches tile the x axis
+        got = rec_vol[:, w * i:w * (i + 1)]
+        rel = max(rel, float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30))))
+    log(f"cli survey: reconstruction {rec_vol.shape}, max rel err against each bundle's "
+        f"output / 40 {rel:.3e} (tol 1e-6)")
+    if not rel <= 1e-6:
+        fail("the reconstruction disagrees with the bundles")
+
+    reset_counts()
+    with solves() as again:
+        cli.run(cfg, results_root=tmp)
+    if again.results or any(read_counts().values()):
+        fail(f"the resumed survey solved {len(again.results)} patches, "
+             f"launches {read_counts()}")
+    log("cli survey: a second run on the same directory skipped both patches, "
+        "launched nothing")
+
+    steady = [r.chunk_seconds[1] / cfg.scan_chunk for r in rec.results]
+    log(f"cli survey: chunk seconds {[r.chunk_seconds for r in rec.results]}, steady "
+        f"s/iteration {steady}, peak memory {peak / 2**30:.2f} GiB")
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((1, 1, 256, 128, 128), generator=g, device=dev)
+    m = (torch.rand(x.shape, generator=g, device=dev) > 0.66).float()
+    wd, wm = 0.1 * x * m, 1.0 - 0.1 * m
+    fk_ms = time_ms(lambda: fk_projection(x, wd, wm, 5.0))
+    log(f"cli survey: fk_projection (1, 1, 256, 128, 128) float32 {fk_ms:.4f} ms")
+    return {"launches": counts, "s_per_iter": steady, "peak_memory_bytes": peak,
+            "fk_projection_ms": fk_ms}
+
+
+def cli_lines(tmp: str) -> dict:
+    """The README's command on the bundled lines data, with POCS."""
+    from deep_prior_interpolation_tpu_torch import cli
+    from deep_prior_interpolation_tpu_torch.config import parse_arguments
+    from deep_prior_interpolation_tpu_torch.data import dataset_path
+    from deep_prior_interpolation_tpu_torch.engine import HistoryPOCS
+    from deep_prior_interpolation_tpu_torch.io import load_run
+
+    cfg = parse_arguments([
+        "--imgdir", os.path.dirname(dataset_path("lines/original.npy")),
+        "--imgname", "original.npy", "--maskname", "random66.npy", "--datadim", "2d",
+        "--outdir", "lines", "--pocs", "--pocs_alpha", "0.1", "--pocs_thresh", "5",
+        "--fused_loss", "--epochs", "9", "--gain", "1"])
+    reset_counts()
+    out = cli.run(cfg, results_root=tmp)
+    counts = read_counts()
+    hist = load_run(os.path.join(out, "0_run.npz"))["history"]
+    log(f"cli lines: launches {counts} (expected 9, 9, 0), loss {hist['loss']}")
+    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 0}:
+        fail(f"the lines run's launch counts are {counts}")
+    if set(hist) != set(HistoryPOCS.FIELDS) or not all(
+            len(v) == 9 and np.all(np.isfinite(v)) for v in hist.values()):
+        fail(f"the lines run's history is not 9 finite POCS iterations: {hist}")
+    return {"launches": counts, "loss": hist["loss"]}
+
+
+def check_checkpoint(dev, tmp: str) -> dict:
+    """The small solve's net: 6 iterations straight, then cut after chunk 1
+    and resumed, on the card. Its upsampling is nearest, whose backward is a
+    gather, and cuDNN picks deterministic algorithms: the trilinear
+    backward's atomics made two runs of the same state drift apart by 1e-4
+    in 3 iterations, which would hide what the resume does."""
+    from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.io import checkpoint as ckpt_io
+
+    img, mask = flagship_problem(16, 16, 16)
+    cfg = Config(datadim="3d", inputdepth=4, filters=[4, 8, 16], skip=[4, 4],
+                 upsample="nearest", epochs=6, scan_chunk=3, fused_loss=True,
+                 dtype="float32")
+    set_kernels(True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _checkpoint_round_trip(cfg, img, mask, dev, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _checkpoint_round_trip(cfg, img, mask, dev, tmp: str) -> dict:
+    from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+    from deep_prior_interpolation_tpu_torch.io import checkpoint as ckpt_io
+
+    straight = DIPSolver(cfg, device=dev).solve(img, mask, seed=0)
+    path = os.path.join(tmp, "state.npz")
+    seen = {}
+    save, load = ckpt_io.save_solver_state, ckpt_io.load_solver_state
+
+    def spy_save(p, state, extra=None):
+        seen["saved"] = {k: v.clone() for k, v in state.items()}
+        return save(p, state, extra)
+
+    def spy_load(p, template):
+        seen["loaded"] = load(p, template)
+        return seen["loaded"]
+    ckpt_io.save_solver_state, ckpt_io.load_solver_state = spy_save, spy_load
+    try:
+        DIPSolver(Config(**{**cfg.to_dict(), "epochs": 3}), device=dev).solve(
+            img, mask, seed=0, checkpoint_path=path, checkpoint_every=1)
+        resumed = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, checkpoint_path=path)
+    finally:
+        ckpt_io.save_solver_state, ckpt_io.load_solver_state = save, load
+    saved, loaded = seen["saved"], seen["loaded"]
+    same = {k: bool(loaded[k].dtype == v.dtype and loaded[k].device == v.device
+                    and torch.equal(loaded[k], v)) for k, v in saved.items()}
+    log(f"checkpoint: restored state equal to the saved one bit for bit: {same}")
+    if set(loaded) != set(saved) or not all(same.values()):
+        fail("the restored state differs from the saved one")
+    if "cuda" not in str(saved["params"].device):
+        fail(f"the solver state was on {saved['params'].device}, not the card")
+    a, b = np.asarray(resumed.history.loss), np.asarray(straight.history.loss)
+    rel = float(np.max(np.abs(a[3:] - b[3:]) / np.abs(b[3:])))
+    bitwise = bool(np.array_equal(a, b) and np.array_equal(resumed.out_best, straight.out_best))
+    log(f"checkpoint: straight {b.tolist()}\n            resumed  {a.tolist()}\n"
+        f"            max rel err of iterations 3-5 {rel:.3e} (tol 1e-4), "
+        f"history and out_best bit-equal: {bitwise}")
+    if len(a) != 6 or resumed.iters_run != 6 or not rel <= 1e-4:
+        fail("the resumed solve disagrees with the straight one")
+    return {"state_equal": True, "resumed_rel_err": rel, "resumed_bitwise": bitwise}
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -570,11 +818,22 @@ def main() -> None:
     main = main_path(dev)
     if "--profile" in sys.argv[1:]:
         profile_flagship(dev, sys.argv[sys.argv.index("--profile") + 1])
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        survey = cli_survey(dev, tmp)
+        torch.cuda.empty_cache()
+        lines = cli_lines(tmp)
+        checkpoint = check_checkpoint(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     fused["launches"] = main["counts"]["fused_loss"]
     fused_grad["launches"] = main["counts"]["fused_loss_grad"]
     wgrad["launches"] = main["counts"]["wgrad3d"]
     log(json.dumps({"main_path": {"s_per_iter": main["s_per_iter"],
                                   "peak_memory_bytes": main["peak_bytes"]}}))
+    log(json.dumps({"cli": {"survey_3d": survey, "lines_2d": lines,
+                            "checkpoint": checkpoint}}))
     log(json.dumps({"kernels": [fused, fused_grad, wgrad]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,15 +15,21 @@ The optimisation of a MulResUnet on one patch *is* the inference. Each step:
     (percentage min-delta, NaN abort, reset at ``it == 0``);
   * sets the ``done`` flag, which freezes params, Adam state and trackers.
 
+With ``pocs`` the loss gains the POCS term (``pocs_term``); with
+``save_every`` the last output is tracked and snapshot at every multiple of
+``save_every``; with ``checkpoint_path`` the whole state is saved every
+``checkpoint_every`` chunks and a later ``solve`` resumes from it exactly.
+
 All of that state stays on the device as tensors. The host reads it once
-per ``scan_chunk`` iterations: one copy of the chunk's metrics and the
-``done`` flag, which is also the chunk's synchronisation point.
+per chunk: one copy of the chunk's metrics and the ``done`` flag, which is
+also the chunk's synchronisation point.
 
 Features the port does not serve yet raise ``NotImplementedError`` naming
 their ROADMAP item.
 """
 from __future__ import annotations
 
+import json
 import math
 import os
 import time
@@ -34,11 +40,13 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..io import checkpoint as ckpt_io
 from ..models import get_net, init_weights
 from ..ops import losses as L
 from ..ops.fused_loss import fused_loss_metrics
 from ..ops.noise import get_noise
-from .history import History
+from ..ops.pocs import fk_projection
+from .history import History, HistoryPOCS
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
@@ -51,13 +59,23 @@ class StepSettings:
     reg_noise_std: float = 0.03
     orig_spatial: Tuple[int, ...] = ()
     fused_loss: bool = False
+    pocs: bool = False
+    pocs_adaptive: bool = True  # eps = main / reg, else the fixed pocs_weight
+    # eps attached to the graph: eps * reg equals main as a function, so the
+    # term doubles main's gradient (the reference code as it ran); detached,
+    # eps is a constant weight each iteration (the default)
+    pocs_eps_attached: bool = False
+    track_last: bool = False  # keep the last output (snapshots)
 
     @classmethod
     def from_config(cls, cfg: Config, orig_spatial: Tuple[int, ...]) -> "StepSettings":
         return cls(loss=cfg.loss, reg_noise_std=cfg.reg_noise_std,
                    orig_spatial=tuple(orig_spatial),
                    fused_loss=(cfg.fused_loss
-                               and cfg.loss in ("mae", "l1", "mse")))
+                               and cfg.loss in ("mae", "l1", "mse")),
+                   pocs=cfg.pocs, pocs_adaptive=cfg.pocs_weight is None,
+                   pocs_eps_attached=cfg.pocs_eps_mode == "attached",
+                   track_last=cfg.save_every is not None)
 
 
 def check_supported(cfg: Config) -> None:
@@ -66,10 +84,8 @@ def check_supported(cfg: Config) -> None:
     todo = [
         (cfg.virtual_input, "virtual_input", "A.2"),
         ("input" in cfg.opt_over.split(","), "opt_over with 'input'", "A.2"),
-        (cfg.save_every is not None, "save_every snapshots", "A.4"),
         (cfg.param_noise, "param_noise", "A.5"),
         (cfg.data_forgetting_factor > 0, "data_forgetting_factor", "A.5"),
-        (cfg.pocs, "pocs", "A.6"),
         (cfg.filter_noise_with_wavelet, "filter_noise_with_wavelet", "A.7"),
         (bool(cfg.lowpass_fs and cfg.lowpass_fc), "low-pass canvas shaping", "A.7"),
         (cfg.vmap_conv_mode != "grouped", "vmap_conv_mode 'tapmm'", "A.12"),
@@ -92,6 +108,9 @@ def build_hyper(cfg: Config, device: torch.device) -> Dict[str, Any]:
         "lr_patience": int(cfg.lr_patience),
         "es_patience": int(cfg.earlystop_patience or cfg.epochs),
         "es_min_delta": torch.tensor(cfg.earlystop_min_delta, **f32),
+        "pocs_thresh": torch.tensor(cfg.pocs_thresh, **f32),
+        "pocs_weight": torch.tensor(cfg.pocs_weight if cfg.pocs_weight is not None
+                                    else 0.0, **f32),
     }
 
 
@@ -137,12 +156,35 @@ def build_base_input(cfg: Config, generator: torch.Generator,
 
 
 def build_data(img: np.ndarray, mask: np.ndarray, base_input: torch.Tensor,
-               device) -> Dict[str, torch.Tensor]:
+               device, pocs_alpha: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """The per-patch tensors of the step: img/mask (1, C, *spatial) float32
-    and the canvas."""
-    return {"img": _to_channels_first(img, device),
+    and the canvas; with ``pocs_alpha``, the POCS re-insertion weights
+    ``alpha * img * mask`` and ``1 - alpha * mask``."""
+    data = {"img": _to_channels_first(img, device),
             "mask": _to_channels_first(mask, device),
             "base_input": base_input}
+    if pocs_alpha is not None:
+        data["pocs_wdata"] = pocs_alpha * (data["img"] * data["mask"])
+        data["pocs_wmask"] = torch.ones_like(data["mask"]) - pocs_alpha * data["mask"]
+    return data
+
+
+def pocs_term(out: torch.Tensor, main: torch.Tensor, data, hyper,
+              s: StepSettings):
+    """``(total, reg, eps, th)``: the f-k projection of ``out`` (no gradient
+    flows through it), ``reg = mse(out, proj)``, the weight ``eps`` (``main /
+    reg``, or the fixed ``pocs_weight``) and ``total = main + eps * reg``."""
+    with torch.no_grad():
+        proj, th = fk_projection(out, data["pocs_wdata"], data["pocs_wmask"],
+                                 hyper["pocs_thresh"], return_threshold=True)
+    reg = L.mse(out, proj)
+    if s.pocs_adaptive:
+        eps = main / reg
+        if not s.pocs_eps_attached:
+            eps = eps.detach()
+    else:
+        eps = hyper["pocs_weight"].to(main.dtype)
+    return main + eps * reg, reg, eps, th
 
 
 class _FlatParams:
@@ -192,6 +234,11 @@ class SolveResult:
     noise: Optional[np.ndarray] = None
     # wall seconds of each chunk, each ending at the chunk's host read
     chunk_seconds: List[float] = field(default_factory=list)
+    # save_every: the last output (*spatial, C) float32 at each multiple of
+    # save_every below epochs
+    snapshots: Dict[int, np.ndarray] = field(default_factory=dict)
+    # pocs: the f-k projection of the best output (*spatial, C) float32
+    pocs: Optional[np.ndarray] = None
 
 
 def _profiled(profile_dir: str, fn):
@@ -223,6 +270,36 @@ def _profiled(profile_dir: str, fn):
         for t, e in rows:
             fh.write(f"{t / 1e3:12.3f} ms {e.count:7d}x  {e.key}\n")
     return out
+
+
+_TRACKERS = ("lr", "loss_min", "out_best", "out_last", "plateau_best",
+             "plateau_bad", "es_best", "es_bad", "done")
+
+
+def _solver_state(st: Dict[str, Any], gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Every tensor of the solver's state, by name: the flat parameters,
+    Adam's moments and count, the generator's state (a CPU uint8 tensor,
+    also for a CUDA generator) and the trackers."""
+    flat = st["flat"]
+    state = {"params": flat.flat, "mu": flat.mu, "nu": flat.nu, "count": flat.count,
+             "rng": gen.get_state()}
+    state.update({k: st[k] for k in _TRACKERS if k in st})
+    return state
+
+
+def _restore_state(st: Dict[str, Any], gen: torch.Generator,
+                   saved: Mapping[str, torch.Tensor]) -> None:
+    """Put a saved state back. The flat buffers are copied in place: the
+    net's parameters are views into them."""
+    flat = st["flat"]
+    with torch.no_grad():
+        for name, t in (("params", flat.flat), ("mu", flat.mu), ("nu", flat.nu),
+                        ("count", flat.count)):
+            t.copy_(saved[name])
+    gen.set_state(saved["rng"])
+    for k in _TRACKERS:
+        if k in st:
+            st[k] = saved[k]
 
 
 def _resolve_device(cfg: Config, device) -> torch.device:
@@ -275,9 +352,12 @@ class DIPSolver:
                                                      base.dtype, base.device)
         out = _crop_center(model(inp), s.orig_spatial)
         if s.fused_loss:
-            loss, mets = fused_loss_metrics(out, img, mask, loss=s.loss)
+            main, mets = fused_loss_metrics(out, img, mask, loss=s.loss)
         else:
-            loss = L.get_loss_fn(s.loss)(out, img, mask)
+            main = L.get_loss_fn(s.loss)(out, img, mask)
+        loss = main
+        if s.pocs:
+            loss, reg, eps, th = pocs_term(out, main, data, hyper, s)
         grads = torch.autograd.grad(loss, flat.params)
         done, lr = st["done"], st["lr"]
         flat.adam_step(grads, lr, done)
@@ -293,6 +373,8 @@ class DIPSolver:
 
             better = (loss <= st["loss_min"]) & ~done
             st["out_best"] = torch.where(better, out, st["out_best"])
+            if s.track_last:
+                st["out_last"] = torch.where(done, st["out_last"], out)
             st["loss_min"] = torch.where(better, loss, st["loss_min"])
 
             # ReduceLROnPlateau (rel threshold, min mode)
@@ -324,8 +406,47 @@ class DIPSolver:
             st["es_best"] = torch.where(done, eb, eb2)
             st["es_bad"] = torch.where(done, ebad, ebad2)
             st["done"] = done | stop | torch.isnan(loss) | (it + 1 >= hyper["epochs"])
-        return {"loss": loss, "snr": snr_v.float(), "pcorr": pcorr_v.float(),
-                "lr": lr, "recorded": (~done).float()}
+        ys = {"loss": loss, "snr": snr_v.float(), "pcorr": pcorr_v.float(),
+              "lr": lr, "recorded": (~done).float()}
+        if s.pocs:
+            ys.update({"df": main.detach(), "reg": reg.detach(),
+                       "eps": eps.detach().float(), "th": th.float()})
+        return ys
+
+    def _save_checkpoint(self, path: str, st: Dict[str, Any], gen: torch.Generator,
+                         hist: History, chunk_idx: int, iters_run: int) -> None:
+        """The whole state, the position and the history in one ``.npz``.
+        ``stopped`` says whether the solve had ended, so that a resume knows
+        whether stepping again is allowed (only after an epoch-budget stop)."""
+        extra = {"__meta__": np.asarray(json.dumps(
+            {"chunk": chunk_idx, "iters_run": iters_run, "epochs": int(self.cfg.epochs),
+             "stopped": bool(st["done"])}))}
+        for f in hist.FIELDS:
+            extra[f"__hist_{f}__"] = np.asarray(getattr(hist, f), np.float64)
+        ckpt_io.save_solver_state(path, _solver_state(st, gen), extra)
+
+    def _resume(self, path: str, st: Dict[str, Any], gen: torch.Generator,
+                hist: History) -> Tuple[int, int, bool]:
+        """Restore a checkpoint into ``st``, ``gen`` and ``hist``; returns
+        ``(start_chunk, iters_run, final)``. An early-stopped or NaN-aborted
+        state is final: stepping it again would undo the stop decision or
+        write NaN gradients into the frozen parameters. A stop at the epoch
+        budget is reopened when ``epochs`` has grown."""
+        _restore_state(st, gen, ckpt_io.load_solver_state(path, _solver_state(st, gen)))
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"])) if "__meta__" in z.files else {}
+            for f in hist.FIELDS:
+                if f"__hist_{f}__" in z.files:
+                    getattr(hist, f).extend(z[f"__hist_{f}__"].tolist())
+        start_chunk = int(meta.get("chunk", 0))
+        iters_run = int(meta.get("iters_run", 0))
+        if bool(meta.get("stopped", False)):
+            last_nan = bool(hist.loss) and not np.isfinite(hist.loss[-1])
+            budget_stop = iters_run >= int(meta.get("epochs", 0)) and not last_nan
+            if not (budget_stop and self.cfg.epochs > iters_run):
+                return start_chunk, iters_run, True
+        st["done"] = torch.zeros_like(st["done"])
+        return start_chunk, iters_run, False
 
     def solve(self, img: np.ndarray, mask: np.ndarray, seed: int = 0,
               init_params: Optional[Mapping[str, Any]] = None,
@@ -338,11 +459,11 @@ class DIPSolver:
         ``init_params`` is a state dict of the net (transfer learning, or a
         JAX tree through ``io.bridge``); ``noise`` is the fixed input canvas
         as (*padded_spatial, inputdepth), drawn from ``seed`` when None.
-        ``profile_dir`` captures a ``torch.profiler`` trace of the second
-        chunk (see ``_profiled``).
+        ``checkpoint_path`` with ``checkpoint_every`` (in chunks) saves the
+        whole state; a later ``solve`` with the same path, problem and seed
+        resumes where it stopped, exactly. ``profile_dir`` captures a
+        ``torch.profiler`` trace of the second chunk (see ``_profiled``).
         """
-        if checkpoint_path or checkpoint_every:
-            raise NotImplementedError("checkpoint and resume: ROADMAP A.3")
         if spatial_mesh is not None:
             raise NotImplementedError("spatial sharding: ROADMAP A.13")
         cfg, dev = self.cfg, self.device
@@ -362,66 +483,92 @@ class DIPSolver:
             base_input = _to_channels_first(
                 noise, dev, torch.bfloat16 if cfg.dtype == "bfloat16"
                 else torch.float32)
-        data = build_data(img, mask, base_input, dev)
+        data = build_data(img, mask, base_input, dev,
+                          pocs_alpha=cfg.pocs_alpha if s.pocs else None)
         hyper = build_hyper(cfg, dev)
         self._init_model(seed, init_params)
 
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         out_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        out_shape = (1, self.outchannel) + spatial
         st: Dict[str, Any] = {
             "flat": _FlatParams(self.model),
             "lr": torch.tensor(cfg.lr, **f32),
             "loss_min": torch.tensor(math.inf, **f32),
-            "out_best": torch.zeros((1, self.outchannel) + spatial,
-                                    dtype=out_dtype, device=dev),
+            "out_best": torch.zeros(out_shape, dtype=out_dtype, device=dev),
             "plateau_best": torch.tensor(math.inf, **f32),
             "plateau_bad": torch.tensor(0, **i32),
             "es_best": torch.tensor(0.0, **f32),
             "es_bad": torch.tensor(0, **i32),
             "done": torch.tensor(False, device=dev),
         }
+        if s.track_last:
+            st["out_last"] = torch.zeros(out_shape, dtype=out_dtype, device=dev)
 
         chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
+        if cfg.save_every:
+            chunk = math.gcd(chunk, int(cfg.save_every)) or 1
         n_chunks = math.ceil(cfg.epochs / chunk)
-        hist = History(cfg.epochs)
+        hist = HistoryPOCS(cfg.epochs) if s.pocs else History(cfg.epochs)
+        snapshots: Dict[int, np.ndarray] = {}
         chunk_seconds: List[float] = []
         start = time.time()
-        iters_run, stopped = 0, False
+        start_chunk, iters_run, stopped = 0, 0, False
+
+        if checkpoint_path:
+            checkpoint_path = ckpt_io.npz_path(checkpoint_path)
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            start_chunk, iters_run, final = self._resume(checkpoint_path, st, gen, hist)
+            if final:
+                start_chunk, stopped = n_chunks, iters_run < cfg.epochs
+
+        fields = ("loss", "snr", "pcorr", "lr", "recorded")
+        if s.pocs:
+            fields += ("df", "reg", "eps", "th")
 
         def run_chunk(c: int) -> np.ndarray:
             ys = [self._step(it, st, data, hyper, s, gen)
                   for it in range(c * chunk, (c + 1) * chunk)]
             # the one host read of the chunk (and its synchronisation point)
             return torch.stack(
-                [torch.stack([y[f] for y in ys]) for f in
-                 ("loss", "snr", "pcorr", "lr", "recorded")]
+                [torch.stack([y[f] for y in ys]) for f in fields]
                 + [st["done"].float().expand(len(ys))]).cpu().numpy()
 
-        for c in range(n_chunks):
+        for c in range(start_chunk, n_chunks):
             t0 = time.time()
             if profile_dir and c == 1:
                 packed = _profiled(profile_dir, lambda: run_chunk(c))
             else:
                 packed = run_chunk(c)
             chunk_seconds.append(time.time() - t0)
-            host = dict(zip(("loss", "snr", "pcorr", "lr", "recorded", "done"),
-                            packed))
+            host = dict(zip(fields + ("done",), packed))
             n_rec = min(int(host["recorded"].sum()), cfg.epochs - iters_run)
             hist.extend(host, n_rec)
             iters_run += n_rec
             if verbose and n_rec:
                 print(hist.log_message(iters_run - 1), end="\r")
+            end_iter = (c + 1) * chunk
+            if cfg.save_every and end_iter % cfg.save_every == 0 and end_iter < cfg.epochs:
+                snapshots[end_iter] = _to_channels_last(st["out_last"])
+            if checkpoint_path and checkpoint_every and (c + 1) % checkpoint_every == 0:
+                self._save_checkpoint(checkpoint_path, st, gen, hist, c + 1, iters_run)
             if bool(host["done"][0]):
                 stopped = iters_run < cfg.epochs
                 break
         elapsed = time.time() - start
 
+        pocs = None
+        if s.pocs:
+            with torch.no_grad():
+                pocs = _to_channels_last(fk_projection(
+                    st["out_best"].float(), data["pocs_wdata"], data["pocs_wmask"],
+                    hyper["pocs_thresh"]))
         canvas = _crop_center(base_input.float(), spatial)
         return SolveResult(
             out_best=_to_channels_last(st["out_best"]), history=hist,
             params={k: v.detach().cpu().clone()
                     for k, v in self.model.state_dict().items()},
             elapsed=elapsed, iters_run=iters_run, stopped_early=stopped,
-            noise=_to_channels_last(canvas),
-            chunk_seconds=chunk_seconds)
+            noise=_to_channels_last(canvas), chunk_seconds=chunk_seconds,
+            snapshots=snapshots, pocs=pocs)

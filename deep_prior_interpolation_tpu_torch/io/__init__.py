@@ -1,4 +1,13 @@
-"""IO of the PyTorch port: the parameter bridge to the JAX package's trees."""
+"""IO of the PyTorch port: the parameter bridge to the JAX package's trees,
+weights and solver-state checkpoints, and per-patch run bundles."""
 from .bridge import jax_params_to_state_dict, state_dict_to_jax_params
+from .checkpoint import (load_checked, load_params, load_solver_state, npz_path,
+                         save_params, save_solver_state)
+from .results import (completed_patches, create_run_folder, device_name,
+                      load_run, run_bundle_path, save_run)
 
-__all__ = ["jax_params_to_state_dict", "state_dict_to_jax_params"]
+__all__ = ["completed_patches", "create_run_folder", "device_name",
+           "jax_params_to_state_dict", "load_checked", "load_params",
+           "load_run", "load_solver_state", "npz_path", "run_bundle_path",
+           "save_params", "save_run", "save_solver_state",
+           "state_dict_to_jax_params"]

@@ -82,7 +82,7 @@ def test_fused_loss_gradient_on_cuda(cuda):
     torch.testing.assert_close(out.grad, ref, rtol=1e-5, atol=1e-9)
 
 
-def test_fused_loss_wrappers_refuse_bad_inputs(cuda):
+def test_wrappers_refuse_bad_inputs(cuda):
     out, img, mask = _loss_inputs(cuda, 64, torch.float32, 9)
     g = torch.ones(8, device=cuda)
     with pytest.raises(TypeError):
@@ -99,6 +99,13 @@ def test_fused_loss_wrappers_refuse_bad_inputs(cuda):
         FL.loss_sums_grad(out, img, mask, g.double())
     with pytest.raises(ValueError):
         FL.loss_sums_grad(out, img, mask, g[:7])
+    x = torch.randn(1, 2, 4, 4, 4, device=cuda)
+    with pytest.raises(TypeError):
+        WG.wgrad3d(x, x.to(torch.bfloat16), 3)
+    with pytest.raises(ValueError):
+        WG.wgrad3d(x, x.cpu(), 3)
+    with pytest.raises(ValueError):
+        WG.wgrad3d(x.to(torch.bfloat16), x.to(torch.bfloat16), 9)
 
 
 @pytest.mark.parametrize("ci,co,sp,k,dtype", [
@@ -127,11 +134,41 @@ def test_wgrad_kernel_matches_plain(cuda, ci, co, sp, k, dtype):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
 
 
-def test_wgrad_wrapper_refuses_bad_inputs(cuda):
-    x = torch.randn(1, 2, 4, 4, 4, device=cuda)
-    with pytest.raises(TypeError):
-        WG.wgrad3d(x, x.to(torch.bfloat16), 3)
-    with pytest.raises(ValueError):
-        WG.wgrad3d(x, x.cpu(), 3)
-    with pytest.raises(ValueError):
-        WG.wgrad3d(x.to(torch.bfloat16), x.to(torch.bfloat16), 9)
+def test_pocs_solve_and_resume_on_cuda(cuda, tmp_path, monkeypatch):
+    # a tiny 3D DIP+POCS solve with both kernels: against the CPU's plain
+    # versions for 3 iterations (Adam blows ulp-level differences up after
+    # that), then cut after chunk 1 and resumed, against the straight run
+    import numpy as np
+    from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.models import init_weights
+
+    monkeypatch.setenv("DPI_PALLAS_WGRAD", "1")
+    # nearest upsampling (a gather backward, where trilinear's sums with
+    # atomics) and deterministic cuDNN: two card runs of one state agree
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    img, mask = flagship_problem(16, 16, 16)
+    cfg = Config(datadim="3d", inputdepth=4, filters=[4, 8, 16], skip=[4, 4],
+                 upsample="nearest", epochs=6, scan_chunk=3, reg_noise_std=0.0,
+                 fused_loss=True, dtype="float32", pocs=True, save_every=3)
+    noise = (0.1 * np.random.RandomState(0).randn(16, 16, 16, 4)).astype(np.float32)
+    cpu = DIPSolver(cfg, device="cpu")
+    init_weights(cpu.model, torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    kw = dict(seed=0, init_params=init, noise=noise)
+    r_cpu = cpu.solve(img, mask, **kw)
+    launches = WG.wgrad3d.launches, FL.fused_sums.launches, FL.loss_sums_grad.launches
+    straight = DIPSolver(cfg, device=cuda).solve(img, mask, **kw)
+    assert WG.wgrad3d.launches > launches[0]
+    assert (FL.fused_sums.launches - launches[1], FL.loss_sums_grad.launches - launches[2]) == (6, 6)
+    for f in ("loss", "df", "reg", "eps", "th"):
+        a, b = np.asarray(getattr(straight.history, f)), np.asarray(getattr(r_cpu.history, f))
+        np.testing.assert_allclose(a[:3], b[:3], rtol=1e-4)
+    assert sorted(straight.snapshots) == [3] and np.all(np.isfinite(straight.pocs))
+
+    ckpt = str(tmp_path / "state.npz")
+    DIPSolver(Config(**{**cfg.to_dict(), "epochs": 3}), device=cuda).solve(
+        img, mask, checkpoint_path=ckpt, checkpoint_every=1, **kw)
+    resumed = DIPSolver(cfg, device=cuda).solve(img, mask, checkpoint_path=ckpt, **kw)
+    assert resumed.iters_run == 6 and len(resumed.history.loss) == 6
+    np.testing.assert_allclose(resumed.history.loss[3:], straight.history.loss[3:], rtol=1e-4)

@@ -39,8 +39,10 @@ def _imported_modules(path: Path):
 
 def test_package_has_the_slice_modules():
     rel = {p.relative_to(PKG).as_posix() for p in MODULES}
-    for m in ("config.py", "ops/fused_loss.py", "ops/wgrad.py", "ops/conv_vjp.py",
-              "models/mulresunet.py", "engine/solver.py", "io/bridge.py"):
+    for m in ("config.py", "cli.py", "ops/fused_loss.py", "ops/wgrad.py", "ops/conv_vjp.py",
+              "ops/pocs.py", "ops/masks.py", "ops/filters.py", "models/mulresunet.py",
+              "engine/solver.py", "io/bridge.py", "io/checkpoint.py", "io/results.py",
+              "data/patcher.py", "data/pipeline.py", "data/bundled.py", "utils/generic.py"):
         assert m in rel
     assert (PKG / "csrc" / "wgrad3d.cu").exists()
     assert (PKG / "csrc" / "fused_loss.cu").exists()

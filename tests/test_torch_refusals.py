@@ -19,8 +19,7 @@ def tiny_cfg(**kw):
 
 @pytest.mark.parametrize("kw", [
     dict(param_noise=True), dict(data_forgetting_factor=5), dict(dropout=0.1),
-    dict(pocs=True), dict(opt_over="net,input"), dict(save_every=5),
-    dict(virtual_input=True), dict(remat=True), dict(phase_space=True),
+    dict(opt_over="net,input"), dict(virtual_input=True), dict(remat=True), dict(phase_space=True),
     dict(filter_noise_with_wavelet=True), dict(lowpass_fs=250.0, lowpass_fc=40.0),
     dict(spatial_shards=2), dict(net="part"), dict(net="unet"),
     dict(vmap_conv_mode="tapmm"),
