@@ -40,6 +40,12 @@ def hyperbolic_events(nt: int = 256, nx: int = 128, ny: Optional[int] = 128,
     return vol / peak if peak > 0 else vol
 
 
+def source_wavelet(points: int = 51, a: float = 4.0) -> np.ndarray:
+    """Ricker wavelet, float32, for the wavelet shaping of the input canvas."""
+    from ..ops.filters import ricker_wavelet
+    return ricker_wavelet(points, a).numpy()
+
+
 def random_trace_mask(shape, rate: float = 0.66, seed: int = 1) -> np.ndarray:
     """float32 mask of ``shape`` (t, x[, y]) keeping each trace with
     probability 1 - ``rate``; a kept trace is kept at every time sample."""

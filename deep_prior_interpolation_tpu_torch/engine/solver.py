@@ -1,15 +1,23 @@
 """The DIP solver: per-patch optimisation (counterpart of ``engine/solver.py``).
 
-The optimisation of a MulResUnet on one patch *is* the inference. Each step:
+The optimisation of a net on one patch *is* the inference. Each step:
 
-  * adds fresh input noise ``reg_noise_std * N(0, 1)`` to the fixed canvas;
-  * runs the net forward and crops the padding away;
+  * adds fresh input noise ``reg_noise_std * N(0, 1)`` to the canvas, and
+    with ``data_forgetting_factor`` f the decimated data, tiled to the input
+    depth and std-matched, weighted by a 1 -> 1e-4 ramp for f iterations;
+  * with ``param_noise`` perturbs every conv kernel (rank >= 4) by
+    ``N(0, 1) * std(kernel) * 0.02`` (population std); the gradient is
+    taken and the update applied at the perturbed parameters, so the noise
+    stays in them, except where ``done`` keeps the unperturbed ones;
+  * runs the net forward (with the sampling mask, for a net that takes it;
+    with dropout drawn from its own generator) and crops the padding away;
   * computes the masked loss and the SNR / Pearson metrics in float32, from
     the fused loss kernel when ``fused_loss`` (``ops/fused_loss.py``) and
     from ``ops/losses.py`` otherwise;
   * applies Adam written as tensor ops, exactly ``optax.scale_by_adam(0.9,
     0.999, 1e-8)`` followed by ``p - lr * d``, on one flat float32 buffer
-    that all the net's parameters view;
+    that all the net's parameters view, and with ``opt_over="net,input"``
+    on the canvas too, a leaf of its own with its own moments;
   * tracks the best output with ``<=``, ReduceLROnPlateau (relative
     threshold; the cut only when ``lr - new_lr > 1e-8``) and EarlyStopping
     (percentage min-delta, NaN abort, reset at ``it == 0``);
@@ -20,15 +28,27 @@ With ``pocs`` the loss gains the POCS term (``pocs_term``); with
 ``save_every``; with ``checkpoint_path`` the whole state is saved every
 ``checkpoint_every`` chunks and a later ``solve`` resumes from it exactly.
 
+The canvas is drawn from a generator of its own, seeded from ``seed``, and
+shaped along the first spatial axis by a Butterworth low-pass
+(``lowpass_fs``, ``lowpass_fc``). ``virtual_input`` draws it again from that
+generator's first state every step instead of storing it, bit for bit the
+stored canvas (not with input optimisation or shaping). The step noise,
+the parameter noise and dropout draw from three more generators, seeded
+from ``seed`` too; a checkpoint holds the state of each.
+
 All of that state stays on the device as tensors. The host reads it once
 per chunk: one copy of the chunk's metrics and the ``done`` flag, which is
 also the chunk's synchronisation point.
 
-Features the port does not serve yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+Where the JAX package refuses a configuration the port raises the same
+error class: under ``dtype="bfloat16"`` input optimisation, and a net output
+that is not bfloat16 (data forgetting, the partial-conv U-Net), raise
+``TypeError``. Features the port does not serve yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -41,11 +61,13 @@ import torch
 
 from ..config import Config
 from ..io import checkpoint as ckpt_io
-from ..models import get_net, init_weights
+from ..models import get_net, init_weights, set_dropout_generator
 from ..ops import losses as L
+from ..ops.filters import convolve_kernel_1d, lowpass_butterworth_taps
 from ..ops.fused_loss import fused_loss_metrics
-from ..ops.noise import get_noise
+from ..ops.noise import build_forgetting_data, data_forgetting_weights, get_noise
 from ..ops.pocs import fk_projection
+from ..utils.generic import nextpow2
 from .history import History, HistoryPOCS
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -57,6 +79,8 @@ class StepSettings:
     what the ported step reads)."""
     loss: str = "mae"
     reg_noise_std: float = 0.03
+    param_noise: bool = False
+    forget_factor: int = 0
     orig_spatial: Tuple[int, ...] = ()
     fused_loss: bool = False
     pocs: bool = False
@@ -66,28 +90,37 @@ class StepSettings:
     # eps is a constant weight each iteration (the default)
     pocs_eps_attached: bool = False
     track_last: bool = False  # keep the last output (snapshots)
+    takes_mask: bool = False  # the net takes (x, mask)
+    opt_input: bool = False   # optimise the canvas with the net
+    # draw the canvas again every step instead of storing it: only for a raw
+    # noise canvas (no shaping, no input optimisation)
+    virtual_input: bool = False
+    input_shape: Tuple[int, ...] = ()  # (1, inputdepth, *padded)
 
     @classmethod
-    def from_config(cls, cfg: Config, orig_spatial: Tuple[int, ...]) -> "StepSettings":
+    def from_config(cls, cfg: Config, orig_spatial: Tuple[int, ...],
+                    takes_mask: bool = False,
+                    input_shape: Tuple[int, ...] = ()) -> "StepSettings":
+        opt_input = "input" in cfg.opt_over.split(",")
+        shaped = bool(cfg.filter_noise_with_wavelet or (cfg.lowpass_fs and cfg.lowpass_fc)
+                      or cfg.data_forgetting_factor)
         return cls(loss=cfg.loss, reg_noise_std=cfg.reg_noise_std,
+                   param_noise=cfg.param_noise, forget_factor=cfg.data_forgetting_factor,
                    orig_spatial=tuple(orig_spatial),
                    fused_loss=(cfg.fused_loss
                                and cfg.loss in ("mae", "l1", "mse")),
                    pocs=cfg.pocs, pocs_adaptive=cfg.pocs_weight is None,
                    pocs_eps_attached=cfg.pocs_eps_mode == "attached",
-                   track_last=cfg.save_every is not None)
+                   track_last=cfg.save_every is not None, takes_mask=takes_mask,
+                   opt_input=opt_input,
+                   virtual_input=cfg.virtual_input and not opt_input and not shaped,
+                   input_shape=tuple(input_shape))
 
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a solver feature the port lacks
-    (the net's own, such as remat or phase space, raise in ``get_net``)."""
+    (the net's own, phase space, raise in ``get_net``)."""
     todo = [
-        (cfg.virtual_input, "virtual_input", "A.2"),
-        ("input" in cfg.opt_over.split(","), "opt_over with 'input'", "A.2"),
-        (cfg.param_noise, "param_noise", "A.5"),
-        (cfg.data_forgetting_factor > 0, "data_forgetting_factor", "A.5"),
-        (cfg.filter_noise_with_wavelet, "filter_noise_with_wavelet", "A.7"),
-        (bool(cfg.lowpass_fs and cfg.lowpass_fc), "low-pass canvas shaping", "A.7"),
         (cfg.vmap_conv_mode != "grouped", "vmap_conv_mode 'tapmm'", "A.12"),
         (bool(cfg.spatial_shards and cfg.spatial_shards > 1), "spatial_shards", "A.13"),
     ]
@@ -146,27 +179,87 @@ def _to_channels_last(t: torch.Tensor) -> np.ndarray:
 
 
 def build_base_input(cfg: Config, generator: torch.Generator,
-                     padded: Tuple[int, ...], device) -> torch.Tensor:
+                     padded: Tuple[int, ...], device,
+                     wavelet: Optional[np.ndarray] = None) -> torch.Tensor:
     """The fixed input canvas (1, inputdepth, *padded): raw noise times
-    ``noise_std``, stored in bfloat16 when the net computes in bfloat16."""
+    ``noise_std``, stored in bfloat16 when the net computes in bfloat16.
+
+    Optional shaping along the first spatial axis (dim 2): a ``wavelet``
+    convolution (only with ``filter_noise_with_wavelet``; the solver, like
+    the JAX package's, passes none) and the 4th-order Butterworth low-pass
+    of ``lowpass_fc`` / ``lowpass_fs``, designed for ``nfft = 2 **
+    nextpow2(padded[0])``."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     noise = get_noise(generator, (1, cfg.inputdepth) + tuple(padded),
                       cfg.noise_dist, dtype, device)
-    return noise * cfg.noise_std
+    inp = noise * cfg.noise_std
+    if cfg.filter_noise_with_wavelet and wavelet is not None:
+        inp = convolve_kernel_1d(inp, torch.as_tensor(wavelet).to(dtype), axis=2)
+    if cfg.lowpass_fs and cfg.lowpass_fc:
+        taps = lowpass_butterworth_taps(fc=cfg.lowpass_fc, fs=cfg.lowpass_fs,
+                                        ntaps=cfg.lowpass_ntaps, order=4,
+                                        nfft=2 ** nextpow2(padded[0]))
+        inp = convolve_kernel_1d(inp, torch.as_tensor(taps).to(dtype), axis=2)
+    return inp
 
 
-def build_data(img: np.ndarray, mask: np.ndarray, base_input: torch.Tensor,
-               device, pocs_alpha: Optional[float] = None) -> Dict[str, torch.Tensor]:
+def _pop_std(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.std``: population std (ddof 0), the variance rounded to the
+    tensor's dtype before the square root."""
+    return torch.sqrt(t.float().var(correction=0).to(t.dtype))
+
+
+def _centre_pad(t: torch.Tensor, spatial: Tuple[int, ...]) -> torch.Tensor:
+    """Zero-pad the spatial dims of an (N, C, *s) tensor, centred, to ``spatial``."""
+    pads = []
+    for dim, tgt in reversed(list(zip(t.shape[2:], spatial))):
+        d = (tgt - dim) // 2
+        pads += [d, tgt - dim - d]
+    return torch.nn.functional.pad(t, pads)
+
+
+def build_data(img: np.ndarray, mask: np.ndarray, base_input: Optional[torch.Tensor],
+               device, pocs_alpha: Optional[float] = None, forget_factor: int = 0,
+               net_mask_shape: Optional[Tuple[int, ...]] = None
+               ) -> Dict[str, torch.Tensor]:
     """The per-patch tensors of the step: img/mask (1, C, *spatial) float32
-    and the canvas; with ``pocs_alpha``, the POCS re-insertion weights
-    ``alpha * img * mask`` and ``1 - alpha * mask``."""
+    and the canvas (None when it is virtual); with ``pocs_alpha``, the POCS
+    re-insertion weights ``alpha * img * mask`` and ``1 - alpha * mask``;
+    with ``forget_factor``, the forgetting data (``img * mask`` tiled to the
+    canvas's depth, scaled by ``std(canvas) / std(itself)``, centred on the
+    canvas) and its ramp, with a 0 after it; with ``net_mask_shape`` (the
+    canvas's shape), the mask tiled to its depth and centred on it, for a
+    net that takes the mask."""
     data = {"img": _to_channels_first(img, device),
             "mask": _to_channels_first(mask, device),
             "base_input": base_input}
     if pocs_alpha is not None:
         data["pocs_wdata"] = pocs_alpha * (data["img"] * data["mask"])
         data["pocs_wmask"] = torch.ones_like(data["mask"]) - pocs_alpha * data["mask"]
+    if forget_factor > 0:
+        fd = build_forgetting_data(data["img"] * data["mask"], base_input.shape[1])
+        fd = fd * (_pop_std(base_input) / _pop_std(fd))
+        data["forget_data"] = _centre_pad(fd, tuple(base_input.shape[2:]))
+        data["forget_w"] = torch.from_numpy(np.append(
+            data_forgetting_weights(forget_factor), np.float32(0.0))).to(device)
+    if net_mask_shape is not None:
+        nm = build_forgetting_data(data["mask"], net_mask_shape[1])
+        data["net_mask"] = _centre_pad(nm, tuple(net_mask_shape[2:]))
     return data
+
+
+def extract_noise_canvas(s: StepSettings, st: Dict[str, Any], data,
+                         regenerate, spatial: Tuple[int, ...]) -> np.ndarray:
+    """The canvas as (*spatial, inputdepth) float32, the bundle's 'noise':
+    the optimised one under input optimisation, drawn again under
+    ``virtual_input``, else the stored one."""
+    if s.opt_input:
+        canvas = st["flat"].canvas
+    elif s.virtual_input:
+        canvas = regenerate()
+    else:
+        canvas = data["base_input"]
+    return _to_channels_last(_crop_center(canvas.detach().float(), spatial))
 
 
 def pocs_term(out: torch.Tensor, main: torch.Tensor, data, hyper,
@@ -189,9 +282,12 @@ def pocs_term(out: torch.Tensor, main: torch.Tensor, data, hyper,
 
 class _FlatParams:
     """The net's parameters as views into one float32 buffer, with Adam's
-    moments beside it, so the update is a handful of large tensor ops."""
+    moments beside it, so the update is a handful of large tensor ops. An
+    optimised canvas is a leaf of its own beside it (its dtype, its own
+    moments), sharing Adam's count, as ``optax.scale_by_adam`` keeps one
+    count for its whole tree."""
 
-    def __init__(self, model: torch.nn.Module):
+    def __init__(self, model: torch.nn.Module, canvas: Optional[torch.Tensor] = None):
         self.params = [p for p in model.parameters()]
         with torch.no_grad():
             self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
@@ -203,22 +299,72 @@ class _FlatParams:
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.int32, device=self.flat.device)
+        self.canvas = None
+        if canvas is not None:
+            self.canvas = canvas.detach().clone().requires_grad_(True)
+            self.canvas_mu = torch.zeros_like(self.canvas, requires_grad=False)
+            self.canvas_nu = torch.zeros_like(self.canvas, requires_grad=False)
+        # the conv kernels (rank >= 4) that parameter noise perturbs: their
+        # leaves, their flat positions and each leaf's size, made at the
+        # first perturbation (the positions take 8 bytes a parameter)
+        self._kernels = [i for i, p in enumerate(self.params) if p.ndim >= 4]
+        self._kernel_idx = self._kernel_sizes = None
+
+    def leaves(self) -> List[torch.Tensor]:
+        """What the loss is differentiated by: the net's parameters, then
+        the canvas when it is optimised."""
+        return self.params + ([self.canvas] if self.canvas is not None else [])
 
     @torch.no_grad()
-    def adam_step(self, grads, lr: torch.Tensor, done: torch.Tensor) -> None:
+    def perturb(self, generator: torch.Generator) -> torch.Tensor:
+        """Add ``N(0, 1) * std(kernel) * 0.02`` to every conv kernel, in
+        place (population std of each kernel); returns the parameters as
+        they were, which ``adam_step`` keeps where ``done``."""
+        before = self.flat.clone()
+        if self._kernel_idx is None:
+            offs = np.cumsum([0] + [p.numel() for p in self.params])
+            dev = self.flat.device
+            self._kernel_idx = torch.cat(
+                [torch.arange(int(offs[i]), int(offs[i + 1]), device=dev)
+                 for i in self._kernels] or [torch.zeros(0, dtype=torch.int64, device=dev)])
+            self._kernel_sizes = torch.tensor([self.params[i].numel() for i in self._kernels],
+                                              dtype=torch.int64, device=dev)
+        n = self._kernel_idx.numel()
+        if n:
+            stds = torch.stack([self.params[i].std(correction=0) for i in self._kernels])
+            std = torch.repeat_interleave(stds, self._kernel_sizes, output_size=n)
+            noise = torch.randn(n, generator=generator, device=self.flat.device)
+            self.flat.index_add_(0, self._kernel_idx, noise * std * 0.02)
+        return before
+
+    @staticmethod
+    def _adam(g, mu_old, nu_old, bc1, bc2):
+        mu = (1 - _B1) * g + _B1 * mu_old
+        nu = (1 - _B2) * (g ** 2) + _B2 * nu_old
+        return mu, nu, (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
+
+    @torch.no_grad()
+    def adam_step(self, grads, lr: torch.Tensor, done: torch.Tensor,
+                  frozen: Optional[torch.Tensor] = None) -> None:
         """``optax.scale_by_adam(0.9, 0.999, 1e-8)`` then ``p - lr * d``;
-        nothing moves where ``done``."""
-        g = torch.cat([gi.reshape(-1) for gi in grads]).float()
-        mu = (1 - _B1) * g + _B1 * self.mu
-        nu = (1 - _B2) * (g ** 2) + _B2 * self.nu
+        nothing moves where ``done``, and the parameters are then
+        ``frozen`` (the unperturbed ones under parameter noise)."""
+        n_net = len(self.params)
+        g = torch.cat([gi.reshape(-1) for gi in grads[:n_net]]).float()
         count_inc = self.count + 1
         one = torch.ones((), dtype=torch.float32, device=g.device)
         bc1 = 1 - (one * _B1) ** count_inc
         bc2 = 1 - (one * _B2) ** count_inc
-        d = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
-        self.flat.copy_(torch.where(done, self.flat, self.flat - lr * d))
+        mu, nu, d = self._adam(g, self.mu, self.nu, bc1, bc2)
+        keep = self.flat if frozen is None else frozen
+        self.flat.copy_(torch.where(done, keep, self.flat - lr * d))
         self.mu.copy_(torch.where(done, self.mu, mu))
         self.nu.copy_(torch.where(done, self.nu, nu))
+        if self.canvas is not None:
+            mu, nu, d = self._adam(grads[n_net], self.canvas_mu, self.canvas_nu, bc1, bc2)
+            self.canvas.copy_(torch.where(done, self.canvas, self.canvas - lr * d))
+            self.canvas_mu.copy_(torch.where(done, self.canvas_mu, mu))
+            self.canvas_nu.copy_(torch.where(done, self.canvas_nu, nu))
         self.count.copy_(torch.where(done, self.count, count_inc))
 
 
@@ -230,7 +376,8 @@ class SolveResult:
     elapsed: float
     iters_run: int
     stopped_early: bool
-    # the fixed input canvas (*spatial, inputdepth), float32
+    # the input canvas (*spatial, inputdepth), float32: the optimised one
+    # under opt_over="net,input"
     noise: Optional[np.ndarray] = None
     # wall seconds of each chunk, each ending at the chunk's host read
     chunk_seconds: List[float] = field(default_factory=list)
@@ -274,20 +421,36 @@ def _profiled(profile_dir: str, fn):
 
 _TRACKERS = ("lr", "loss_min", "out_best", "out_last", "plateau_best",
              "plateau_bad", "es_best", "es_bad", "done")
+# the generators the step draws from: its input noise, the parameter noise
+# and dropout
+_STEP_GENERATORS = ("noise", "param", "dropout")
 
 
-def _solver_state(st: Dict[str, Any], gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def _generators(seed: int, device) -> Dict[str, torch.Generator]:
+    """The canvas's generator and the step's, each seeded from ``seed`` by
+    a CPU generator, so no two share a stream."""
+    seeds = torch.randint(2 ** 62, (4,), generator=torch.Generator().manual_seed(seed))
+    return {name: torch.Generator(device=device).manual_seed(int(sd))
+            for name, sd in zip(("canvas",) + _STEP_GENERATORS, seeds)}
+
+
+def _solver_state(st: Dict[str, Any], gens: Mapping[str, torch.Generator]
+                  ) -> Dict[str, torch.Tensor]:
     """Every tensor of the solver's state, by name: the flat parameters,
-    Adam's moments and count, the generator's state (a CPU uint8 tensor,
-    also for a CUDA generator) and the trackers."""
+    Adam's moments and count, an optimised canvas with its moments, the
+    step generators' states (CPU uint8 tensors, also for CUDA generators)
+    and the trackers."""
     flat = st["flat"]
-    state = {"params": flat.flat, "mu": flat.mu, "nu": flat.nu, "count": flat.count,
-             "rng": gen.get_state()}
+    state = {"params": flat.flat, "mu": flat.mu, "nu": flat.nu, "count": flat.count}
+    if flat.canvas is not None:
+        state.update({"canvas": flat.canvas.detach(), "canvas_mu": flat.canvas_mu,
+                      "canvas_nu": flat.canvas_nu})
+    state.update({f"rng_{k}": gens[k].get_state() for k in _STEP_GENERATORS})
     state.update({k: st[k] for k in _TRACKERS if k in st})
     return state
 
 
-def _restore_state(st: Dict[str, Any], gen: torch.Generator,
+def _restore_state(st: Dict[str, Any], gens: Mapping[str, torch.Generator],
                    saved: Mapping[str, torch.Tensor]) -> None:
     """Put a saved state back. The flat buffers are copied in place: the
     net's parameters are views into them."""
@@ -296,7 +459,12 @@ def _restore_state(st: Dict[str, Any], gen: torch.Generator,
         for name, t in (("params", flat.flat), ("mu", flat.mu), ("nu", flat.nu),
                         ("count", flat.count)):
             t.copy_(saved[name])
-    gen.set_state(saved["rng"])
+        if flat.canvas is not None:
+            for name, t in (("canvas", flat.canvas), ("canvas_mu", flat.canvas_mu),
+                            ("canvas_nu", flat.canvas_nu)):
+                t.copy_(saved[name])
+    for k in _STEP_GENERATORS:
+        gens[k].set_state(saved[f"rng_{k}"])
     for k in _TRACKERS:
         if k in st:
             st[k] = saved[k]
@@ -342,15 +510,41 @@ class DIPSolver:
                                    for k, v in init_params.items()}, strict=True)
         return model.to(self.device)
 
-    def _step(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings,
-              gen: torch.Generator) -> Dict[str, torch.Tensor]:
-        model, flat = self.model, st["flat"]
-        img, mask, base = data["img"], data["mask"], data["base_input"]
-        inp = base
+    @staticmethod
+    def _net_input(it: int, st: Dict[str, Any], data, s: StepSettings,
+                   gens: Mapping[str, torch.Generator], regenerate) -> torch.Tensor:
+        """The canvas plus this step's perturbations, through which no
+        gradient flows. A function of its own, so that the perturbations
+        and a drawn canvas are freed before the forward."""
+        if s.opt_input:
+            base = st["flat"].canvas
+        elif s.virtual_input:
+            base = regenerate()
+        else:
+            base = data["base_input"]
+        extra = None
         if s.reg_noise_std > 0:
-            inp = base + s.reg_noise_std * get_noise(gen, base.shape, "n",
-                                                     base.dtype, base.device)
-        out = _crop_center(model(inp), s.orig_spatial)
+            extra = s.reg_noise_std * get_noise(gens["noise"], base.shape, "n",
+                                                base.dtype, base.device)
+        if s.forget_factor > 0:
+            # float32 data: a bfloat16 canvas makes a float32 net input
+            fe = data["forget_w"][min(it, s.forget_factor)] * data["forget_data"]
+            extra = fe if extra is None else extra + fe
+        return base if extra is None else base + extra
+
+    def _step(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings,
+              gens: Mapping[str, torch.Generator], regenerate) -> Dict[str, torch.Tensor]:
+        model, flat = self.model, st["flat"]
+        img, mask = data["img"], data["mask"]
+        inp = self._net_input(it, st, data, s, gens, regenerate)
+        frozen = flat.perturb(gens["param"]) if s.param_noise else None
+
+        out = model(inp, data["net_mask"]) if s.takes_mask else model(inp)
+        if out.dtype != st["out_best"].dtype:
+            raise TypeError(f"the net's output is {out.dtype}, the tracked best output "
+                            f"{st['out_best'].dtype}: the JAX package's scan refuses a "
+                            f"carry whose dtype changes")
+        out = _crop_center(out, s.orig_spatial)
         if s.fused_loss:
             main, mets = fused_loss_metrics(out, img, mask, loss=s.loss)
         else:
@@ -358,9 +552,9 @@ class DIPSolver:
         loss = main
         if s.pocs:
             loss, reg, eps, th = pocs_term(out, main, data, hyper, s)
-        grads = torch.autograd.grad(loss, flat.params)
+        grads = torch.autograd.grad(loss, flat.leaves())
         done, lr = st["done"], st["lr"]
-        flat.adam_step(grads, lr, done)
+        flat.adam_step(grads, lr, done, frozen)
 
         with torch.no_grad():
             loss = loss.detach()
@@ -413,8 +607,9 @@ class DIPSolver:
                        "eps": eps.detach().float(), "th": th.float()})
         return ys
 
-    def _save_checkpoint(self, path: str, st: Dict[str, Any], gen: torch.Generator,
-                         hist: History, chunk_idx: int, iters_run: int) -> None:
+    def _save_checkpoint(self, path: str, st: Dict[str, Any],
+                         gens: Mapping[str, torch.Generator], hist: History,
+                         chunk_idx: int, iters_run: int) -> None:
         """The whole state, the position and the history in one ``.npz``.
         ``stopped`` says whether the solve had ended, so that a resume knows
         whether stepping again is allowed (only after an epoch-budget stop)."""
@@ -423,16 +618,16 @@ class DIPSolver:
              "stopped": bool(st["done"])}))}
         for f in hist.FIELDS:
             extra[f"__hist_{f}__"] = np.asarray(getattr(hist, f), np.float64)
-        ckpt_io.save_solver_state(path, _solver_state(st, gen), extra)
+        ckpt_io.save_solver_state(path, _solver_state(st, gens), extra)
 
-    def _resume(self, path: str, st: Dict[str, Any], gen: torch.Generator,
+    def _resume(self, path: str, st: Dict[str, Any], gens: Mapping[str, torch.Generator],
                 hist: History) -> Tuple[int, int, bool]:
-        """Restore a checkpoint into ``st``, ``gen`` and ``hist``; returns
+        """Restore a checkpoint into ``st``, ``gens`` and ``hist``; returns
         ``(start_chunk, iters_run, final)``. An early-stopped or NaN-aborted
         state is final: stepping it again would undo the stop decision or
         write NaN gradients into the frozen parameters. A stop at the epoch
         budget is reopened when ``epochs`` has grown."""
-        _restore_state(st, gen, ckpt_io.load_solver_state(path, _solver_state(st, gen)))
+        _restore_state(st, gens, ckpt_io.load_solver_state(path, _solver_state(st, gens)))
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"])) if "__meta__" in z.files else {}
             for f in hist.FIELDS:
@@ -457,8 +652,9 @@ class DIPSolver:
         """Optimise one patch; ``img``/``mask`` are (*spatial, C) float32.
 
         ``init_params`` is a state dict of the net (transfer learning, or a
-        JAX tree through ``io.bridge``); ``noise`` is the fixed input canvas
-        as (*padded_spatial, inputdepth), drawn from ``seed`` when None.
+        JAX tree through ``io.bridge``); ``noise`` is the input canvas as
+        (*padded_spatial, inputdepth), as it goes into the net (shaped, and
+        stored even under ``virtual_input``), drawn from ``seed`` when None.
         ``checkpoint_path`` with ``checkpoint_every`` (in chunks) saves the
         whole state; a later ``solve`` with the same path, problem and seed
         resumes where it stopped, exactly. ``profile_dir`` captures a
@@ -471,29 +667,49 @@ class DIPSolver:
             raise ValueError("image and mask shapes must match")
         spatial = tuple(img.shape[:-1])
         padded = padded_spatial(spatial, pad_multiple_for(cfg))
-        s = StepSettings.from_config(cfg, spatial)
+        s = StepSettings.from_config(cfg, spatial,
+                                     takes_mask=getattr(self.model, "takes_mask", False),
+                                     input_shape=(1, cfg.inputdepth) + padded)
+        if noise is not None:
+            s = dataclasses.replace(s, virtual_input=False)
+        if s.opt_input and cfg.dtype == "bfloat16":
+            raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
+                            "p - lr * d of the bfloat16 canvas is float32, and the JAX "
+                            "package's scan refuses a carry whose dtype changes")
 
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if noise is None:
-            base_input = build_base_input(cfg, gen, padded, dev)
-        else:
+        gens = _generators(seed, dev)
+        canvas_start = gens["canvas"].get_state()
+
+        def regenerate() -> torch.Tensor:
+            """The raw canvas again, from its generator's first state."""
+            gens["canvas"].set_state(canvas_start)
+            return build_base_input(cfg, gens["canvas"], padded, dev)
+
+        if noise is not None:
             if tuple(noise.shape) != padded + (cfg.inputdepth,):
                 raise ValueError(f"noise must be {padded + (cfg.inputdepth,)}, "
                                  f"got {tuple(noise.shape)}")
             base_input = _to_channels_first(
                 noise, dev, torch.bfloat16 if cfg.dtype == "bfloat16"
                 else torch.float32)
+        elif s.virtual_input:
+            base_input = None
+        else:
+            base_input = build_base_input(cfg, gens["canvas"], padded, dev)
         data = build_data(img, mask, base_input, dev,
-                          pocs_alpha=cfg.pocs_alpha if s.pocs else None)
+                          pocs_alpha=cfg.pocs_alpha if s.pocs else None,
+                          forget_factor=s.forget_factor,
+                          net_mask_shape=s.input_shape if s.takes_mask else None)
         hyper = build_hyper(cfg, dev)
         self._init_model(seed, init_params)
+        set_dropout_generator(self.model, gens["dropout"])
 
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         out_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         out_shape = (1, self.outchannel) + spatial
         st: Dict[str, Any] = {
-            "flat": _FlatParams(self.model),
+            "flat": _FlatParams(self.model, base_input if s.opt_input else None),
             "lr": torch.tensor(cfg.lr, **f32),
             "loss_min": torch.tensor(math.inf, **f32),
             "out_best": torch.zeros(out_shape, dtype=out_dtype, device=dev),
@@ -503,6 +719,8 @@ class DIPSolver:
             "es_bad": torch.tensor(0, **i32),
             "done": torch.tensor(False, device=dev),
         }
+        if s.opt_input:  # the optimised leaf replaces the stored canvas
+            data["base_input"] = base_input = None
         if s.track_last:
             st["out_last"] = torch.zeros(out_shape, dtype=out_dtype, device=dev)
 
@@ -519,7 +737,7 @@ class DIPSolver:
         if checkpoint_path:
             checkpoint_path = ckpt_io.npz_path(checkpoint_path)
         if checkpoint_path and os.path.exists(checkpoint_path):
-            start_chunk, iters_run, final = self._resume(checkpoint_path, st, gen, hist)
+            start_chunk, iters_run, final = self._resume(checkpoint_path, st, gens, hist)
             if final:
                 start_chunk, stopped = n_chunks, iters_run < cfg.epochs
 
@@ -528,7 +746,7 @@ class DIPSolver:
             fields += ("df", "reg", "eps", "th")
 
         def run_chunk(c: int) -> np.ndarray:
-            ys = [self._step(it, st, data, hyper, s, gen)
+            ys = [self._step(it, st, data, hyper, s, gens, regenerate)
                   for it in range(c * chunk, (c + 1) * chunk)]
             # the one host read of the chunk (and its synchronisation point)
             return torch.stack(
@@ -552,7 +770,7 @@ class DIPSolver:
             if cfg.save_every and end_iter % cfg.save_every == 0 and end_iter < cfg.epochs:
                 snapshots[end_iter] = _to_channels_last(st["out_last"])
             if checkpoint_path and checkpoint_every and (c + 1) % checkpoint_every == 0:
-                self._save_checkpoint(checkpoint_path, st, gen, hist, c + 1, iters_run)
+                self._save_checkpoint(checkpoint_path, st, gens, hist, c + 1, iters_run)
             if bool(host["done"][0]):
                 stopped = iters_run < cfg.epochs
                 break
@@ -564,11 +782,10 @@ class DIPSolver:
                 pocs = _to_channels_last(fk_projection(
                     st["out_best"].float(), data["pocs_wdata"], data["pocs_wmask"],
                     hyper["pocs_thresh"]))
-        canvas = _crop_center(base_input.float(), spatial)
         return SolveResult(
             out_best=_to_channels_last(st["out_best"]), history=hist,
             params={k: v.detach().cpu().clone()
                     for k, v in self.model.state_dict().items()},
             elapsed=elapsed, iters_run=iters_run, stopped_early=stopped,
-            noise=_to_channels_last(canvas), chunk_seconds=chunk_seconds,
-            snapshots=snapshots, pocs=pocs)
+            noise=extract_noise_canvas(s, st, data, regenerate, spatial),
+            chunk_seconds=chunk_seconds, snapshots=snapshots, pocs=pocs)

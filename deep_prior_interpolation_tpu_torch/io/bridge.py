@@ -2,10 +2,20 @@
 
 A flax parameter tree (nested dicts of numpy arrays, e.g. from
 ``jax.device_get(params)``) maps onto the port's ``state_dict`` name for
-name: the nested keys joined with '.', conv ``kernel``s transposed from
-channels-last (DHWIO, HWIO in 2D) to PyTorch's OIDHW (OIHW), ``scale`` and
-``bias`` unchanged. Both directions refuse a leaf left unused on either side
-and any shape that does not match.
+name: the nested keys joined with '.' (``nn.scan``'s broadcast parameters
+sit under the scan's own scope name, ``Scan_<Module>_0``, in both), and
+each ``kernel`` moved to PyTorch's layout:
+
+* a conv kernel (``Conv``, flax's ``nn.Conv``), channels-last DHWIO (HWIO
+  in 2D) -> OIDHW (OIHW);
+* an ``nn.ConvTranspose`` kernel (a module named ``ConvTranspose_<n>``),
+  which flax applies unflipped, (*window, in, out) -> PyTorch's
+  ``conv_transpose`` weight (in, out, *window), flipped along every window
+  dim;
+* a ``Dense`` kernel (rank 2), (in, out) -> (out, in).
+
+``scale`` and ``bias`` are unchanged. Both directions refuse a leaf left
+unused on either side and any shape that does not match.
 """
 from __future__ import annotations
 
@@ -26,18 +36,38 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def _io_to_oi(k: np.ndarray) -> np.ndarray:
-    nd = k.ndim - 2
-    return np.ascontiguousarray(np.transpose(k, (nd + 1, nd) + tuple(range(nd))))
+def _kind(name: str, a: np.ndarray) -> str:
+    """'conv', 'transpose', 'dense' for a kernel, else ''."""
+    parts = name.split(".")
+    if parts[-1] != "kernel" or a.ndim < 2:
+        return ""
+    if a.ndim == 2:
+        return "dense"
+    return "transpose" if len(parts) > 1 and parts[-2].startswith("ConvTranspose") else "conv"
 
 
-def _oi_to_io(k: np.ndarray) -> np.ndarray:
-    nd = k.ndim - 2
-    return np.ascontiguousarray(np.transpose(k, tuple(range(2, nd + 2)) + (1, 0)))
+def _to_port(name: str, k: np.ndarray) -> np.ndarray:
+    kind, nd = _kind(name, k), k.ndim - 2
+    if kind == "dense":
+        return np.ascontiguousarray(k.T)
+    if kind == "conv":
+        return np.ascontiguousarray(np.transpose(k, (nd + 1, nd) + tuple(range(nd))))
+    if kind == "transpose":
+        k = np.flip(k, tuple(range(nd)))
+        return np.ascontiguousarray(np.transpose(k, (nd, nd + 1) + tuple(range(nd))))
+    return k
 
 
-def _is_kernel(name: str, a: np.ndarray) -> bool:
-    return name.rsplit(".", 1)[-1] == "kernel" and a.ndim >= 3
+def _to_jax(name: str, k: np.ndarray) -> np.ndarray:
+    kind, nd = _kind(name, k), k.ndim - 2
+    if kind == "dense":
+        return np.ascontiguousarray(k.T)
+    if kind == "conv":
+        return np.ascontiguousarray(np.transpose(k, tuple(range(2, nd + 2)) + (1, 0)))
+    if kind == "transpose":
+        k = np.transpose(k, tuple(range(2, nd + 2)) + (0, 1))
+        return np.ascontiguousarray(np.flip(k, tuple(range(nd))))
+    return k
 
 
 def _check(converted: Dict[str, np.ndarray],
@@ -64,7 +94,7 @@ def jax_params_to_state_dict(params: Mapping[str, Any],
     hold, with its shape: any leaf missing or left over raises.
     """
     flat = _flatten(params)
-    out = {k: (_io_to_oi(v) if _is_kernel(k, v) else v) for k, v in flat.items()}
+    out = {k: _to_port(k, v) for k, v in flat.items()}
     _check(out, like, "jax_params_to_state_dict")
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
 
@@ -79,7 +109,7 @@ def state_dict_to_jax_params(state: Mapping[str, Any],
     flat = {}
     for k, v in state.items():
         a = v.detach().cpu().float().numpy() if torch.is_tensor(v) else np.asarray(v)
-        flat[k] = _oi_to_io(a) if _is_kernel(k, a) else a
+        flat[k] = _to_jax(k, a)
     _check(flat, None if like is None else _flatten(like), "state_dict_to_jax_params")
     tree: Dict[str, Any] = {}
     for k, v in flat.items():

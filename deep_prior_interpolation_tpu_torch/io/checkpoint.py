@@ -7,10 +7,11 @@ Two formats:
   ``load_checked`` first reads the saved run's ``args.txt`` and refuses a
   net whose configuration differs (``net_args_are_same``).
 * the solver's whole state for an exact resume, one ``.npz``: the flat
-  parameter buffer, Adam's ``mu``, ``nu`` and ``count``, the random
-  generator's state, the learning rate, the trackers and ``done``
-  (``save_solver_state`` / ``load_solver_state``). The solver adds its
-  position and history to the same file.
+  parameter buffer, Adam's ``mu``, ``nu`` and ``count``, an optimised
+  canvas with its moments, the states of the step's generators (input
+  noise, parameter noise, dropout), the learning rate, the trackers and
+  ``done`` (``save_solver_state`` / ``load_solver_state``). The solver
+  adds its position and history to the same file.
 
 A JAX ``.msgpack`` weights file needs flax to read; loading one raises
 ``NotImplementedError`` (ROADMAP A.15).

@@ -12,13 +12,26 @@ is a name-for-name transpose.
   ``b`` are formed in float32 and applied in the input dtype.
 * ``Conv`` pads (k-1)//2 on each side, so stride 2 gives ceil(n/2); the
   input and the float32 kernel are cast to the compute dtype, and the bias
-  is added in that dtype.
+  is added in that dtype. ``pad="reflection"`` reflects instead and
+  convolves unpadded.
 * ``upsample``: 'nearest' duplicates samples; any other mode is a
   half-pixel-centre linear resize (``align_corners=False``).
+* ``Dropout`` is flax's, always on when rate > 0: each element is kept with
+  probability 1 - rate and divided by 1 - rate. Its draws come from the
+  explicit generator ``set_dropout_generator`` hands every Dropout of a net.
+* ``Compact`` is the base of the zoo nets: a child is made the first time
+  ``forward`` asks for it, from the tensor it gets, and named as flax names
+  the children of a compact module (``Conv_0``, ``Norm_3``, ...), so the
+  forward reads like the flax module's ``__call__``.
+* ``FlaxConv``, ``ConvTranspose`` and ``Dense`` are flax's ``nn.Conv``,
+  ``nn.ConvTranspose`` and ``nn.Dense``: they compute in the promotion of
+  the input's dtype and float32, and go to cuDNN and cuBLAS (never to the
+  weight-gradient kernel, as the JAX package leaves them to XLA).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import math
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -82,20 +95,24 @@ class Conv(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, ndim: int = 2, use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, pad: str = "zero",
                  phase_in: bool = False, phase_out: bool = False):
         super().__init__()
         if phase_in or phase_out:
             raise NotImplementedError("phase-space Conv: ROADMAP A.12")
         self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
+        self.pad = pad
         self.kernel = nn.Parameter(
             torch.zeros((features, in_channels) + (kernel_size,) * ndim))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype if self.dtype is not None else x.dtype
-        y = conv_same(x.to(dt), self.kernel.to(dt), self.stride,
-                      (self.kernel_size - 1) // 2)
+        p = (self.kernel_size - 1) // 2
+        x = x.to(dt)
+        if self.pad == "reflection" and p > 0:
+            x, p = F.pad(x, (p, p) * (x.ndim - 2), mode="reflect"), 0
+        y = conv_same(x, self.kernel.to(dt), self.stride, p)
         if self.bias is not None:
             y = y + _bcast(self.bias.to(dt), y.ndim)
         return y
@@ -144,13 +161,217 @@ def upsample(x: torch.Tensor, factor: int = 2, mode: str = "nearest") -> torch.T
     return F.interpolate(x, scale_factor=factor, mode=lin, align_corners=False)
 
 
+def downsample_pool(x: torch.Tensor, factor: int, mode: str) -> torch.Tensor:
+    """avg or max pooling of the spatial dims by ``factor`` (floor sizes)."""
+    nd = x.ndim - 2
+    pools = {"avg": (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d),
+             "max": (F.max_pool1d, F.max_pool2d, F.max_pool3d)}
+    if mode not in pools:
+        raise ValueError(f"unknown pooling mode '{mode}'")
+    return pools[mode][nd - 1](x, factor, factor)
+
+
+def symmetry(x: torch.Tensor, axes: Sequence[int] = (-2, -1)) -> torch.Tensor:
+    """Symmetrise over two spatial dims: (x + x^T) / 2 (by default the last
+    two, which are the JAX package's channels-last (-3, -2))."""
+    return (x + torch.swapaxes(x, axes[0], axes[1])) / 2
+
+
+def resample_kernel_1d(factor: int, kernel_type: str, support: Optional[int] = None,
+                       sigma: Optional[float] = None) -> torch.Tensor:
+    """1-D anti-aliasing taps, float32, unit sum: lanczos (half phase), box
+    or gauss."""
+    if kernel_type.startswith("lanczos"):
+        support = support or int(kernel_type[-1]) if kernel_type[-1].isdigit() \
+            else (support or 2)
+        return lanczos_kernel_1d(factor, support)
+    if kernel_type == "box":
+        w = torch.ones((factor,), dtype=torch.float32)
+        return w / torch.sum(w)
+    if kernel_type.startswith("gauss"):
+        sigma = sigma if sigma is not None else 0.5
+        width = 2 * factor + 1
+        n = torch.arange(width, dtype=torch.float32) - (width - 1) / 2.0
+        w = torch.exp(-(n ** 2) / (2 * sigma * sigma))
+        return w / torch.sum(w)
+    raise ValueError(f"wrong resampling kernel name '{kernel_type}'")
+
+
+def lanczos_kernel_1d(factor: int, support: int) -> torch.Tensor:
+    """Half-phase Lanczos taps of width ``2 * support * factor``, float32,
+    unit sum."""
+    width = 2 * support * factor
+    center = (width + 1) / 2.0
+    i = torch.arange(1, width + 1, dtype=torch.float32)
+    d = torch.abs(i + 0.5 - center) / factor
+    val = torch.where(d == 0, torch.ones_like(d),
+                      support * torch.sin(math.pi * d) * torch.sin(math.pi * d / support)
+                      / (math.pi * math.pi * d * d))
+    return val / torch.sum(val)
+
+
+def lanczos_downsample(x: torch.Tensor, factor: int, support: int = 2) -> torch.Tensor:
+    """Separable Lanczos anti-aliased downsample of the spatial dims of an
+    (N, C, *spatial) tensor: per dim, edge padding and a stride-``factor``
+    correlation with the 1-D taps."""
+    taps = lanczos_kernel_1d(factor, support).to(x.device, x.dtype)
+    width = taps.shape[0]
+    pad = (width - factor) // 2
+    for ax in range(2, x.ndim):
+        xm = x.movedim(ax, -1)
+        lead = xm.shape[:-1]
+        xr = F.pad(xm.reshape(-1, 1, xm.shape[-1]), (pad, pad), mode="replicate")
+        y = F.conv1d(xr, taps.view(1, 1, width), stride=factor)
+        x = y.reshape(lead + (y.shape[-1],)).movedim(-1, ax)
+    return x
+
+
 class Dropout(nn.Module):
-    """Dropout at rate 0 (the identity); rate > 0 is not ported yet."""
+    """flax ``nn.Dropout`` (always on when rate > 0): keep each element with
+    probability 1 - rate, a uniform float32 draw from ``generator`` below
+    1 - rate, and divide the kept ones by 1 - rate."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
-        if rate > 0.0:
-            raise NotImplementedError("dropout > 0: ROADMAP A.5")
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        if self.rate <= 0.0 or Compact.building:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("dropout > 0 draws from an explicit generator: "
+                               "call set_dropout_generator(model, generator) first")
+        keep = 1.0 - self.rate
+        kept = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Hand ``generator`` to every Dropout of ``model``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class Compact(nn.Module):
+    """Base of a module whose children are made where ``forward`` first asks
+    for them (``child``), named as flax names the children of a compact
+    module: ``<kind>_<n>``, numbered per kind in call order. ``build`` runs
+    that first forward on a small zero input on the CPU; later calls ask for
+    the same children in the same order."""
+
+    building = False  # a build pass runs: Dropout passes its input through
+
+    def __init__(self):
+        super().__init__()
+        self._order: List[str] = []
+        self._counts: Dict[str, int] = {}
+        self._built = False
+        self._next = 0
+
+    def child(self, kind: str, make: Callable[[], nn.Module],
+              name: Optional[str] = None) -> nn.Module:
+        if not self._built:
+            if name is None:
+                name = f"{kind}_{self._counts.get(kind, 0)}"
+                self._counts[kind] = self._counts.get(kind, 0) + 1
+            self.add_module(name, make())
+            self._order.append(name)
+        else:
+            name = self._order[self._next]
+            self._next += 1
+        return getattr(self, name)
+
+    def __call__(self, *args, **kwargs):
+        self._next = 0
+        out = super().__call__(*args, **kwargs)
+        self._built = True
+        return out
+
+    def build(self, *inputs: torch.Tensor) -> "Compact":
+        """Make every child with one forward on ``inputs`` (no gradient)."""
+        Compact.building = True
+        try:
+            with torch.no_grad():
+                self(*inputs)
+        finally:
+            Compact.building = False
+        return self
+
+
+def _promoted(x: torch.Tensor) -> torch.dtype:
+    """flax's ``promote_dtype`` of an input and a float32 parameter."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class FlaxConv(nn.Module):
+    """flax ``nn.Conv``: symmetric zero padding (k-1)//2, no same-pad gate,
+    computed in the promotion of the input's dtype and float32 (cuDNN).
+    ``init`` names the flax initialiser of its kernel ('lecun' for
+    ``lecun_normal``, 'kaiming' for ``kaiming_normal``, 'orthogonal'), which
+    ``init_weights`` draws for ``inittype='default'``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, ndim: int = 2, use_bias: bool = True,
+                 init: str = "lecun"):
+        super().__init__()
+        self.stride, self.padding = stride, (kernel_size - 1) // 2
+        self.kernel = nn.Parameter(
+            torch.zeros((features, in_channels) + (kernel_size,) * ndim))
+        self.kernel_init = init
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _promoted(x)
+        conv = (F.conv1d, F.conv2d, F.conv3d)[self.kernel.ndim - 3]
+        return conv(x.to(dt), self.kernel.to(dt),
+                    None if self.bias is None else self.bias.to(dt),
+                    stride=self.stride, padding=self.padding)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with ``padding='SAME'`` (output = stride x
+    input). The kernel is PyTorch's (in, out, *window), applied flipped;
+    the bridge flips flax's (*window, in, out) kernel into it."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 4,
+                 stride: int = 2, ndim: int = 2, use_bias: bool = True):
+        super().__init__()
+        k, s = kernel_size, stride
+        # lax.conv_transpose's SAME padding of the dilated input: (a, b)
+        pad_len = k + s - 2
+        a = k - 1 if s > k - 1 else int(math.ceil(pad_len / 2))
+        self.stride, self.padding = s, k - 1 - a
+        self.output_padding = (pad_len - a) - a
+        if self.output_padding < 0:
+            raise ValueError(f"ConvTranspose: k={k}, stride={s} is not supported")
+        self.kernel = nn.Parameter(
+            torch.zeros((in_channels, features) + (kernel_size,) * ndim))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _promoted(x)
+        conv_t = (F.conv_transpose1d, F.conv_transpose2d,
+                  F.conv_transpose3d)[self.kernel.ndim - 3]
+        return conv_t(x.to(dt), self.kernel.to(dt),
+                      None if self.bias is None else self.bias.to(dt),
+                      stride=self.stride, padding=self.padding,
+                      output_padding=self.output_padding)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` on the last dim. The kernel is PyTorch's (out, in);
+    the bridge transposes flax's (in, out)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros((features, in_features)))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _promoted(x)
+        return F.linear(x.to(dt), self.kernel.to(dt),
+                        None if self.bias is None else self.bias.to(dt))

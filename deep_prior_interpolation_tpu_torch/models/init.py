@@ -2,10 +2,12 @@
 
 normal / xavier / kaiming / orthogonal conv-kernel init, zero biases, and
 the reference's Norm-scale init N(10, 10*gain). Kernels are stored OIDHW
-(OIHW in 2D), but the fans, and the matrix that ``orthogonal`` makes
-orthogonal, are those of the JAX package's DHWIO kernel, so both packages
-draw from the same distribution. Draws come from an explicit
-``torch.Generator``; the streams differ from JAX's keys.
+(OIHW in 2D; a transposed conv's (in, out, *window)), but the fans, and the
+matrix that ``orthogonal`` makes orthogonal, are those of the JAX package's
+DHWIO kernel, so both packages draw from the same distribution. Dense
+kernels (rank 2) keep flax's lecun-normal init under every scheme, as in the
+JAX package. Draws come from an explicit ``torch.Generator``; the streams
+differ from JAX's keys.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from .blocks import ConvTranspose
 
 
 def _fans(oi_shape) -> tuple[int, int]:
@@ -43,14 +47,25 @@ def _orthogonal(shape, gain: float, gen: torch.Generator) -> torch.Tensor:
     return _to_oi(k_io)
 
 
+def _truncated(shape, scale: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's variance-scaling 'truncated_normal' (fan_in mode): a normal
+    truncated at +-2 std, with variance scale / fan_in once truncated."""
+    std = math.sqrt(scale / _fans(shape)[0]) / 0.87962566103423978
+    return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
+                                 generator=gen)
+
+
+def _default_kernel(shape, init: str, gen: torch.Generator) -> torch.Tensor:
+    """The kernel a flax module draws by itself: lecun_normal (``Conv``,
+    ``nn.ConvTranspose``, ``Dense``), kaiming_normal (``nn.Conv`` of the
+    partial conv) or orthogonal (the ConvGRU's gates)."""
+    if init == "orthogonal":
+        return _orthogonal(shape, 1.0, gen)
+    return _truncated(shape, 2.0 if init == "kaiming" else 1.0, gen)
+
+
 def _init_kernel(shape, inittype: str, gain: float, gen: torch.Generator) -> torch.Tensor:
     fan_in, fan_out = _fans(shape)
-    if inittype == "default":
-        # flax's lecun_normal: truncated normal (+-2 std) with variance
-        # 1/fan_in, the std corrected for the truncation
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-        return nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
-                                     generator=gen)
     if inittype == "normal":
         return gain * torch.randn(shape, generator=gen)
     if inittype == "xavier":
@@ -71,21 +86,27 @@ def init_weights(model: nn.Module, gen: torch.Generator, inittype: str = "xavier
     """Re-draw ``model``'s parameters in place with the chosen scheme.
 
     * conv kernels (parameters named 'kernel', rank >= 3) -> ``inittype``
-    * conv biases -> 0
+    * Dense kernels (rank 2) -> flax's lecun normal
+    * biases -> 0
     * Norm 'scale' -> N(10, 10*gain)   [reference quirk]
-    * Norm 'bias' -> 0
 
     ``inittype='default'`` draws flax's own initialisers instead, as the
-    JAX package keeps them: lecun-normal kernels, Norm scale 1, biases 0.
+    JAX package keeps them: each kernel its module's (``kernel_init``,
+    lecun normal unless the module says otherwise), Norm scale 1, biases 0.
     """
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel" and p.ndim >= 3:
-            p.copy_(_init_kernel(tuple(p.shape), inittype, gain, gen))
-        elif leaf == "scale" and inittype == "default":
-            p.fill_(1.0)
-        elif leaf == "scale":
-            p.copy_(10.0 + 10.0 * gain * torch.randn(p.shape, generator=gen))
-        elif leaf == "bias":
-            p.zero_()
+    for _, m in model.named_modules():
+        for leaf, p in m.named_parameters(recurse=False):
+            if leaf == "kernel" and p.ndim >= 3:
+                io = isinstance(m, ConvTranspose)  # (in, out, *window)
+                oi = (p.shape[1], p.shape[0]) + tuple(p.shape[2:]) if io else tuple(p.shape)
+                k = (_default_kernel(oi, getattr(m, "kernel_init", "lecun"), gen)
+                     if inittype == "default" else _init_kernel(oi, inittype, gain, gen))
+                p.copy_(k.transpose(0, 1) if io else k)
+            elif leaf == "kernel":
+                p.copy_(_truncated(tuple(p.shape), 1.0, gen))
+            elif leaf == "scale":
+                p.copy_(torch.ones_like(p) if inittype == "default"
+                        else 10.0 + 10.0 * gain * torch.randn(p.shape, generator=gen))
+            elif leaf == "bias":
+                p.zero_()
     return model

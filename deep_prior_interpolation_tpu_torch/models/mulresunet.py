@@ -9,6 +9,12 @@ ResPath as Norm-then-Dropout.
 Child modules are created in the order the flax module calls them and carry
 its auto-names (``MultiResBlock_0``, ``ResPath_0``, ``Conv_0``, ``Norm_0``,
 ...), so the parameters of one package map onto the other's by name.
+
+``remat`` runs each MultiResBlock and ResPath of the chosen levels under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes their
+insides instead of keeping them: level 0 is the first block, level i its
+skip path, encoder and decoder. The names stay those of the plain net (flax
+prefixes a remat block's name with ``Checkpoint``).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (Conv, ConvNormAct, Dropout, Norm, concat_crop,
                      get_activation, upsample)
@@ -95,11 +102,37 @@ class ResPath(nn.Module):
         return x
 
 
+def checkpointed(module: nn.Module, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``module(x)`` whose backward recomputes the forward. A recompute
+    draws its dropout masks from the generator state the forward started
+    from, so it rebuilds the same masks, and leaves the generator where the
+    step has moved it (``torch.utils.checkpoint`` restores only the global
+    generators)."""
+    if generator is None:
+        return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    first = [True]
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        if first[0]:
+            first[0] = False
+            return module(h)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return module(h)
+        finally:
+            generator.set_state(now)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class MulResUnet(nn.Module):
     """MultiRes U-Net (2D when ndim=2, 3D when ndim=3), input (1, C, *spatial).
 
     ``dtype=torch.bfloat16`` runs every conv in bf16 (parameters and Norm
     statistics stay float32); the output is cast back to the input dtype.
+    ``remat_levels`` None checkpoints every level, N the N largest.
     """
 
     def __init__(self, in_channels: int, out_channels: int = 1, ndim: int = 2,
@@ -108,15 +141,15 @@ class MulResUnet(nn.Module):
                  act: str = "LeakyReLU", last_act: Optional[str] = None,
                  use_bias: bool = True, upsample_mode: str = "nearest",
                  dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
-                 remat: bool = False, phase_space: bool = False):
+                 remat: bool = False, remat_levels: Optional[int] = None,
+                 phase_space: bool = False):
         super().__init__()
         if len(filters) != len(skip) + 1:
             raise ValueError("filters must be one longer than skip")
-        if remat:
-            raise NotImplementedError("remat (torch.utils.checkpoint): ROADMAP A.1")
         if phase_space:
             raise NotImplementedError("phase-space execution: ROADMAP A.12")
         self.ndim, self.dtype = ndim, dtype
+        self.remat, self.remat_levels = remat, remat_levels
         self.filters, self.skip = tuple(filters), tuple(skip)
         self.upsample_mode = upsample_mode
         self.act = get_activation(act)
@@ -165,25 +198,33 @@ class MulResUnet(nn.Module):
         self.head = add("Conv", Conv(c0, out_channels, 1 if ndim == 2 else 3,
                                      ndim=ndim, use_bias=use_bias, dtype=dtype))
 
+    def _block(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
+        """A MultiResBlock or ResPath of ``level``, checkpointed where remat
+        covers the level."""
+        m = self.get_submodule(name)
+        if not self.remat or (self.remat_levels is not None and level >= self.remat_levels):
+            return m(x)
+        return checkpointed(m, x, self.drop.generator if self.drop.rate > 0 else None)
+
     def _level(self, i: int, h: torch.Tensor) -> torch.Tensor:
         names = self.levels[i]
-        s = self.get_submodule(names["path"])(h) if names["path"] else None
+        s = self._block(names["path"], i, h) if names["path"] else None
         d = self.get_submodule(names["down"])(h)
         if names["norm"]:
             d = self.get_submodule(names["norm"])(d)
         d = self.drop(self.act(d))
-        d = self.get_submodule(names["enc"])(d)
+        d = self._block(names["enc"], i, d)
         if i < len(self.filters) - 1:
             d = self._level(i + 1, d)
         d = upsample(d, 2, self.upsample_mode)
         y = concat_crop([s, d]) if s is not None else d
-        return self.get_submodule(names["dec"])(y)
+        return self._block(names["dec"], i, y)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = self.get_submodule(self.block0)(x)
+        x = self._block(self.block0, 0, x)
         x = self._level(1, x)
         x = self.last_act(self.get_submodule(self.head)(x))
         return x.to(in_dtype)

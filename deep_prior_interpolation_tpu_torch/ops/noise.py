@@ -40,3 +40,11 @@ def data_forgetting_weights(factor: int) -> np.ndarray:
         return np.zeros((0,), np.float32)
     return np.logspace(0, -4, factor).astype(np.float32)
 
+
+def build_forgetting_data(img_masked: torch.Tensor, inputdepth: int) -> torch.Tensor:
+    """The decimated data (N, C, *spatial) tiled along channels to
+    ``inputdepth`` channels; the caller normalises its std."""
+    reps = -(-inputdepth // img_masked.shape[1])  # ceil
+    tiled = img_masked.repeat((1, reps) + (1,) * (img_masked.ndim - 2))
+    return tiled[:, :inputdepth]
+

@@ -1,7 +1,7 @@
 """The 3D weight-gradient kernel (csrc/wgrad3d.cu) against its plain version
 on a CUDA card, at the edges of its plan: flattened rows, partial bands,
-short D, channel tiles, swapped roles, large k, the plain-load path and
-determinism.
+short D, channel tiles, swapped roles, large k, the plain-load path,
+determinism, and the model zoo's edge shapes.
 
 Imports only torch and the port, so it runs where JAX is not installed:
 
@@ -61,6 +61,8 @@ def _check(x, dy, k):
     (9, 5, (5, 6, 20), 3, torch.bfloat16),         # W % 8 != 0: plain loads
     (105, 35, (8, 16, 16), 3, torch.float32),      # float32, a deep shape
     (7, 9, (5, 9, 12), 5, torch.float32),          # float32, Co > Ci, k = 5
+    (256, 256, (8, 4, 4), 3, torch.bfloat16),      # SkipNet's deepest level: W = 4
+    (32, 1, (16, 32, 32), 3, torch.float32),       # PartialUNet's head: Co = 1, float32
 ])
 def test_wgrad_kernel_matches_plain(cuda, ci, co, sp, k, dtype):
     x, dy = _inputs(cuda, ci, co, sp, dtype)
