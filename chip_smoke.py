@@ -3,6 +3,7 @@
     python3 chip_smoke.py                # kernels + flagship solve
     python3 chip_smoke.py --profile DIR  # also trace one 3-iteration chunk
                                          # of the flagship solve into DIR
+    python3 chip_smoke.py --resume-child DIR  # phase 5c's resuming process
 
 Phases, each of which ends the run with a non-zero exit code on failure:
 
@@ -21,6 +22,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    come from a CUDA graph of many calls, over copies of the inputs that
    together exceed L2; the eager times are printed beside them. The sum of launches x ms over
    the 32 wgrad launches of an iteration is printed as wgrad ms/iteration.
+   The linear upsample's backward (``upsample_bwd``, a gather) at the
+   flagship's four upsample shapes in bf16 and float32 (bf16: within one
+   bf16 rounding of the float32 sum; float32: 1e-6 of max |g|), repeated
+   calls bit-identical, its time beside its bound and the atomic backward of
+   ``F.interpolate`` (``upsample_trilinear3d_backward``).
 3. small: a tiny 3D solve with both kernels on the card against the same
    solve on the CPU (plain versions), same canvas and weights.
 4. main path: ``DIPSolver(cfg).solve(img, mask, seed=0)`` on the flagship
@@ -28,9 +34,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    bf16, ``fused_loss`` and ``DPI_PALLAS_WGRAD=1``, 9 iterations in chunks
    of 3. The launch counters are set to 0 just before and read just after;
    every kernel must have launched (fused loss forward and backward 9 times
-   each, wgrad 9 x 32), and
-   a hook on the conv's weight gradient checks that the wgrad shapes are the
-   24 of phase 2, each as often as listed there.
+   each, wgrad 9 x 32, upsample_bwd 9 x 4), and
+   hooks on the conv's weight gradient and the upsample's backward check that
+   their shapes are the 24 and the 4 of phase 2, each as often as listed there.
    A 3-step solve with the kernels off must give the same iteration-0 loss.
 5. the CLI (``cli.run``, on the card by default), three paths, the
    launch counters set to 0 just before each and read just after:
@@ -38,7 +44,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       volume with 66 % of its traces NaN, written as ``.npy`` files, run
       with the flagship's flags and ``--patch_shape 256 128 128 --gain 40
       --epochs 6 --scan_chunk 3 --save_every 3 --pocs --savemodel``: 2
-      patches x 6 iterations, launches 12 / 12 / 384. It checks the bundle
+      patches x 6 iterations, launches 12 / 12 / 384 / 48. It checks the bundle
       keys (the JAX package's), one snapshot and one ``_model.pt`` a patch,
       the reconstruction of the run directory against each bundle's
       ``output / 40`` (rtol 1e-6), and that a second run on the same
@@ -48,10 +54,15 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    b. the README's command on the bundled lines data (170, 100, 1) with
       the default 2D net, ``--pocs --fused_loss --epochs 9``: launches 9 / 9,
       a finite POCS history;
-   c. a checkpoint on the card: the small solve's net (nearest upsampling,
-      deterministic cuDNN), 6 iterations straight, then cut after chunk 1
-      and resumed; the restored state equals the saved one bit for bit and
-      iterations 3-5 agree with the straight run (rtol 1e-4).
+   c. an exact resume on the card, in another process: the flagship net and
+      volume (trilinear, bf16, fused loss, ``DPI_PALLAS_WGRAD=1``), 6
+      iterations straight with a checkpoint path (so with deterministic
+      cuDNN, which the solver sets), then 3 iterations saved after each
+      chunk and resumed to 6 in a fresh Python process (this script with
+      ``--resume-child DIR``), whose wgrad tuner starts empty and takes the
+      checkpoint's grids without timing any; history and ``out_best`` must
+      be bit-equal to the straight run's. The straight run's s/iteration
+      stands beside phase 4's (the cost of deterministic cuDNN).
 
 6. the solver options and the model zoo at full width, the launch counters
    set to 0 just before each run and read just after:
@@ -69,12 +80,14 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    e. ``--net skip`` and ``--net unet`` (bf16) and ``--net part`` (float32,
       the only dtype the JAX package runs it in) at the flagship volume and
       flags: a spy on ``conv_same`` counts the convs the wgrad gate admits
-      (launches = admitted x 6, fused 6 / 6) and prints those it turns away
+      (launches = admitted x 6, fused 6 / 6, upsample_bwd 6 x the net's
+      linear upsamples) and prints those it turns away
       to ``conv3d_weight``; every wgrad shape that phase 2 did not check is
       held against its plain version (1e-4 of max |dW| + 1e-4) and timed
       beside its bound and ``conv3d_weight`` (TF32 off for float32);
    f. the README's 2D command with ``--net attmultiunet``, then ``--net
-      part`` (the mask through the CLI): 9 / 9 / 0 each;
+      part`` (the mask through the CLI): 9 / 9 / 0 each, upsample_bwd 36
+      (its attention gates' bilinear upsamples) and 0;
    g. the ConvGRU ``Ensemble``: one forward and backward on the card in
       float32 against the CPU in float64.
 
@@ -341,6 +354,84 @@ PLAIN_TIMED = {(64, 4), (4, 8), (8, 13), (25, 16), (67, 4), (25, 1), (137, 8), (
 FLOAT32_SHAPES = [(25, 16, _L[0]), (554, 35, _L[3])]
 
 
+# the flagship's four trilinear upsamples (C, input spatial), one backward
+# launch each an iteration
+UPSAMPLE_SHAPES = [(426, _L[4]), (212, _L[3]), (105, _L[2]), (51, _L[1])]
+
+
+def check_upsample(dev):
+    """The upsample backward against its plain version at the flagship's
+    shapes, bf16 (the main path's) and float32, and timed beside its bound
+    and the atomic backward of ``F.interpolate``."""
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows, max_abs, per_iter, lib_iter = [], 0.0, 0.0, 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        for c, sp in UPSAMPLE_SHAPES:
+            out_sp = tuple(2 * s for s in sp)
+            go = torch.randn((1, c) + out_sp, generator=g, device=dev).to(dt)
+            got = U.upsample_bwd(go, 3)
+            torch.cuda.synchronize()
+            ref32 = U.upsample_bwd_plain(go.float(), 3)
+            ref = ref32.to(dt)
+            err32 = (got.float() - ref32).abs()
+            if dt == torch.bfloat16:
+                # round to nearest: within half a bf16 ulp, 2^-8 of |sum|
+                ok = bool((err32 <= 2.0 ** -8 * ref32.abs()).all())
+                tol = "|k - p32| <= 2^-8 |p32| per element (one bf16 rounding)"
+            else:
+                lim = 1e-6 * float(go.abs().max())
+                ok = float(err32.max()) <= lim
+                tol = f"{lim:.3e}, 1e-6 of max |g|"
+            equal = torch.equal(got, ref)
+            same = all(torch.equal(U.upsample_bwd(go, 3), got) for _ in range(3))
+            max_abs = max(max_abs, float((got.float() - ref.float()).abs().max()))
+            log(f"upsample_bwd {c} x {sp} {name}: max abs err to the float32 sum "
+                f"{float(err32.max()):.3e} (tol {tol}), bit-equal to the plain version "
+                f"{equal}, 3 repeated calls bit-identical {same}")
+            if not ok:
+                fail(f"upsample_bwd {c} x {sp} {name} disagrees with the plain version")
+            if not same:
+                fail(f"upsample_bwd {c} x {sp} {name} differs from call to call")
+            del got, ref, ref32, err32
+            row = {"channels": c, "spatial": list(sp), "dtype": name,
+                   "launches_per_iteration": 1 if dt == torch.bfloat16 else 0,
+                   "bit_equal_to_plain": equal}
+            row["ms"] = time_ms(lambda: U.upsample_bwd(go, 3))
+            row["plain_ms"] = time_ms(lambda: U.upsample_bwd_plain(go, 3))
+            sizes = [1, c, *sp]
+            row["library_ms"] = time_ms(lambda: torch.ops.aten.upsample_trilinear3d_backward(
+                go, list(out_sp), sizes, False, 2.0, 2.0, 2.0))
+            n_in = c * math.prod(sp)
+            # grad_out read once (8 x), grad_in written once; 7 flops an
+            # output of each of the three passes (4 + 2 + 1 per input)
+            row["bound_ms"], row["bound_by"] = bound_ms(9 * n_in * go.element_size(),
+                                                        49.0 * n_in, torch.float32)
+            log(f"  ms {row['ms']:.4f} plain {row['plain_ms']:.4f} atomic F.interpolate "
+                f"backward {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.0%} of the bound's speed")
+            per_iter += row["launches_per_iteration"] * row["ms"]
+            lib_iter += row["launches_per_iteration"] * row["library_ms"]
+            rows.append(row)
+            del go
+    log(f"upsample_bwd ms/iteration over the {len(UPSAMPLE_SHAPES)} bf16 launches: "
+        f"{per_iter:.4f} (atomic F.interpolate backward {lib_iter:.4f})")
+    entry = {"name": "upsample_bwd", "route": "cuda",
+             "source": "deep_prior_interpolation_tpu_torch/csrc/upsample.cu",
+             "replaces": "deep_prior_interpolation_tpu/models/blocks.py:255",
+             "max_abs_err": max_abs, "ms_per_iteration": per_iter,
+             "library_ms_per_iteration": lib_iter,
+             "tolerance": "bf16 one rounding of the float32 sum; float32 1e-6 of max |g|",
+             "shapes": rows}
+    head = rows[len(UPSAMPLE_SHAPES) - 1]  # the largest, 51 x (128, 64, 64) bf16
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        entry[key] = head[key]
+    entry["shape"] = [head["channels"]] + head["spatial"]
+    return entry
+
+
 def _valid_products(sp, k: int) -> int:
     """Positions x taps that read inside the volume (the padding taps do no work)."""
     p = (k - 1) // 2
@@ -457,17 +548,21 @@ def set_kernels(on: bool) -> None:
 
 def reset_counts() -> None:
     from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
     FL.fused_sums.launches = 0
     FL.loss_sums_grad.launches = 0
     WG.wgrad3d.launches = 0
+    U.upsample_bwd.launches = 0
 
 
 def read_counts() -> dict:
     from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
     return {"fused_loss": FL.fused_sums.launches,
-            "fused_loss_grad": FL.loss_sums_grad.launches, "wgrad3d": WG.wgrad3d.launches}
+            "fused_loss_grad": FL.loss_sums_grad.launches, "wgrad3d": WG.wgrad3d.launches,
+            "upsample_bwd": U.upsample_bwd.launches}
 
 
 def check_small_solve(dev) -> None:
@@ -502,7 +597,8 @@ def check_small_solve(dev) -> None:
         f"launches {counts}")
     if not err <= 1e-4:
         fail("the small solve on the card disagrees with the CPU")
-    if counts["fused_loss"] != 6 or counts["fused_loss_grad"] != 6 or counts["wgrad3d"] == 0:
+    if counts["fused_loss"] != 6 or counts["fused_loss_grad"] != 6 or counts["wgrad3d"] == 0 \
+            or counts["upsample_bwd"] != 6 * 2:
         fail(f"small solve did not go through the kernels: {counts}")
 
 
@@ -516,36 +612,49 @@ def main_path(dev) -> dict:
     solver = DIPSolver(cfg, outchannel=1, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # a hook on the conv's weight gradient records the shapes it is asked for
+    # hooks on the conv's weight gradient and the upsample's backward record
+    # the shapes they are asked for
     from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+    # (at their callers: a wrapper counts its launches on its own name)
     seen, real = collections.Counter(), conv_vjp.wgrad3d
+    seen_up, real_up = collections.Counter(), U._LinearUpsample2x.backward
 
     def hook(x, dy, k):
         seen[(x.shape[1], dy.shape[1], tuple(x.shape[2:]))] += 1
         return real(x, dy, k)
 
-    conv_vjp.wgrad3d = hook
+    def hook_up(ctx, g):
+        seen_up[(g.shape[1], tuple(s // 2 for s in g.shape[2:]))] += 1
+        return real_up(ctx, g)
+
+    conv_vjp.wgrad3d, U._LinearUpsample2x.backward = hook, staticmethod(hook_up)
     reset_counts()
     try:
         res = solver.solve(img, mask, seed=0)
     finally:
-        conv_vjp.wgrad3d = real
+        conv_vjp.wgrad3d, U._LinearUpsample2x.backward = real, staticmethod(real_up)
     counts = read_counts()
     want = {(ci, co, sp): 9 * n for ci, co, sp, n in WGRAD_SHAPES}
     if dict(seen) != want:
         fail(f"the main path's wgrad shapes are {dict(seen)}, not {want}")
-    log(f"main path: wgrad shapes as listed in the kernel phase ({len(seen)} distinct)")
+    want_up = {(c, sp): 9 for c, sp in UPSAMPLE_SHAPES}
+    if dict(seen_up) != want_up:
+        fail(f"the main path's upsample shapes are {dict(seen_up)}, not {want_up}")
+    log(f"main path: wgrad and upsample shapes as listed in the kernel phase "
+        f"({len(seen)} and {len(seen_up)} distinct)")
     peak = torch.cuda.max_memory_allocated()
     loss = np.asarray(res.history.loss)
     log(f"main path: losses {loss.tolist()}")
     log(f"main path: snr {np.asarray(res.history.snr).tolist()}")
     log(f"main path: launches {counts} (expected fused_loss 9, fused_loss_grad 9, "
-        f"wgrad3d {9 * 32})")
+        f"wgrad3d {9 * 32}, upsample_bwd {9 * 4})")
     if not (len(loss) == 9 and np.all(np.isfinite(loss))):
         fail("the flagship loss is not finite for 9 iterations")
     if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
         fail(f"out_best has shape {res.out_best.shape} or is not finite")
-    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 32}:
+    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 32,
+                  "upsample_bwd": 9 * 4}:
         fail(f"the main path's launch counts are {counts}")
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
     log(f"main path: chunk seconds {res.chunk_seconds}")
@@ -623,8 +732,9 @@ def cli_survey(dev, tmp: str) -> dict:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"cli survey: launches {counts} (expected fused_loss 12, fused_loss_grad 12, "
-        f"wgrad3d {2 * 6 * 32})")
-    if counts != {"fused_loss": 12, "fused_loss_grad": 12, "wgrad3d": 2 * 6 * 32}:
+        f"wgrad3d {2 * 6 * 32}, upsample_bwd {2 * 6 * 4})")
+    if counts != {"fused_loss": 12, "fused_loss_grad": 12, "wgrad3d": 2 * 6 * 32,
+                  "upsample_bwd": 2 * 6 * 4}:
         fail(f"the survey's launch counts are {counts}")
     if len(rec.results) != 2:
         fail(f"the survey solved {len(rec.results)} patches, not 2")
@@ -687,9 +797,10 @@ def cli_survey(dev, tmp: str) -> dict:
             "fk_projection_ms": fk_ms}
 
 
-def cli_lines(tmp: str, extra=(), outdir: str = "lines") -> dict:
+def cli_lines(tmp: str, extra=(), outdir: str = "lines", ups: int = 0) -> dict:
     """The README's command on the bundled lines data, with POCS (and the
-    ``extra`` flags, such as another ``--net``)."""
+    ``extra`` flags, such as another ``--net``, whose forward has ``ups``
+    linear upsamples)."""
     from deep_prior_interpolation_tpu_torch import cli
     from deep_prior_interpolation_tpu_torch.config import parse_arguments
     from deep_prior_interpolation_tpu_torch.data import dataset_path
@@ -705,9 +816,9 @@ def cli_lines(tmp: str, extra=(), outdir: str = "lines") -> dict:
     out = cli.run(cfg, results_root=tmp)
     counts = read_counts()
     hist = load_run(os.path.join(out, "0_run.npz"))["history"]
-    log(f"cli lines {' '.join(extra)}: launches {counts} (expected 9, 9, 0), "
+    log(f"cli lines {' '.join(extra)}: launches {counts} (expected 9, 9, 0, {9 * ups}), "
         f"loss {hist['loss']}")
-    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 0}:
+    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 0, "upsample_bwd": 9 * ups}:
         fail(f"the lines run {extra}'s launch counts are {counts}")
     if set(hist) != set(HistoryPOCS.FIELDS) or not all(
             len(v) == 9 and np.all(np.isfinite(v)) for v in hist.values()):
@@ -715,69 +826,98 @@ def cli_lines(tmp: str, extra=(), outdir: str = "lines") -> dict:
     return {"launches": counts, "loss": hist["loss"]}
 
 
-def check_checkpoint(dev, tmp: str) -> dict:
-    """The small solve's net: 6 iterations straight, then cut after chunk 1
-    and resumed, on the card. Its upsampling is nearest, whose backward is a
-    gather, and cuDNN picks deterministic algorithms: the trilinear
-    backward's atomics made two runs of the same state drift apart by 1e-4
-    in 3 iterations, which would hide what the resume does."""
-    from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+def check_resume(dev, tmp: str, main: dict) -> dict:
+    """5c: the flagship net and volume, 6 iterations straight with a
+    checkpoint path, then 3 saved after each chunk and resumed to 6 in a
+    fresh process (``resume_child``); history and out_best bit-equal."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
-    from deep_prior_interpolation_tpu_torch.io import checkpoint as ckpt_io
 
-    img, mask = flagship_problem(16, 16, 16)
-    cfg = Config(datadim="3d", inputdepth=4, filters=[4, 8, 16], skip=[4, 4],
-                 upsample="nearest", epochs=6, scan_chunk=3, fused_loss=True,
-                 dtype="float32")
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=6, scan_chunk=3)
     set_kernels(True)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        return _checkpoint_round_trip(cfg, img, mask, dev, tmp)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    reset_counts()
+    straight = DIPSolver(cfg, device=dev).solve(
+        img, mask, seed=0, checkpoint_path=os.path.join(tmp, "straight.npz"))
+    straight_counts = read_counts()
+    if torch.backends.cudnn.deterministic:
+        fail("the solver left cudnn.deterministic set")
+    steady = straight.chunk_seconds[1] / cfg.scan_chunk
+    log(f"5c straight (deterministic cuDNN): launches {straight_counts}, chunk seconds "
+        f"{straight.chunk_seconds}, steady s/iteration {steady:.4f} against phase 4's "
+        f"{main['s_per_iter']:.4f} without")
+    if straight_counts != SIX:
+        fail(f"5c: the straight run's launch counts are {straight_counts}, not {SIX}")
+
+    path = os.path.join(tmp, "resume.npz")
+    DIPSolver(flagship_config(epochs=3, scan_chunk=3), device=dev).solve(
+        img, mask, seed=0, checkpoint_path=path, checkpoint_every=1)
+    with np.load(path) as z:
+        plans = len(json.loads(str(z["__meta__"]))["wgrad_plans"])
+    np.save(os.path.join(tmp, "img.npy"), img)
+    np.save(os.path.join(tmp, "mask.npy"), mask)
+    with open(os.path.join(tmp, "cfg.json"), "w") as fh:
+        json.dump(cfg.to_dict(), fh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.time()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--resume-child", tmp],
+                           capture_output=True, text=True, timeout=900)
+    log("\n".join(f"  child: {line}" for line in child.stdout.splitlines()))
+    if child.returncode != 0:
+        fail(f"5c: the resuming process failed ({child.returncode}):\n{child.stderr[-4000:]}")
+    with np.load(os.path.join(tmp, "resumed.npz")) as z:
+        resumed = {k: z[k] for k in z.files}
+    a, b = resumed["loss"], np.asarray(straight.history.loss)
+    hist_equal = all(np.array_equal(resumed[f], np.asarray(getattr(straight.history, f)))
+                     for f in straight.history.FIELDS)
+    out_equal = np.array_equal(resumed["out_best"], straight.out_best)
+    log(f"5c: {plans} wgrad grids in the checkpoint; the resuming process ran "
+        f"{time.time() - t:.1f} s\n  straight {b.tolist()}\n  resumed  {a.tolist()}\n"
+        f"  history bit-equal {hist_equal}, out_best bit-equal {out_equal}")
+    if not (hist_equal and out_equal and len(a) == 6):
+        fail("5c: the resumed solve is not bit-equal to the straight one")
+    return {"straight_s_per_iter": steady, "phase4_s_per_iter": main["s_per_iter"],
+            "wgrad_plans_pinned": int(resumed["pinned"]), "history_bit_equal": hist_equal,
+            "out_best_bit_equal": out_equal, "child_launches": json.loads(str(resumed["counts"]))}
 
 
-def _checkpoint_round_trip(cfg, img, mask, dev, tmp: str) -> dict:
+def resume_child(tmp: str) -> None:
+    """The resuming process of 5c: a fresh interpreter, the wgrad tuner
+    empty; the solve resumes from ``tmp/resume.npz`` to 6 iterations. Its
+    tuner must time nothing: every grid comes pinned from the checkpoint."""
     from deep_prior_interpolation_tpu_torch import Config, DIPSolver
-    from deep_prior_interpolation_tpu_torch.io import checkpoint as ckpt_io
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
 
-    straight = DIPSolver(cfg, device=dev).solve(img, mask, seed=0)
-    path = os.path.join(tmp, "state.npz")
-    seen = {}
-    save, load = ckpt_io.save_solver_state, ckpt_io.load_solver_state
+    dev = torch.device("cuda:0")
+    with open(os.path.join(tmp, "cfg.json")) as fh:
+        cfg = Config.from_dict(json.load(fh))
+    img, mask = np.load(os.path.join(tmp, "img.npy")), np.load(os.path.join(tmp, "mask.npy"))
+    tuned, pinned = [], []
+    real_tune, real_pin = WG._tune, WG.pin_plans
 
-    def spy_save(p, state, extra=None):
-        seen["saved"] = {k: v.clone() for k, v in state.items()}
-        return save(p, state, extra)
+    def spy_tune(x, dy, k):
+        tuned.append((tuple(x.shape), tuple(dy.shape)))
+        return real_tune(x, dy, k)
 
-    def spy_load(p, template):
-        seen["loaded"] = load(p, template)
-        return seen["loaded"]
-    ckpt_io.save_solver_state, ckpt_io.load_solver_state = spy_save, spy_load
-    try:
-        DIPSolver(Config(**{**cfg.to_dict(), "epochs": 3}), device=dev).solve(
-            img, mask, seed=0, checkpoint_path=path, checkpoint_every=1)
-        resumed = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, checkpoint_path=path)
-    finally:
-        ckpt_io.save_solver_state, ckpt_io.load_solver_state = save, load
-    saved, loaded = seen["saved"], seen["loaded"]
-    same = {k: bool(loaded[k].dtype == v.dtype and loaded[k].device == v.device
-                    and torch.equal(loaded[k], v)) for k, v in saved.items()}
-    log(f"checkpoint: restored state equal to the saved one bit for bit: {same}")
-    if set(loaded) != set(saved) or not all(same.values()):
-        fail("the restored state differs from the saved one")
-    if "cuda" not in str(saved["params"].device):
-        fail(f"the solver state was on {saved['params'].device}, not the card")
-    a, b = np.asarray(resumed.history.loss), np.asarray(straight.history.loss)
-    rel = float(np.max(np.abs(a[3:] - b[3:]) / np.abs(b[3:])))
-    bitwise = bool(np.array_equal(a, b) and np.array_equal(resumed.out_best, straight.out_best))
-    log(f"checkpoint: straight {b.tolist()}\n            resumed  {a.tolist()}\n"
-        f"            max rel err of iterations 3-5 {rel:.3e} (tol 1e-4), "
-        f"history and out_best bit-equal: {bitwise}")
-    if len(a) != 6 or resumed.iters_run != 6 or not rel <= 1e-4:
-        fail("the resumed solve disagrees with the straight one")
-    return {"state_equal": True, "resumed_rel_err": rel, "resumed_bitwise": bitwise}
+    def spy_pin(entries):
+        pinned.append(real_pin(entries))
+        return pinned[-1]
+    WG._tune, WG.pin_plans = spy_tune, spy_pin
+    reset_counts()
+    res = DIPSolver(cfg, device=dev).solve(img, mask, seed=0,
+                                           checkpoint_path=os.path.join(tmp, "resume.npz"))
+    counts = read_counts()
+    want = {k: v // 2 for k, v in SIX.items()}
+    log(f"pinned {pinned} wgrad grids, timed {len(tuned)} shapes, launches {counts}, "
+        f"iterations {res.iters_run}")
+    if tuned or not pinned or not pinned[0]:
+        fail(f"the resume timed {tuned} or pinned nothing ({pinned})")
+    if counts != want:
+        fail(f"the resume's launch counts are {counts}, not {want}")
+    np.savez(os.path.join(tmp, "resumed.npz"), out_best=res.out_best, pinned=pinned[0],
+             counts=json.dumps(counts),
+             **{f: np.asarray(getattr(res.history, f)) for f in res.history.FIELDS})
 
 
 # ----------------------------------------------------------------------
@@ -787,7 +927,7 @@ def _checkpoint_round_trip(cfg, img, mask, dev, tmp: str) -> dict:
 # what was predicted for 6a's peak before the first card run of it (PERF.md)
 PREDICTED_6A = ("remat frees the insides of every MultiResBlock and ResPath and the "
                 "virtual canvas its 0.5 GiB: 6-9 GiB")
-SIX = {"fused_loss": 6, "fused_loss_grad": 6, "wgrad3d": 6 * 32}
+SIX = {"fused_loss": 6, "fused_loss_grad": 6, "wgrad3d": 6 * 32, "upsample_bwd": 6 * 4}
 
 
 def option_solve(dev, label: str, cfg, img, mask, expect=None, seed: int = 0):
@@ -890,7 +1030,9 @@ def check_zoo(dev) -> dict:
     flagship |= {(ci, co, sp, "float32") for ci, co, sp in FLOAT32_SHAPES}
     g = torch.Generator(device=dev).manual_seed(6)
     out = {}
-    for net, dtype in (("skip", "bfloat16"), ("unet", "bfloat16"), ("part", "float32")):
+    # the linear upsamples of each net's forward
+    for net, dtype, ups in (("skip", "bfloat16", 5), ("unet", "bfloat16", 4),
+                            ("part", "float32", 0)):
         convs, seen = collections.Counter(), collections.Counter()
         real_conv, real_wgrad = conv_vjp._ConvSame.apply, conv_vjp.wgrad3d
 
@@ -921,9 +1063,9 @@ def check_zoo(dev) -> dict:
             f"(Ci, Co, k, stride, spatial): {away}")
         c = r["launches"]
         if c["wgrad3d"] != admitted or admitted % 6 or c["fused_loss"] != 6 \
-                or c["fused_loss_grad"] != 6:
-            fail(f"6e --net {net}: launches {c}, expected fused 6 / 6 and wgrad "
-                 f"{admitted} ({admitted // 6} admitted convs x 6)")
+                or c["fused_loss_grad"] != 6 or c["upsample_bwd"] != 6 * ups:
+            fail(f"6e --net {net}: launches {c}, expected fused 6 / 6, wgrad "
+                 f"{admitted} ({admitted // 6} admitted convs x 6), upsample_bwd {6 * ups}")
         rows = []
         for (ci, co, sp, dt), n in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][2])):
             if (ci, co, sp, dt) in flagship:
@@ -1019,6 +1161,9 @@ def profile_flagship(dev, out_dir: str) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    if "--resume-child" in sys.argv[1:]:
+        resume_child(sys.argv[sys.argv.index("--resume-child") + 1])
+        return
     dev = torch.device("cuda:0")
     # fails here, before any output, when the port is not beside this script
     from deep_prior_interpolation_tpu_torch.ops import _build
@@ -1050,6 +1195,7 @@ def main() -> None:
 
     fused, fused_grad = phase("2_fused_loss", check_fused_loss, dev)
     wgrad = phase("2_wgrad", check_wgrad, dev)
+    upsample = phase("2_upsample", check_upsample, dev)
     phase("3_small_solve", check_small_solve, dev)
     main = phase("4_main_path", main_path, dev)
     if "--profile" in sys.argv[1:]:
@@ -1058,11 +1204,12 @@ def main() -> None:
     try:
         survey = phase("5_cli_survey", cli_survey, dev, tmp)
         lines = phase("5_cli_lines", cli_lines, tmp)
-        checkpoint = phase("5_checkpoint", check_checkpoint, dev, tmp)
+        checkpoint = phase("5c_resume", check_resume, dev, tmp, main)
         options = phase("6a-d_options", check_options, dev, main)
         zoo = phase("6e_zoo", check_zoo, dev)
-        zoo_2d = {net: phase(f"6f_lines_{net}", cli_lines, tmp, ("--net", net), f"lines_{net}")
-                  for net in ("attmultiunet", "part")}
+        zoo_2d = {net: phase(f"6f_lines_{net}", cli_lines, tmp, ("--net", net), f"lines_{net}",
+                             ups)
+                  for net, ups in (("attmultiunet", 4), ("part", 0))}
         ensemble = phase("6g_ensemble", check_ensemble, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1070,13 +1217,14 @@ def main() -> None:
     fused["launches"] = main["counts"]["fused_loss"]
     fused_grad["launches"] = main["counts"]["fused_loss_grad"]
     wgrad["launches"] = main["counts"]["wgrad3d"]
+    upsample["launches"] = main["counts"]["upsample_bwd"]
     log(json.dumps({"main_path": {"s_per_iter": main["s_per_iter"],
                                   "peak_memory_bytes": main["peak_bytes"]}}))
     log(json.dumps({"cli": {"survey_3d": survey, "lines_2d": lines,
                             "checkpoint": checkpoint}}))
     log(json.dumps({"phase6": {"options": options, "zoo_3d": zoo, "zoo_2d": zoo_2d,
                                "ensemble": ensemble, "seconds": seconds}}))
-    log(json.dumps({"kernels": [fused, fused_grad, wgrad]}))
+    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

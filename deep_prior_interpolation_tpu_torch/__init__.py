@@ -14,12 +14,19 @@ reconstructed volume::
     python -m deep_prior_interpolation_tpu_torch.cli --imgdir DIR \\
         --imgname original.npy --maskname corrupted.npy [flags]
 
-Two hand-written kernels sit on that path, each behind the JAX package's
-switch, both in CUDA C++ for sm_90a: the fused masked-loss/metrics
-reduction and its gradient (``Config.fused_loss``, ``ops/fused_loss.py``)
-and the 3D conv weight gradient (``DPI_PALLAS_WGRAD=1``, ``ops/wgrad.py``).
+Three hand-written kernels sit on that path, all in CUDA C++ for sm_90a:
+the fused masked-loss/metrics reduction and its gradient
+(``Config.fused_loss``, ``ops/fused_loss.py``) and the 3D conv weight
+gradient (``DPI_PALLAS_WGRAD=1``, ``ops/wgrad.py``), each behind the JAX
+package's switch, and the linear upsample's backward (``ops/upsample.py``),
+whose fixed summation order makes a card solve repeat bit for bit.
 """
-from .config import Config
-from .engine import DIPSolver
+from .config import Config, net_args_are_same, parse_arguments, read_args, write_args
+from .engine import DIPSolver, History, HistoryReg, SolveResult
+from .models import get_net, init_weights
 
-__all__ = ["Config", "DIPSolver"]
+__version__ = "0.1.0"
+
+__all__ = ["Config", "net_args_are_same", "parse_arguments", "read_args", "write_args",
+           "DIPSolver", "History", "HistoryReg", "SolveResult", "get_net", "init_weights",
+           "__version__"]

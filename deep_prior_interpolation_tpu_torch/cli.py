@@ -18,8 +18,11 @@ switches on the DIP+POCS loss. A run:
 It runs on ``cuda:{gpu}`` (``cuda`` without ``--gpu``; an index past the
 cards warns and takes ``cuda:0``). Only ``run(..., device="cpu")`` runs it on
 the CPU; with no CUDA and no device it raises. Patch batches and spatial
-sharding are not ported (ROADMAP A.13): ``--batch_patches > 1`` raises here,
-``--spatial_shards > 1`` in the solver.
+sharding are not ported (ROADMAP A.13): ``--batch_patches > 1`` without
+``--start_from_prev`` and ``--spatial_shards > 1`` raise here. With
+``--start_from_prev`` the JAX package solves the patches one after another
+whatever ``--batch_patches`` says, and so does the port. ``--netdir`` takes
+the port's ``<name>_model.pt`` or a JAX run's ``<name>_model.msgpack``.
 """
 from __future__ import annotations
 
@@ -63,9 +66,12 @@ def run(cfg: Config, results_root: str = "./results",
         corrupted: Optional[np.ndarray] = None,
         device: Union[str, torch.device, None] = None) -> str:
     """Execute a full interpolation run; returns the output directory."""
-    if cfg.batch_patches and cfg.batch_patches > 1:
+    if cfg.batch_patches and cfg.batch_patches > 1 and not cfg.start_from_prev:
         raise NotImplementedError("--batch_patches > 1 (patch batches over a mesh): "
                                   "ROADMAP A.13")
+    if cfg.spatial_shards and cfg.spatial_shards > 1:
+        raise NotImplementedError("--spatial_shards > 1 (a patch sharded over several "
+                                  "devices): ROADMAP A.13")
     dev = run_device(cfg, device)
     outpath = os.path.join(results_root,
                            cfg.outdir if cfg.outdir is not None else random_code())

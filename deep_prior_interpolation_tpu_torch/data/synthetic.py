@@ -1,8 +1,9 @@
 """Synthetic seismic volumes and masks (counterpart of ``data/synthetic.py``).
 
-Hyperbolic diffraction events over a (t, x[, y]) grid, and the random
+Hyperbolic diffraction events over a (t, x[, y]) grid, the random
 trace-decimation mask of the flagship benchmark (66 % of the traces removed,
-the same traces at every time sample).
+the same traces at every time sample), and a (volume, mask) pair decimated
+by ``ops.masks.build_mask``.
 """
 from __future__ import annotations
 
@@ -44,6 +45,17 @@ def source_wavelet(points: int = 51, a: float = 4.0) -> np.ndarray:
     """Ricker wavelet, float32, for the wavelet shaping of the input canvas."""
     from ..ops.filters import ricker_wavelet
     return ricker_wavelet(points, a).numpy()
+
+
+def decimated_pair(nt: int = 256, nx: int = 128, ny: Optional[int] = 128,
+                   rate: float = 0.66, regular: bool = False, seed: int = 0):
+    """(volume, mask) with ``rate`` of the traces removed (``build_mask``,
+    its generator seeded from ``seed + 1``)."""
+    from ..ops.masks import build_mask
+    vol = hyperbolic_events(nt, nx, ny, seed=seed)
+    mask = build_mask(vol, rate, regular=regular,
+                      rng=np.random.default_rng(seed + 1)).astype(np.float32)
+    return vol, mask
 
 
 def random_trace_mask(shape, rate: float = 0.66, seed: int = 1) -> np.ndarray:

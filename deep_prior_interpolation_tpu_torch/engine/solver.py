@@ -26,7 +26,10 @@ The optimisation of a net on one patch *is* the inference. Each step:
 With ``pocs`` the loss gains the POCS term (``pocs_term``); with
 ``save_every`` the last output is tracked and snapshot at every multiple of
 ``save_every``; with ``checkpoint_path`` the whole state is saved every
-``checkpoint_every`` chunks and a later ``solve`` resumes from it exactly.
+``checkpoint_every`` chunks and a later ``solve`` resumes from it exactly,
+also in another process: the solve then runs with deterministic cuDNN (the
+flag is set back afterwards), and the checkpoint carries the wgrad kernel's
+tuned grids, which the resume pins before its first step.
 
 The canvas is drawn from a generator of its own, seeded from ``seed``, and
 shaped along the first spatial axis by a Butterworth low-pass
@@ -63,6 +66,7 @@ from ..config import Config
 from ..io import checkpoint as ckpt_io
 from ..models import get_net, init_weights, set_dropout_generator
 from ..ops import losses as L
+from ..ops import wgrad as wgrad_ops
 from ..ops.filters import convolve_kernel_1d, lowpass_butterworth_taps
 from ..ops.fused_loss import fused_loss_metrics
 from ..ops.noise import build_forgetting_data, data_forgetting_weights, get_noise
@@ -119,10 +123,11 @@ class StepSettings:
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a solver feature the port lacks
-    (the net's own, phase space, raise in ``get_net``)."""
+    (the net's own, phase space, raise in ``get_net``). ``spatial_shards``
+    is the CLI's: a library solve reads only its ``spatial_mesh`` argument,
+    as the JAX package's does."""
     todo = [
         (cfg.vmap_conv_mode != "grouped", "vmap_conv_mode 'tapmm'", "A.12"),
-        (bool(cfg.spatial_shards and cfg.spatial_shards > 1), "spatial_shards", "A.13"),
     ]
     for on, what, item in todo:
         if on:
@@ -612,10 +617,12 @@ class DIPSolver:
                          chunk_idx: int, iters_run: int) -> None:
         """The whole state, the position and the history in one ``.npz``.
         ``stopped`` says whether the solve had ended, so that a resume knows
-        whether stepping again is allowed (only after an epoch-budget stop)."""
+        whether stepping again is allowed (only after an epoch-budget stop);
+        ``wgrad_plans`` the wgrad kernel's tuned grids, so that a resume in
+        another process sums as this one does."""
         extra = {"__meta__": np.asarray(json.dumps(
             {"chunk": chunk_idx, "iters_run": iters_run, "epochs": int(self.cfg.epochs),
-             "stopped": bool(st["done"])}))}
+             "stopped": bool(st["done"]), "wgrad_plans": wgrad_ops.tuned_plans()}))}
         for f in hist.FIELDS:
             extra[f"__hist_{f}__"] = np.asarray(getattr(hist, f), np.float64)
         ckpt_io.save_solver_state(path, _solver_state(st, gens), extra)
@@ -626,13 +633,15 @@ class DIPSolver:
         ``(start_chunk, iters_run, final)``. An early-stopped or NaN-aborted
         state is final: stepping it again would undo the stop decision or
         write NaN gradients into the frozen parameters. A stop at the epoch
-        budget is reopened when ``epochs`` has grown."""
+        budget is reopened when ``epochs`` has grown. The saved wgrad grids
+        are pinned before the first resumed step."""
         _restore_state(st, gens, ckpt_io.load_solver_state(path, _solver_state(st, gens)))
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"])) if "__meta__" in z.files else {}
             for f in hist.FIELDS:
                 if f"__hist_{f}__" in z.files:
                     getattr(hist, f).extend(z[f"__hist_{f}__"].tolist())
+        wgrad_ops.pin_plans(meta.get("wgrad_plans", []))
         start_chunk = int(meta.get("chunk", 0))
         iters_run = int(meta.get("iters_run", 0))
         if bool(meta.get("stopped", False)):
@@ -657,11 +666,29 @@ class DIPSolver:
         stored even under ``virtual_input``), drawn from ``seed`` when None.
         ``checkpoint_path`` with ``checkpoint_every`` (in chunks) saves the
         whole state; a later ``solve`` with the same path, problem and seed
-        resumes where it stopped, exactly. ``profile_dir`` captures a
-        ``torch.profiler`` trace of the second chunk (see ``_profiled``).
+        resumes where it stopped, exactly, in this process or another. With
+        a ``checkpoint_path`` the solve runs with
+        ``torch.backends.cudnn.deterministic`` set, and sets it back after.
+        ``profile_dir`` captures a ``torch.profiler`` trace of the second
+        chunk (see ``_profiled``).
         """
         if spatial_mesh is not None:
             raise NotImplementedError("spatial sharding: ROADMAP A.13")
+        if not checkpoint_path:
+            return self._solve(img, mask, seed, init_params, noise, verbose, None, 0,
+                               profile_dir)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return self._solve(img, mask, seed, init_params, noise, verbose, checkpoint_path,
+                               checkpoint_every, profile_dir)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+    def _solve(self, img: np.ndarray, mask: np.ndarray, seed: int,
+               init_params: Optional[Mapping[str, Any]], noise: Optional[np.ndarray],
+               verbose: bool, checkpoint_path: Optional[str], checkpoint_every: int,
+               profile_dir: Optional[str]) -> SolveResult:
         cfg, dev = self.cfg, self.device
         if img.shape != mask.shape:
             raise ValueError("image and mask shapes must match")

@@ -26,11 +26,15 @@ import torch
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Leaves by dotted name, as numpy (a bfloat16 tensor as float32, which
+    holds it exactly)."""
     flat: Dict[str, np.ndarray] = {}
     for k, v in tree.items():
         name = f"{prefix}{k}"
         if isinstance(v, Mapping):
             flat.update(_flatten(v, name + "."))
+        elif torch.is_tensor(v):
+            flat[name] = v.detach().cpu().float().numpy()
         else:
             flat[name] = np.asarray(v)
     return flat

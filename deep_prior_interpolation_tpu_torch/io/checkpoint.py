@@ -3,18 +3,18 @@
 Two formats:
 
 * the net's weights: ``torch.save`` of its state dict, ``<name>_model.pt``
-  (the format of the reference code the JAX package was ported from).
-  ``load_checked`` first reads the saved run's ``args.txt`` and refuses a
-  net whose configuration differs (``net_args_are_same``).
+  (the format of the reference code the JAX package was ported from), or,
+  read only, the JAX package's ``<name>_model.msgpack`` (flax's msgpack,
+  through ``io/msgpack.py`` and ``io/bridge.py``). ``load_checked`` first
+  reads the saved run's ``args.txt`` and refuses a net whose configuration
+  differs (``net_args_are_same``).
 * the solver's whole state for an exact resume, one ``.npz``: the flat
   parameter buffer, Adam's ``mu``, ``nu`` and ``count``, an optimised
   canvas with its moments, the states of the step's generators (input
   noise, parameter noise, dropout), the learning rate, the trackers and
   ``done`` (``save_solver_state`` / ``load_solver_state``). The solver
-  adds its position and history to the same file.
-
-A JAX ``.msgpack`` weights file needs flax to read; loading one raises
-``NotImplementedError`` (ROADMAP A.15).
+  adds its position, history and the wgrad kernel's tuned grids to the same
+  file.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from ..config import Config, net_args_are_same, read_args
+from .bridge import jax_params_to_state_dict
+from .msgpack import read_msgpack
 
 
 def npz_path(path: str) -> str:
@@ -55,12 +57,12 @@ def _check_like(state: Mapping[str, torch.Tensor],
 
 def load_params(path: str, template: Optional[Mapping[str, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
-    """A state dict saved by :func:`save_params`, on the CPU; with a
-    ``template`` (e.g. ``model.state_dict()``) every name and shape must
-    match it."""
+    """A state dict saved by :func:`save_params`, or the JAX package's
+    ``.msgpack`` weights mapped onto the port's names and layouts (float32),
+    on the CPU; with a ``template`` (e.g. ``model.state_dict()``) every name
+    and shape must match it."""
     if path.endswith(".msgpack"):
-        raise NotImplementedError("loading the JAX package's .msgpack weights "
-                                  "needs flax: ROADMAP A.15")
+        return jax_params_to_state_dict(read_msgpack(path), like=template)
     state = torch.load(path, map_location="cpu", weights_only=True)
     _check_like(state, template, f"load_params({path})")
     return state

@@ -15,7 +15,8 @@ is a name-for-name transpose.
   is added in that dtype. ``pad="reflection"`` reflects instead and
   convolves unpadded.
 * ``upsample``: 'nearest' duplicates samples; any other mode is a
-  half-pixel-centre linear resize (``align_corners=False``).
+  half-pixel-centre linear resize (``align_corners=False``), whose backward
+  by 2 is the gather of ``ops/upsample.py`` (a CUDA kernel on the card).
 * ``Dropout`` is flax's, always on when rate > 0: each element is kept with
   probability 1 - rate and divided by 1 - rate. Its draws come from the
   explicit generator ``set_dropout_generator`` hands every Dropout of a net.
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_vjp import conv_same
+from ..ops.upsample import linear_upsample2x
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -151,12 +153,16 @@ def concat_crop(xs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def upsample(x: torch.Tensor, factor: int = 2, mode: str = "nearest") -> torch.Tensor:
     """Upsample the spatial dims by ``factor``: 'nearest' duplicates samples;
-    'bilinear'/'trilinear'/'linear' is a half-pixel linear resize."""
+    'bilinear'/'trilinear'/'linear' is a half-pixel linear resize, by 2 in 2D
+    and 3D through ``linear_upsample2x`` (its backward a gather in a fixed
+    order, so a card run repeats bit for bit)."""
     ndim = x.ndim - 2
     if mode == "nearest":
         for ax in range(2, x.ndim):
             x = torch.repeat_interleave(x, factor, dim=ax)
         return x
+    if factor == 2 and ndim in (2, 3):
+        return linear_upsample2x(x)
     lin = {1: "linear", 2: "bilinear", 3: "trilinear"}[ndim]
     return F.interpolate(x, scale_factor=factor, mode=lin, align_corners=False)
 

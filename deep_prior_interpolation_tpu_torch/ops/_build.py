@@ -23,7 +23,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("wgrad3d", "fused_loss")
+SOURCES = ("wgrad3d", "fused_loss", "upsample")
 
 _pending: Dict[str, subprocess.Popen] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}

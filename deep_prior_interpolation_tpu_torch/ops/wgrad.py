@@ -27,8 +27,10 @@ check that each plan covers each (co, ci, tap, plane, position) once.
 
 At a shape's first call on a card the wrapper times the candidate grids
 (``_tune``) and keeps the fastest for that shape, so later calls give
-bit-identical results; another process may pick another grid, whose sums
-differ in rounding order only.
+bit-identical results. Another process may pick another grid, whose sums
+differ in rounding order only; so ``tuned_plans`` lists the kept grids in a
+JSON form and ``pin_plans`` hands them to another process (the solver's
+checkpoint carries them), which then never times a pinned shape.
 
 ``wgrad3d`` takes the plain version for tensors on the CPU and launches the
 kernel for CUDA tensors (``wgrad3d.launches`` counts the launches).
@@ -39,14 +41,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Iterator, NamedTuple, Sequence, Tuple, Union
+import warnings
+from typing import Any, Dict, Iterator, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["wgrad3d", "wgrad3d_plain", "wgrad_supported"]
+__all__ = ["pin_plans", "tuned_plans", "wgrad3d", "wgrad3d_plain", "wgrad_supported"]
 
 _MAX_K = 7                  # odd k up to 7
 _SMS = 132                  # H100 SXM
@@ -157,6 +160,13 @@ class Plan(NamedTuple):
     @property
     def splits(self) -> int:
         return self.bands * self.dranges
+
+    def to_json(self) -> Dict[str, Any]:
+        return self._asdict()
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "Plan":
+        return cls(**d)
 
 
 def _odd_units(n: int, per: int) -> int:
@@ -402,12 +412,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _args(pl: Plan, x: torch.Tensor, dy: torch.Tensor) -> ctypes.Array:
-    """The kernel's int arguments for plan ``pl`` on these tensors: is_bf16,
-    tma, x_streams, then the plan from ``sc`` on. TMA needs 16-byte aligned
-    bases, row strides and first columns, and boxes of <= 256."""
-    tma = ((pl.w * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
-           and dy.data_ptr() % 16 == 0
+def _args(pl: Plan, aligned: bool) -> ctypes.Array:
+    """The kernel's int arguments for plan ``pl`` on inputs whose bases are
+    16-byte aligned or not: is_bf16, tma, x_streams, then the plan from
+    ``sc`` on. TMA needs 16-byte aligned bases, row strides and first
+    columns, and boxes of <= 256."""
+    tma = ((pl.w * (2 if pl.bf16 else 4)) % 16 == 0 and aligned
            and max(pl.rsr, pl.cs, pl.cr, (pl.hb + pl.k - 1) | 1) <= 256)
     return (ctypes.c_int * 27)(int(pl.bf16), int(tma), int(pl.x_streams),
                                *pl[Plan._fields.index("sc"):])
@@ -419,7 +429,7 @@ def _launch(pl: Plan, x: torch.Tensor, dy: torch.Tensor,
     and the current stream of x's device, the current one; raises if the
     launch fails."""
     if args is None:
-        args = _args(pl, x, dy)
+        args = _args(pl, _aligned(x, dy))
     s, r = (x, dy) if pl.x_streams else (dy, x)
     out = torch.empty((dy.shape[1], x.shape[1], pl.k, pl.k, pl.k), dtype=torch.float32,
                       device=x.device)
@@ -435,8 +445,44 @@ def _launch(pl: Plan, x: torch.Tensor, dy: torch.Tensor,
     return out
 
 
-# (shapes, k, dtypes, devices, 16-byte aligned bases) -> (plan, its arguments)
+# (shapes, k, dtypes, 16-byte aligned bases) -> (plan, its arguments); no
+# device in the key, so a plan holds on every card of a process and pins in
+# another process
 _tuned: Dict[tuple, Tuple[Plan, ctypes.Array]] = {}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _aligned(x: torch.Tensor, dy: torch.Tensor) -> bool:
+    return x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+
+
+def tuned_plans() -> List[Dict[str, Any]]:
+    """Every grid the wrapper has kept in this process, in a JSON form:
+    ``[{"key": [x shape, dy shape, k, x dtype, dy dtype, aligned], "plan":
+    {...}}, ...]``, dtypes by name."""
+    name = {v: k for k, v in _DTYPES.items()}
+    return [{"key": [list(xs), list(ds), k, name[xt], name[dt], al], "plan": pl.to_json()}
+            for (xs, ds, k, xt, dt, al), (pl, _) in _tuned.items()]
+
+
+def pin_plans(entries: Sequence[Dict[str, Any]]) -> int:
+    """Keep the grids of ``entries`` (``tuned_plans``'s form, from another
+    process) for their shapes, over any grid timed here, so this process
+    sums as that one did. A grid that this version's planner does not list
+    for its shape is not pinned (a warning says so). Returns the number
+    pinned."""
+    pinned = 0
+    for e in entries:
+        xs, ds, k, xt, dt, al = e["key"]
+        pl = Plan.from_json(e["plan"])
+        if pl not in _plans(xs[1], ds[1], *xs[2:], k, xt == "bfloat16"):
+            warnings.warn(f"wgrad3d: the pinned grid for x {xs}, dy {ds} is not one "
+                          f"of this planner's; the shape will be timed again")
+            continue
+        _tuned[(tuple(xs), tuple(ds), k, _DTYPES[xt], _DTYPES[dt], bool(al))] = \
+            (pl, _args(pl, bool(al)))
+        pinned += 1
+    return pinned
 
 
 def _events_ms(pl: Plan, args: ctypes.Array, x: torch.Tensor, dy: torch.Tensor,
@@ -457,7 +503,7 @@ def _tune(x: torch.Tensor, dy: torch.Tensor, k: int) -> Tuple[Plan, ctypes.Array
     card: each timed over 3 launches after one, the best three again over
     two windows of 10. All candidates compute the same sums; the choice is
     kept, so repeated calls give bit-identical results."""
-    cands = [(pl, _args(pl, x, dy))
+    cands = [(pl, _args(pl, _aligned(x, dy)))
              for pl in _plans(x.shape[1], dy.shape[1], *x.shape[2:], k,
                               x.dtype == torch.bfloat16)]
     if len(cands) == 1:
@@ -488,14 +534,13 @@ def wgrad3d(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
         _validate(x, dy, k)
         return wgrad3d_plain(x, dy, k)
     x, dy = x.contiguous(), dy.contiguous()
-    key = (x.shape, dy.shape, k, x.dtype, dy.dtype, x.device, dy.device,
-           x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    if not (x.is_cuda and dy.device == x.device):
+        raise ValueError(f"wgrad3d needs both inputs on one CUDA device, got "
+                         f"{x.device} and {dy.device}")
+    key = (tuple(x.shape), tuple(dy.shape), k, x.dtype, dy.dtype, _aligned(x, dy))
     tuned = _tuned.get(key)
     if tuned is None:
         _validate(x, dy, k)
-        if not (x.is_cuda and dy.device == x.device):
-            raise ValueError(f"wgrad3d needs both inputs on one CUDA device, got "
-                             f"{x.device} and {dy.device}")
         if x.dtype != dy.dtype or x.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"wgrad3d takes two bfloat16 or two float32 tensors, "
                             f"got {x.dtype} and {dy.dtype}")

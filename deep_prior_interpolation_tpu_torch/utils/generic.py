@@ -1,8 +1,8 @@
 """Small generic helpers (counterpart of ``deep_prior_interpolation_tpu.utils.generic``).
 
 The power-of-two helper, digit widths for the history log and the snapshot
-names, run-id codes and the h:mm:ss formatting of run times. The JAX
-package's compile-cache switch has no counterpart here.
+names, run-id codes and the h:mm:ss formatting of run times and its inverse.
+The JAX package's compile-cache switch has no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,3 +37,13 @@ def sec2time(seconds: float) -> str:
     h, rem = divmod(s, 3600)
     m, sec = divmod(rem, 60)
     return f"{h:d}:{m:02d}:{sec:02d}"
+
+
+def time2sec(time_str: str) -> int:
+    """Seconds of an ``h:mm:ss`` (or ``mm:ss``, ``ss``) string: the inverse
+    of :func:`sec2time`."""
+    parts = [int(p) for p in str(time_str).split(":")]
+    while len(parts) < 3:
+        parts.insert(0, 0)
+    h, m, s = parts[-3:]
+    return h * 3600 + m * 60 + s

@@ -21,16 +21,26 @@ def tiny_cfg(**kw):
 @pytest.mark.parametrize("kw", [
     dict(phase_space=True), dict(spatial_shards=2), dict(vmap_conv_mode="tapmm"),
 ])
-def test_unported_features_raise(kw):
+def test_unported_features_raise(kw, tmp_path):
+    """The solver refuses phase space and tapmm; spatial shards are the
+    CLI's (a library solve ignores the field, as the JAX one does), so
+    ``cli.run`` refuses them."""
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        DIPSolver(tiny_cfg(**kw), device="cpu")
+        if "spatial_shards" in kw:
+            cli.run(tiny_cfg(**kw), str(tmp_path), device="cpu")
+        else:
+            DIPSolver(tiny_cfg(**kw), device="cpu")
 
 
 def test_cli_and_weights_refusals(tmp_path):
+    """Patch batches without ``start_from_prev`` are refused; a weights file
+    that is not msgpack is refused with its offset."""
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         cli.run(tiny_cfg(batch_patches=2), str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.15"):
-        load_params(str(tmp_path / "weights.msgpack"))
+    bad = tmp_path / "weights.msgpack"
+    bad.write_bytes(b"\xc1")  # the one byte msgpack never uses
+    with pytest.raises(ValueError, match="offset 0"):
+        load_params(str(bad))
 
 
 @pytest.mark.parametrize("kw", [
