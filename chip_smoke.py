@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py                # kernels + flagship solve
     python3 chip_smoke.py --profile DIR  # also trace one 3-iteration chunk
-                                         # of the flagship solve into DIR
+                                         # of the flagship solve into DIR,
+                                         # and of the phase flagship into
+                                         # DIR/phase
     python3 chip_smoke.py --resume-child DIR  # phase 5c's resuming process
 
 Phases, each of which ends the run with a non-zero exit code on failure:
@@ -91,10 +93,37 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    g. the ConvGRU ``Ensemble``: one forward and backward on the card in
       float32 against the CPU in float64.
 
+7. phase space and the alternative conv formulations, the launch counters
+   set to 0 just before each run and read just after:
+   a. the phase flagship (``bench.py``'s default: phase 4's configuration
+      with ``phase_space=True, phase_levels=2``), 9 iterations in chunks of
+      3: launches 9 / 9 / 270 / 18, hooks on the wgrad kernel's and the
+      upsample's callers check their shapes (22 and 2, 9 of the 22 new to
+      the kernel), its steady s/iteration and peak memory beside phase 4's
+      and the iteration-0 loss against phase 4's (same parameters and
+      canvas; rel 1e-3, bf16 rounding at other places);
+   b. one float32 forward of the plain and the phase flagship nets (levels
+      2, then levels 3 with resolution 0 at depth 2), same parameters and
+      canvas, TF32 off: outputs to 2e-5 of the output's scale, masked L1 to
+      rel 1e-5;
+   c. two 3-iteration phase-flagship solves from one seed with a checkpoint
+      path (deterministic cuDNN), the second with the wgrad tuner emptied
+      and given the first's grids from its checkpoint: nothing timed,
+      history and ``out_best`` bit-equal;
+   d. the wgrad kernel at its 9 new shapes against its plain version (as in
+      phase 2), timed beside the bound, the plain version and
+      ``conv3d_weight``, with the phase path's wgrad ms/iteration; the entry
+      conv's weight gradient ((4, 4, 4), stride 2, over (1, 64, 256, 128,
+      128)), which the phase path leaves to ``conv3d_weight``, against the
+      folded form;
+   e. phase 3's small solve with ``vmap_conv_mode="tapmm"`` and with the
+      packed and folded weight gradients (wgrad kernel off), against phase
+      3's losses.
+
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
-next-to-last line, the ``{"phase6": ...}``, ``{"cli": ...}`` and
-``{"main_path": ...}`` lines before it, the last line ``{"ok": true,
-"device": {...}}``.
+next-to-last line, the ``{"phase7": ...}``, ``{"phase6": ...}``,
+``{"cli": ...}`` and ``{"main_path": ...}`` lines before it, the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -565,8 +594,10 @@ def read_counts() -> dict:
             "upsample_bwd": U.upsample_bwd.launches}
 
 
-def check_small_solve(dev) -> None:
-    """Tiny 3D solve, kernels on the card vs plain versions on the CPU."""
+def small_problem():
+    """Phase 3's problem: a tiny 3D net in float32 on a 16^3 volume, with
+    a canvas and initial weights shared by every device and formulation
+    (the devices draw different random streams)."""
     from deep_prior_interpolation_tpu_torch import Config, DIPSolver
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
     from deep_prior_interpolation_tpu_torch.models import init_weights
@@ -575,12 +606,20 @@ def check_small_solve(dev) -> None:
     cfg = Config(datadim="3d", inputdepth=4, filters=[4, 8, 16], skip=[4, 4],
                  upsample="linear", epochs=6, scan_chunk=3, reg_noise_std=0.0,
                  fused_loss=True, dtype="float32")
-    set_kernels(True)
-    # the two devices draw different random streams: share canvas and weights
     noise = (0.1 * np.random.RandomState(0).randn(16, 16, 16, 4)).astype(np.float32)
     cpu = DIPSolver(cfg, device="cpu")
     init_weights(cpu.model, torch.Generator().manual_seed(0))
     init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    return cfg, img, mask, noise, init, cpu
+
+
+def check_small_solve(dev) -> np.ndarray:
+    """Tiny 3D solve, kernels on the card vs plain versions on the CPU;
+    returns the card's loss history."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+
+    cfg, img, mask, noise, init, cpu = small_problem()
+    set_kernels(True)
     r_cpu = cpu.solve(img, mask, seed=0, init_params=init, noise=noise)
     reset_counts()
     r_gpu = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, init_params=init,
@@ -600,23 +639,18 @@ def check_small_solve(dev) -> None:
     if counts["fused_loss"] != 6 or counts["fused_loss_grad"] != 6 or counts["wgrad3d"] == 0 \
             or counts["upsample_bwd"] != 6 * 2:
         fail(f"small solve did not go through the kernels: {counts}")
+    return a
 
 
-def main_path(dev) -> dict:
-    from deep_prior_interpolation_tpu_torch import DIPSolver
-    from deep_prior_interpolation_tpu_torch.data import flagship_problem
-
-    img, mask = flagship_problem(256, 128, 128)
-    cfg = flagship_config()
-    set_kernels(True)
-    solver = DIPSolver(cfg, outchannel=1, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # hooks on the conv's weight gradient and the upsample's backward record
-    # the shapes they are asked for
+def traced_solve(solver, img, mask):
+    """``solver.solve(img, mask, seed=0)`` with the launch counters set to 0
+    just before and read just after, and hooks on the conv's weight gradient
+    and the upsample's backward that record the shapes they are asked for
+    (at their callers: a wrapper counts its launches on its own name).
+    Returns (result, launches, wgrad shapes, upsample shapes)."""
     from deep_prior_interpolation_tpu_torch.ops import conv_vjp
     from deep_prior_interpolation_tpu_torch.ops import upsample as U
-    # (at their callers: a wrapper counts its launches on its own name)
+
     seen, real = collections.Counter(), conv_vjp.wgrad3d
     seen_up, real_up = collections.Counter(), U._LinearUpsample2x.backward
 
@@ -634,7 +668,20 @@ def main_path(dev) -> dict:
         res = solver.solve(img, mask, seed=0)
     finally:
         conv_vjp.wgrad3d, U._LinearUpsample2x.backward = real, staticmethod(real_up)
-    counts = read_counts()
+    return res, read_counts(), seen, seen_up
+
+
+def main_path(dev) -> dict:
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config()
+    set_kernels(True)
+    solver = DIPSolver(cfg, outchannel=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, seen, seen_up = traced_solve(solver, img, mask)
     want = {(ci, co, sp): 9 * n for ci, co, sp, n in WGRAD_SHAPES}
     if dict(seen) != want:
         fail(f"the main path's wgrad shapes are {dict(seen)}, not {want}")
@@ -1036,10 +1083,10 @@ def check_zoo(dev) -> dict:
         convs, seen = collections.Counter(), collections.Counter()
         real_conv, real_wgrad = conv_vjp._ConvSame.apply, conv_vjp.wgrad3d
 
-        def spy_conv(x, w, stride, padding):
+        def spy_conv(x, w, stride, padding, mode):
             if x.is_cuda:  # not the net's build pass on the CPU
                 convs[(tuple(x.shape), tuple(w.shape), stride, padding, str(x.dtype))] += 1
-            return real_conv(x, w, stride, padding)
+            return real_conv(x, w, stride, padding, mode)
 
         def hook(x, dy, k):
             seen[(x.shape[1], dy.shape[1], tuple(x.shape[2:]),
@@ -1116,6 +1163,279 @@ def check_ensemble(dev) -> dict:
     return {"output_rel_err": out_err, "grad_rel_err": g_err}
 
 
+# ----------------------------------------------------------------------
+# phase 7: phase space and the alternative conv formulations
+# ----------------------------------------------------------------------
+
+# the phase flagship: bench.py's default (phase levels 2), phase 4's flags
+PHASE7 = dict(phase_space=True, phase_levels=2, phase_deep_levels=0)
+_P = [(128, 64, 64), (64, 32, 32)]
+# its wgrad shapes (Ci, Co, spatial, launches an iteration): the 9 phase
+# convs of resolutions 0 and 1 on their phase grids (channels x 8), new to
+# the kernel, then the 13 plain convs of resolutions 2-4 that phase 2 checks
+PHASE_WGRAD_NEW = [(536, 32, _P[0], 1), (200, 128, _P[0], 1), (200, 8, _P[0], 1),
+                   (64, 104, _P[0], 2), (32, 64, _P[0], 2), (1096, 64, _P[1], 1),
+                   (408, 256, _P[1], 1), (136, 208, _P[1], 2), (64, 136, _P[1], 2)]
+PHASE_WGRAD_SHAPES = PHASE_WGRAD_NEW + [r for r in WGRAD_SHAPES if r[2] in _L[2:]]
+# the two upsamples left plain (resolutions 3 and 4 are not phased)
+PHASE_UPSAMPLE_SHAPES = UPSAMPLE_SHAPES[:2]
+PHASE_COUNTS = {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 30, "upsample_bwd": 9 * 2}
+# what was predicted before the first card run of phase 7 (PERF.md)
+PREDICTED_7A = ("0.16-0.25 s/iteration (8x the MACs at resolutions 0-1, on wider "
+                "channels), 13.4-15 GiB")
+# bf16: the phase net rounds at other places than the plain one (the JAX
+# package holds their outputs to 0.05 of the output's scale); the loss, a
+# masked mean over 1.4 M voxels, averages that out: 5e-5 and 6e-5 measured
+# on the CPU at (64, 32, 32) with two seeds
+LOSS0_TOL_BF16 = 1e-3
+
+
+def phase_flagship(dev, main: dict) -> dict:
+    """7a: the phase flagship through ``DIPSolver.solve``, 9 iterations in
+    chunks of 3, hooks on the wgrad kernel's and the upsample's callers."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(**PHASE7)
+    set_kernels(True)
+    solver = DIPSolver(cfg, outchannel=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, seen, seen_up = traced_solve(solver, img, mask)
+    peak = torch.cuda.max_memory_allocated()
+    want = {(ci, co, sp): 9 * n for ci, co, sp, n in PHASE_WGRAD_SHAPES}
+    if dict(seen) != want:
+        fail(f"7a: the phase path's wgrad shapes are {dict(seen)}, not {want}")
+    want_up = {(c, sp): 9 for c, sp in PHASE_UPSAMPLE_SHAPES}
+    if dict(seen_up) != want_up:
+        fail(f"7a: the phase path's upsample shapes are {dict(seen_up)}, not {want_up}")
+    loss = np.asarray(res.history.loss)
+    log(f"7a phase flagship: losses {loss.tolist()}")
+    log(f"7a: {len(seen)} distinct wgrad shapes ({len(PHASE_WGRAD_NEW)} new), "
+        f"{len(seen_up)} upsample shapes; launches {counts} (expected {PHASE_COUNTS})")
+    if not (len(loss) == 9 and np.all(np.isfinite(loss))):
+        fail("7a: the phase flagship's loss is not finite for 9 iterations")
+    if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+        fail(f"7a: out_best has shape {res.out_best.shape} or is not finite")
+    if counts != PHASE_COUNTS:
+        fail(f"7a: the phase path's launch counts are {counts}")
+    steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
+    rel = abs(float(loss[0]) - main["loss0"]) / abs(main["loss0"])
+    log(f"7a: chunk seconds {res.chunk_seconds}; steady s/iteration {steady:.4f} against "
+        f"phase 4's {main['s_per_iter']:.4f}; peak memory {peak / 2**30:.2f} GiB against "
+        f"phase 4's {main['peak_bytes'] / 2**30:.2f} (predicted: {PREDICTED_7A})")
+    log(f"7a: iteration-0 loss {float(loss[0]):.7g} against phase 4's {main['loss0']:.7g} "
+        f"(same parameters and canvas), rel err {rel:.3e} (tol {LOSS0_TOL_BF16:g})")
+    if not rel <= LOSS0_TOL_BF16:
+        fail("7a: the phase flagship's iteration-0 loss differs from phase 4's")
+    del solver
+    return {"launches": counts, "s_per_iter": steady, "peak_bytes": peak,
+            "phase4_s_per_iter": main["s_per_iter"], "phase4_peak_bytes": main["peak_bytes"],
+            "loss0": float(loss[0]), "loss0_rel_err": rel, "losses": loss.tolist()}
+
+
+def phase_exactness(dev) -> dict:
+    """7b: one float32 forward of the plain and the phase flagship nets at
+    (256, 128, 128), same parameters and canvas (TF32 off): outputs to 2e-5
+    of the output's scale, masked L1 losses to rel 1e-5 (the JAX package's
+    exactness tolerance); levels 2, then levels 3 with resolution 0 at depth 2."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.models import get_net, init_weights
+    from deep_prior_interpolation_tpu_torch.ops import losses as L
+
+    img_np, mask_np = flagship_problem(256, 128, 128)
+    img = torch.from_numpy(img_np[..., 0])[None, None].to(dev)
+    mask = torch.from_numpy(mask_np[..., 0])[None, None].to(dev)
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        plain = get_net(flagship_config(dtype="float32"))
+        init_weights(plain, torch.Generator().manual_seed(0))
+        state = plain.state_dict()
+        plain = plain.to(dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        x = 0.1 * torch.randn((1, 64, 256, 128, 128), generator=g, device=dev)
+        with torch.no_grad():
+            y0 = plain(x)
+            del plain
+            loss0 = float(L.masked_mae(y0, img, mask))
+            scale = float(y0.abs().max())
+            for levels, deep in ((2, 0), (3, 1)):
+                net = get_net(flagship_config(dtype="float32", phase_space=True,
+                                              phase_levels=levels, phase_deep_levels=deep))
+                net.load_state_dict(state)
+                net = net.to(dev)
+                t = time.time()
+                y = net(x)
+                torch.cuda.synchronize()
+                secs = time.time() - t
+                err = float((y - y0).abs().max()) / scale
+                lrel = abs(float(L.masked_mae(y, img, mask)) - loss0) / abs(loss0)
+                log(f"7b float32 phase levels {levels}, deep {deep}: max |y - y_plain| / "
+                    f"max |y_plain| {err:.3e} (tol 2e-5), masked L1 rel err {lrel:.3e} "
+                    f"(tol 1e-5), forward {secs:.2f} s")
+                if not (err <= 2e-5 and lrel <= 1e-5):
+                    fail(f"7b: the float32 phase net (levels {levels}, deep {deep}) is not "
+                         f"the plain net")
+                out[f"levels{levels}_deep{deep}"] = {"out_rel_err": err, "loss_rel_err": lrel,
+                                                     "forward_s": secs}
+                del net, y
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return out
+
+
+def phase_determinism(dev, tmp: str) -> dict:
+    """7c: two 3-iteration phase-flagship solves from one seed with a
+    checkpoint path (so deterministic cuDNN), the second after the wgrad
+    tuner was emptied and given the first's grids from its checkpoint:
+    nothing timed, history and out_best bit-equal."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(**PHASE7, epochs=3, scan_chunk=3)
+    set_kernels(True)
+    new = {(ci, co, sp) for ci, co, sp, _ in PHASE_WGRAD_NEW}
+
+    def grids():
+        return {(e["key"][0][1], e["key"][1][1], tuple(e["key"][0][2:])): e["plan"]
+                for e in WG.tuned_plans() if e["key"][3] == "bfloat16"
+                and (e["key"][0][1], e["key"][1][1], tuple(e["key"][0][2:])) in new}
+    first = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, checkpoint_path=os.path.join(
+        tmp, "phase_a.npz"), checkpoint_every=1)
+    before = grids()
+    with np.load(os.path.join(tmp, "phase_a.npz")) as z:
+        saved = json.loads(str(z["__meta__"]))["wgrad_plans"]
+    WG._tuned.clear()
+    pinned = WG.pin_plans(saved)
+    tuned, real_tune = [], WG._tune
+
+    def spy_tune(x, dy, k):
+        tuned.append((tuple(x.shape), tuple(dy.shape)))
+        return real_tune(x, dy, k)
+    WG._tune = spy_tune
+    try:
+        second = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, checkpoint_path=os.path.join(
+            tmp, "phase_b.npz"), checkpoint_every=1)
+    finally:
+        WG._tune = real_tune
+    hist_equal = all(np.array_equal(getattr(first.history, f), getattr(second.history, f))
+                     for f in first.history.FIELDS)
+    out_equal = np.array_equal(first.out_best, second.out_best)
+    log(f"7c: losses {first.history.loss} / {second.history.loss}; {pinned} grids pinned "
+        f"from the first solve's checkpoint ({len(before)} of the 9 new shapes), shapes "
+        f"timed by the second {len(tuned)}; history bit-equal {hist_equal}, out_best "
+        f"bit-equal {out_equal}")
+    if len(before) != len(new) or grids() != before or tuned:
+        fail(f"7c: the new shapes' grids were not pinned across the two solves "
+             f"({len(before)} kept, timed {tuned})")
+    if not (hist_equal and out_equal):
+        fail("7c: two phase-flagship solves from one seed are not bit-equal")
+    return {"grids_pinned": pinned, "history_bit_equal": hist_equal,
+            "out_best_bit_equal": out_equal}
+
+
+def phase_wgrad(dev, wgrad: dict, counts: dict) -> dict:
+    """7d: the wgrad kernel at the 9 phase shapes against its plain version,
+    timed beside its bound and ``conv3d_weight``; and the one full-resolution
+    weight gradient the phase path leaves to cuDNN, the entry conv's ((4, 4,
+    4), stride 2, over (1, 64, 256, 128, 128)), against the folded form."""
+    from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    rows = [wgrad_row(dev, ci, co, sp, torch.bfloat16, n, g, True)
+            for ci, co, sp, n in PHASE_WGRAD_NEW]
+    old = {(r["ci"], r["co"], tuple(r["spatial"])): r["ms"] for r in wgrad["shapes"]
+           if r["dtype"] == "bfloat16"}
+    per_iter = sum(r["ms"] * r["launches_per_iteration"] for r in rows) + sum(
+        n * old[(ci, co, sp)] for ci, co, sp, n in PHASE_WGRAD_SHAPES[len(PHASE_WGRAD_NEW):])
+    log(f"7d: wgrad ms/iteration on the phase path, sum of launches x ms over its 22 shapes "
+        f"(30 launches) = {per_iter:.4f} (plain flagship {wgrad['ms_per_iteration']:.4f})")
+
+    x = torch.randn((1, 64, 256, 128, 128), generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((1, 32, 128, 64, 64), generator=g, device=dev).to(torch.bfloat16)
+    w_shape, pads = (32, 64, 4, 4, 4), ((1, 1),) * 3
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = torch.nn.grad.conv3d_weight(x.float(), w_shape, dy.float(), stride=2, padding=1)
+        folded = conv_vjp._folded_wgrad(x, dy, w_shape, 2, pads)
+        err = float((folded - ref).abs().max())
+        # phase 2's tolerance: the same float32 products (bf16 products are
+        # exact in float32) summed in other orders, here 0.5 M a term
+        lim = 1e-4 * float(ref.abs().max()) + 1e-4
+        entry = {"shape": [64, 32, 4, 2, 256, 128, 128], "max_abs_err_folded": err}
+        entry["library_ms"] = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x, w_shape, dy, stride=2, padding=1))
+        entry["folded_ms"] = time_ms(lambda: conv_vjp._folded_wgrad(x, dy, w_shape, 2, pads))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    n_bytes = (x.numel() + dy.numel()) * 2 + math.prod(w_shape) * 4
+    entry["bound_ms"], entry["bound_by"] = bound_ms(n_bytes, 2.0 * 64 * 32 * 64 * dy[0, 0].numel(),
+                                                    torch.bfloat16)
+    log(f"7d entry conv dW (64 -> 32, k 4, stride 2, (256, 128, 128)) bf16: conv3d_weight "
+        f"{entry['library_ms']:.4f} ms, folded (float32 products) {entry['folded_ms']:.4f} ms, "
+        f"bound {entry['bound_ms']:.4f} ({entry['bound_by']}); folded against the float32 "
+        f"conv3d_weight: max abs err {err:.3e} (tol {lim:.3e}, 1e-4 of max |dW| + 1e-4)")
+    if not err <= lim:
+        fail("7d: the folded weight gradient disagrees with conv3d_weight")
+    del x, dy, ref, folded
+    wgrad["phase_shapes"] = rows
+    wgrad["max_abs_err"] = max([wgrad["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+    wgrad["phase_ms_per_iteration"] = per_iter
+    wgrad["phase_launches"] = counts["wgrad3d"]
+    return {"ms_per_iteration": per_iter, "entry_conv_wgrad": entry}
+
+
+def check_formulations(dev, small_losses: np.ndarray) -> dict:
+    """7e: phase 3's small solve with ``vmap_conv_mode="tapmm"`` (kernels
+    on), and with the packed and folded weight gradients (the wgrad kernel
+    off), each against phase 3's card losses: iteration 0 to rel 1e-5 (the
+    same forward, summed in another order or not at all), 1-2 to rel 1e-4
+    (phase 3's tolerance through Adam's first steps)."""
+    from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+    from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+
+    cfg, img, mask, noise, init, _ = small_problem()
+    out = {}
+    runs = (("tapmm", dict(vmap_conv_mode="tapmm"), {}, True, "_tap_conv"),
+            ("packed_folded", {}, {"DPI_PACKED_WGRAD": "1", "DPI_FOLD_WGRAD": "1"}, False,
+             "_folded_wgrad"))
+    for label, kw, env, kernels, spied in runs:
+        calls, real = [0], getattr(conv_vjp, spied)
+
+        def spy(*a, _real=real):
+            calls[0] += 1
+            return _real(*a)
+        setattr(conv_vjp, spied, spy)
+        set_kernels(kernels)
+        os.environ.update(env)
+        reset_counts()
+        try:
+            r = DIPSolver(Config(**{**cfg.to_dict(), **kw}), device=dev).solve(
+                img, mask, seed=0, init_params=init, noise=noise)
+        finally:
+            setattr(conv_vjp, spied, real)
+            for key in env:
+                del os.environ[key]
+            set_kernels(True)
+        a = np.asarray(r.history.loss)
+        rel = np.abs(a[:3] - small_losses[:3]) / np.abs(small_losses[:3])
+        log(f"7e {label}: losses {a.tolist()}; rel err to phase 3's iteration 0 {rel[0]:.3e} "
+            f"(tol 1e-5), 1-2 {rel[1:].max():.3e} (tol 1e-4); {spied} ran {calls[0]} times, "
+            f"launches {read_counts()}")
+        if not (rel[0] <= 1e-5 and rel[1:].max() <= 1e-4 and calls[0] > 0):
+            fail(f"7e: the {label} solve disagrees with phase 3's or did not run its form")
+        out[label] = {"losses": a.tolist(), "rel_err_it0": float(rel[0]),
+                      "rel_err_it12": float(rel[1:].max()), "calls": calls[0]}
+    return out
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -1131,17 +1451,18 @@ FAMILIES = [
 ]
 
 
-def profile_flagship(dev, out_dir: str) -> None:
-    """Trace the second 3-iteration chunk of the flagship solve, kernels on,
-    and print its device time an iteration by kernel family."""
+def profile_flagship(dev, out_dir: str, **kw) -> None:
+    """Trace the second 3-iteration chunk of the flagship solve (with ``kw``
+    over its configuration), kernels on, and print its device time an
+    iteration by kernel family."""
     from deep_prior_interpolation_tpu_torch import DIPSolver
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
 
     img, mask = flagship_problem(256, 128, 128)
     set_kernels(True)
-    cfg = flagship_config(epochs=6)
+    cfg = flagship_config(epochs=6, **kw)
     res = DIPSolver(cfg, device=dev).solve(img, mask, seed=0, profile_dir=out_dir)
-    log(f"profile: chunk seconds {res.chunk_seconds} (chunk 2 traced)")
+    log(f"profile {out_dir}: chunk seconds {res.chunk_seconds} (chunk 2 traced)")
     with open(os.path.join(out_dir, "ops.txt")) as fh:
         head, *rows = fh.read().splitlines()
     log(f"profile: {head}")
@@ -1196,7 +1517,7 @@ def main() -> None:
     fused, fused_grad = phase("2_fused_loss", check_fused_loss, dev)
     wgrad = phase("2_wgrad", check_wgrad, dev)
     upsample = phase("2_upsample", check_upsample, dev)
-    phase("3_small_solve", check_small_solve, dev)
+    small = phase("3_small_solve", check_small_solve, dev)
     main = phase("4_main_path", main_path, dev)
     if "--profile" in sys.argv[1:]:
         profile_flagship(dev, sys.argv[sys.argv.index("--profile") + 1])
@@ -1211,6 +1532,18 @@ def main() -> None:
                              ups)
                   for net, ups in (("attmultiunet", 4), ("part", 0))}
         ensemble = phase("6g_ensemble", check_ensemble, dev)
+        t7 = time.time()
+        phase7 = {"7a_flagship": phase("7a_phase_flagship", phase_flagship, dev, main)}
+        if "--profile" in sys.argv[1:]:
+            profile_flagship(dev, os.path.join(sys.argv[sys.argv.index("--profile") + 1],
+                                               "phase"), **PHASE7)
+        phase7["7b_float32"] = phase("7b_phase_float32", phase_exactness, dev)
+        phase7["7c_determinism"] = phase("7c_phase_determinism", phase_determinism, dev, tmp)
+        phase7["7d_wgrad"] = phase("7d_phase_wgrad", phase_wgrad, dev, wgrad,
+                                   phase7["7a_flagship"]["launches"])
+        phase7["7e_formulations"] = phase("7e_formulations", check_formulations, dev, small)
+        seconds["7_total"] = time.time() - t7
+        log(f"phase 7: {seconds['7_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase seconds: {json.dumps(seconds)}")
@@ -1224,6 +1557,11 @@ def main() -> None:
                             "checkpoint": checkpoint}}))
     log(json.dumps({"phase6": {"options": options, "zoo_3d": zoo, "zoo_2d": zoo_2d,
                                "ensemble": ensemble, "seconds": seconds}}))
+    phase7["seconds"] = {k: v for k, v in seconds.items() if k.startswith("7")}
+    log(json.dumps({"phase7": phase7}))
+    upsample["phase_launches"] = phase7["7a_flagship"]["launches"]["upsample_bwd"]
+    fused["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss"]
+    fused_grad["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss_grad"]
     log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

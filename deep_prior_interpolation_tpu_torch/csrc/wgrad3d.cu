@@ -785,6 +785,17 @@ extern "C" int dpi_wgrad3d(const void* s, const void* r, float* ws, float* out, 
   CUtensorMap sm, rm;
   memset(&sm, 0, sizeof(sm));
   memset(&rm, 0, sizeof(rm));
+  if (tma) {
+    // cuTensorMapEncodeTiled (a cu* entry point, not the runtime's) fails
+    // without a context current on this thread. A thread whose first CUDA
+    // call this is has none yet: autograd's device thread, in a backward
+    // whose first node is this conv. cudaSetDevice makes the device's
+    // primary context current.
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaSetDevice(dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   // S: boxes of rows (rsw, hb), or with flat_s one run of scs positions of
   // the plane seen as a single row of H x W
   if (tma && !((flat_s(P) ? make_map(&sm, s, is_bf16, sc, D, 1, H * W, scs, 1, cs)

@@ -10,7 +10,9 @@ The optimisation of a net on one patch *is* the inference. Each step:
     taken and the update applied at the perturbed parameters, so the noise
     stays in them, except where ``done`` keeps the unperturbed ones;
   * runs the net forward (with the sampling mask, for a net that takes it;
-    with dropout drawn from its own generator) and crops the padding away;
+    with dropout drawn from its own generator; every conv as a sum of
+    per-tap products under ``vmap_conv_mode="tapmm"``) and crops the
+    padding away;
   * computes the masked loss and the SNR / Pearson metrics in float32, from
     the fused loss kernel when ``fused_loss`` (``ops/fused_loss.py``) and
     from ``ops/losses.py`` otherwise;
@@ -67,6 +69,7 @@ from ..io import checkpoint as ckpt_io
 from ..models import get_net, init_weights, set_dropout_generator
 from ..ops import losses as L
 from ..ops import wgrad as wgrad_ops
+from ..ops.conv_vjp import conv_impl
 from ..ops.filters import convolve_kernel_1d, lowpass_butterworth_taps
 from ..ops.fused_loss import fused_loss_metrics
 from ..ops.noise import build_forgetting_data, data_forgetting_weights, get_noise
@@ -100,6 +103,9 @@ class StepSettings:
     # noise canvas (no shaping, no input optimisation)
     virtual_input: bool = False
     input_shape: Tuple[int, ...] = ()  # (1, inputdepth, *padded)
+    # the conv formulation of the step (ops/conv_vjp.py conv_impl): "conv"
+    # (cuDNN) or "tapmm" (a float32 matrix product a kernel tap)
+    conv_mode: str = "conv"
 
     @classmethod
     def from_config(cls, cfg: Config, orig_spatial: Tuple[int, ...],
@@ -118,20 +124,8 @@ class StepSettings:
                    track_last=cfg.save_every is not None, takes_mask=takes_mask,
                    opt_input=opt_input,
                    virtual_input=cfg.virtual_input and not opt_input and not shaped,
-                   input_shape=tuple(input_shape))
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a solver feature the port lacks
-    (the net's own, phase space, raise in ``get_net``). ``spatial_shards``
-    is the CLI's: a library solve reads only its ``spatial_mesh`` argument,
-    as the JAX package's does."""
-    todo = [
-        (cfg.vmap_conv_mode != "grouped", "vmap_conv_mode 'tapmm'", "A.12"),
-    ]
-    for on, what, item in todo:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+                   input_shape=tuple(input_shape),
+                   conv_mode="tapmm" if cfg.vmap_conv_mode == "tapmm" else "conv")
 
 
 def build_hyper(cfg: Config, device: torch.device) -> Dict[str, Any]:
@@ -153,9 +147,19 @@ def build_hyper(cfg: Config, device: torch.device) -> Dict[str, Any]:
 
 
 def pad_multiple_for(cfg: Config) -> int:
+    """What the padded spatial dims are multiples of: ``pad_multiple``, or
+    what the net's levels need, with phase space what its phased levels
+    need (resolution r at depth q: 2^(r+q))."""
     if cfg.pad_multiple and cfg.pad_multiple > 0:
         return cfg.pad_multiple
-    return 2 ** (len(cfg.filters) - 1)
+    mult = 2 ** (len(cfg.filters) - 1)
+    if cfg.phase_space:
+        levels = len(cfg.filters) if cfg.phase_levels < 0 else cfg.phase_levels
+        mult = max(mult, 2 ** min(levels, len(cfg.filters)))
+        if cfg.phase_deep_levels > 0:
+            deep = min(cfg.phase_deep_levels, levels, len(cfg.filters))
+            mult = max(mult, 2 ** (deep + 1))
+    return mult
 
 
 def padded_spatial(spatial: Tuple[int, ...], mult: int) -> Tuple[int, ...]:
@@ -495,7 +499,6 @@ class DIPSolver:
 
     def __init__(self, cfg: Config, outchannel: int = 1,
                  device: Union[str, torch.device, None] = None):
-        check_supported(cfg)
         self.cfg = cfg
         self.outchannel = outchannel
         self.device = _resolve_device(cfg, device)
@@ -773,8 +776,10 @@ class DIPSolver:
             fields += ("df", "reg", "eps", "th")
 
         def run_chunk(c: int) -> np.ndarray:
-            ys = [self._step(it, st, data, hyper, s, gens, regenerate)
-                  for it in range(c * chunk, (c + 1) * chunk)]
+            # the step's conv formulation, for its forward and its backward
+            with conv_impl(s.conv_mode):
+                ys = [self._step(it, st, data, hyper, s, gens, regenerate)
+                      for it in range(c * chunk, (c + 1) * chunk)]
             # the one host read of the chunk (and its synchronisation point)
             return torch.stack(
                 [torch.stack([y[f] for y in ys]) for f in fields]

@@ -50,7 +50,9 @@ def get_net(cfg: Config, outchannel: int = 1) -> nn.Module:
             cin, filters=tuple(cfg.filters), skip=tuple(cfg.skip),
             dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else None, remat=cfg.remat,
             remat_levels=cfg.remat_levels or None,
-            phase_space=cfg.phase_space and cfg.phase_levels != 0, **common)
+            phase_space=cfg.phase_space and cfg.phase_levels != 0,
+            phase_levels=None if cfg.phase_levels < 0 else cfg.phase_levels,
+            phase_deep_levels=cfg.phase_deep_levels, **common)
     if name == "skip":
         return SkipNet(cin, filters=tuple(cfg.filters), skip=tuple(cfg.skip), **common)
     if name == "attmultiunet":

@@ -13,7 +13,8 @@ is a name-for-name transpose.
 * ``Conv`` pads (k-1)//2 on each side, so stride 2 gives ceil(n/2); the
   input and the float32 kernel are cast to the compute dtype, and the bias
   is added in that dtype. ``pad="reflection"`` reflects instead and
-  convolves unpadded.
+  convolves unpadded. ``phase_in``/``phase_out`` (and ``Norm(phase=B)``)
+  run the same conv (and Norm) on phase tensors (``ops/phase_space.py``).
 * ``upsample``: 'nearest' duplicates samples; any other mode is a
   half-pixel-centre linear resize (``align_corners=False``), whose backward
   by 2 is the gather of ``ops/upsample.py`` (a CUDA kernel on the card).
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import phase_space as ps
 from ..ops.conv_vjp import conv_same
 from ..ops.upsample import linear_upsample2x
 
@@ -63,14 +65,24 @@ def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.view((1, -1) + (1,) * (ndim - 2))
 
 
+def _lanes(v: torch.Tensor, b: int) -> torch.Tensor:
+    """(C,) -> (C*b,), each entry ``b`` times in a row (a phase tensor's
+    channels); its backward sums, with no atomics."""
+    return v.unsqueeze(1).expand(-1, b).reshape(-1)
+
+
 class Norm(nn.Module):
-    """Batch-of-1 BatchNorm: normalise over all non-channel axes."""
+    """Batch-of-1 BatchNorm: normalise over all non-channel axes.
+
+    ``phase > 1`` normalises a phase tensor (``ops/phase_space.py``), whose
+    channel ``c`` occupies ``phase`` consecutive channels: the per-channel
+    sums are folded over those after the reduction and ``g``, ``b``
+    repeated over them, so the result is the phase tensor of the plain
+    Norm's."""
 
     def __init__(self, channels: int, eps: float = 1e-5, phase: int = 1):
         super().__init__()
-        if phase != 1:
-            raise NotImplementedError("phase-space Norm: ROADMAP A.12")
-        self.eps = eps
+        self.eps, self.phase = eps, phase
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -79,11 +91,16 @@ class Norm(nn.Module):
         axes = [0] + list(range(2, x.ndim))
         s1 = torch.sum(xf, dim=axes)
         s2 = torch.sum(xf * xf, dim=axes)
-        n = float(x.numel() // x.shape[1])
+        n = float(x.numel() // x.shape[1]) * self.phase
+        if self.phase > 1:
+            s1 = s1.view(-1, self.phase).sum(-1)
+            s2 = s2.view(-1, self.phase).sum(-1)
         mean = s1 / n
         var = torch.clamp(s2 / n - mean * mean, min=0.0)
         g = self.scale * torch.rsqrt(var + self.eps)
         b = self.bias - mean * g
+        if self.phase > 1:
+            g, b = _lanes(g, self.phase), _lanes(b, self.phase)
         return x * _bcast(g.to(x.dtype), x.ndim) + _bcast(b.to(x.dtype), x.ndim)
 
 
@@ -93,17 +110,28 @@ class Conv(nn.Module):
     ``dtype`` is the compute dtype (bfloat16 for the fast path); the
     parameters stay float32. The kernel is allocated as zeros and drawn by
     ``models.init.init_weights``.
+
+    ``phase_in``/``phase_out`` run the same conv (same parameters) on phase
+    tensors of depth ``phase_depth`` (``ops/phase_space.py``): plain ->
+    phase at stride 1 (the fused entry conv), phase -> phase at stride 1
+    (the swap-folded kernel), phase -> plain at stride 2 (the exit, whose
+    output grid is the phase grid). The bias is repeated over the phase
+    channels of a phase output.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, ndim: int = 2, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None, pad: str = "zero",
-                 phase_in: bool = False, phase_out: bool = False):
+                 phase_in: bool = False, phase_out: bool = False, phase_depth: int = 1):
         super().__init__()
-        if phase_in or phase_out:
-            raise NotImplementedError("phase-space Conv: ROADMAP A.12")
+        if (phase_in or phase_out) and pad != "zero":
+            raise ValueError("a phase conv takes zero padding only")
+        if (phase_out and stride != 1) or (phase_in and not phase_out and stride != 2):
+            raise ValueError(f"phase_in={phase_in}, phase_out={phase_out} takes stride "
+                             f"{1 if phase_out else 2}, got {stride}")
         self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
         self.pad = pad
+        self.phase_in, self.phase_out, self.phase_depth = phase_in, phase_out, phase_depth
         self.kernel = nn.Parameter(
             torch.zeros((features, in_channels) + (kernel_size,) * ndim))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -111,25 +139,41 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype if self.dtype is not None else x.dtype
         p = (self.kernel_size - 1) // 2
-        x = x.to(dt)
+        x, w = x.to(dt), self.kernel.to(dt)
+        if self.phase_in or self.phase_out:
+            if not self.phase_in:
+                y = ps.phase_entry_conv(x, w, self.phase_depth)
+            elif self.phase_out:
+                y = ps.phase_conv(x, w, self.phase_depth)
+            else:
+                y = ps.phase_exit_conv(x, w, self.phase_depth)
+            if self.bias is not None:
+                b = self.bias.to(dt)
+                if self.phase_out:
+                    b = _lanes(b, 2 ** ((x.ndim - 2) * self.phase_depth))
+                y = y + _bcast(b, y.ndim)
+            return y
         if self.pad == "reflection" and p > 0:
             x, p = F.pad(x, (p, p) * (x.ndim - 2), mode="reflect"), 0
-        y = conv_same(x, self.kernel.to(dt), self.stride, p)
+        y = conv_same(x, w, self.stride, p)
         if self.bias is not None:
             y = y + _bcast(self.bias.to(dt), y.ndim)
         return y
 
 
 class ConvNormAct(nn.Module):
-    """conv -> Norm -> activation."""
+    """conv -> Norm -> activation; with ``phase_out`` the Norm of a phase
+    tensor of depth ``phase_depth``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, ndim: int = 2, use_bias: bool = True,
-                 act: str = "LeakyReLU", dtype: Optional[torch.dtype] = None):
+                 act: str = "LeakyReLU", dtype: Optional[torch.dtype] = None,
+                 phase_in: bool = False, phase_out: bool = False, phase_depth: int = 1):
         super().__init__()
         self.Conv_0 = Conv(in_channels, features, kernel_size, stride, ndim,
-                           use_bias, dtype=dtype)
-        self.Norm_0 = Norm(features)
+                           use_bias, dtype=dtype, phase_in=phase_in, phase_out=phase_out,
+                           phase_depth=phase_depth)
+        self.Norm_0 = Norm(features, phase=2 ** (ndim * phase_depth) if phase_out else 1)
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

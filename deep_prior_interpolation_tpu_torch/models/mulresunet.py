@@ -15,6 +15,11 @@ its auto-names (``MultiResBlock_0``, ``ResPath_0``, ``Conv_0``, ``Norm_0``,
 insides instead of keeping them: level 0 is the first block, level i its
 skip path, encoder and decoder. The names stay those of the plain net (flax
 prefixes a remat block's name with ``Checkpoint``).
+
+``phase_space`` runs the largest resolutions on phase tensors
+(``ops/phase_space.py``): the same modules, parameters and function; the
+levels' boundaries unblock (``depth_to_space``) below a phased level and
+upsample straight into phase layout (``upsample_into_phase``) above one.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.conv_vjp import conv_impl, current_conv_impl
+from ..ops.phase_space import depth_to_space, space_to_depth, upsample_into_phase
 from .blocks import (Conv, ConvNormAct, Dropout, Norm, concat_crop,
                      get_activation, upsample)
 
@@ -35,26 +42,36 @@ def multires_width(u: int, alpha: float = 1.67) -> int:
 
 
 class MultiResBlock(nn.Module):
-    """Chained 3x3 convs concatenated + 1x1 shortcut."""
+    """Chained 3x3 convs concatenated + 1x1 shortcut.
+
+    ``phase`` runs the block on phase tensors of depth ``phase_depth``
+    (``ops/phase_space.py``): the first conv and the shortcut enter from a
+    plain input, or from a phase one with ``phase_in``; everything after
+    stays phase (a channel concat commutes with the layout) and the output
+    is a phase tensor. Same parameters, same function."""
 
     def __init__(self, in_channels: int, u: int, ndim: int, alpha: float = 1.67,
                  act: str = "LeakyReLU", use_bias: bool = True, drop: float = 0.0,
-                 extra_norm: bool = False, dtype: Optional[torch.dtype] = None):
+                 extra_norm: bool = False, dtype: Optional[torch.dtype] = None,
+                 phase: bool = False, phase_in: bool = False, phase_depth: int = 1):
         super().__init__()
         w = alpha * u
         c1, c2, c3 = int(w * 0.167), int(w * 0.333), int(w * 0.5)
         kw = dict(ndim=ndim, act=act, use_bias=use_bias, dtype=dtype)
+        pin = dict(phase_in=phase_in, phase_out=True, phase_depth=phase_depth) if phase else {}
+        pmid = dict(phase_in=True, phase_out=True, phase_depth=phase_depth) if phase else {}
+        lanes = 2 ** (ndim * phase_depth) if phase else 1
         self.out_channels = c1 + c2 + c3
-        self.ConvNormAct_0 = ConvNormAct(in_channels, c1, 3, **kw)
-        self.ConvNormAct_1 = ConvNormAct(c1, c2, 3, **kw)
-        self.ConvNormAct_2 = ConvNormAct(c2, c3, 3, **kw)
+        self.ConvNormAct_0 = ConvNormAct(in_channels, c1, 3, **kw, **pin)
+        self.ConvNormAct_1 = ConvNormAct(c1, c2, 3, **kw, **pmid)
+        self.ConvNormAct_2 = ConvNormAct(c2, c3, 3, **kw, **pmid)
         self.extra_norm = extra_norm
         if extra_norm:
-            self.Norm_0 = Norm(self.out_channels)
+            self.Norm_0 = Norm(self.out_channels, phase=lanes)
         self.drop = Dropout(drop)
-        self.ConvNormAct_3 = ConvNormAct(in_channels, self.out_channels, 1, **kw)
+        self.ConvNormAct_3 = ConvNormAct(in_channels, self.out_channels, 1, **kw, **pin)
         if extra_norm:
-            self.Norm_1 = Norm(self.out_channels)
+            self.Norm_1 = Norm(self.out_channels, phase=lanes)
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,20 +91,25 @@ class MultiResBlock(nn.Module):
 
 class ResPath(nn.Module):
     """Residual skip path: 3x3 + 1x1 convs added. ``norm_last`` selects the
-    2D order Norm(Dropout(act(.))); the 3D one is Dropout(Norm(act(.)))."""
+    2D order Norm(Dropout(act(.))); the 3D one is Dropout(Norm(act(.))).
+    ``phase`` runs it on a phase tensor of depth ``phase_depth``."""
 
     def __init__(self, in_channels: int, f_out: int, ndim: int,
                  act: str = "LeakyReLU", use_bias: bool = True, drop: float = 0.0,
                  norm_last: bool = True, length: int = 1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, phase: bool = False,
+                 phase_depth: int = 1):
         super().__init__()
         kw = dict(ndim=ndim, act=act, use_bias=use_bias, dtype=dtype)
+        if phase:
+            kw.update(phase_in=True, phase_out=True, phase_depth=phase_depth)
+        lanes = 2 ** (ndim * phase_depth) if phase else 1
         self.length, self.norm_last = length, norm_last
         c = in_channels
         for i in range(length):
             setattr(self, f"ConvNormAct_{2 * i}", ConvNormAct(c, f_out, 3, **kw))
             setattr(self, f"ConvNormAct_{2 * i + 1}", ConvNormAct(c, f_out, 1, **kw))
-            setattr(self, f"Norm_{i}", Norm(f_out))
+            setattr(self, f"Norm_{i}", Norm(f_out, phase=lanes))
             c = f_out
         self.drop = Dropout(drop)
         self.act = get_activation(act)
@@ -104,26 +126,27 @@ class ResPath(nn.Module):
 
 def checkpointed(module: nn.Module, x: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``module(x)`` whose backward recomputes the forward. A recompute
-    draws its dropout masks from the generator state the forward started
-    from, so it rebuilds the same masks, and leaves the generator where the
-    step has moved it (``torch.utils.checkpoint`` restores only the global
-    generators)."""
-    if generator is None:
-        return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
-    start = generator.get_state()
+    """``module(x)`` whose backward recomputes the forward. The recompute
+    runs under the forward's conv formulation (``conv_impl``: the backward
+    may run on another thread); it draws its dropout masks from the
+    generator state the forward started from, so it rebuilds the same
+    masks, and leaves the generator where the step has moved it
+    (``torch.utils.checkpoint`` restores only the global generators)."""
+    mode = current_conv_impl()
+    start = generator.get_state() if generator is not None else None
     first = [True]
 
     def run(h: torch.Tensor) -> torch.Tensor:
-        if first[0]:
-            first[0] = False
-            return module(h)
-        now = generator.get_state()
-        generator.set_state(start)
-        try:
-            return module(h)
-        finally:
-            generator.set_state(now)
+        with conv_impl(mode):
+            if first[0] or generator is None:
+                first[0] = False
+                return module(h)
+            now = generator.get_state()
+            generator.set_state(start)
+            try:
+                return module(h)
+            finally:
+                generator.set_state(now)
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
@@ -133,6 +156,13 @@ class MulResUnet(nn.Module):
     ``dtype=torch.bfloat16`` runs every conv in bf16 (parameters and Norm
     statistics stay float32); the output is cast back to the input dtype.
     ``remat_levels`` None checkpoints every level, N the N largest.
+
+    ``phase_space`` runs resolutions 0..``phase_levels``-1 (all for None) on
+    phase tensors (``ops/phase_space.py``), the first ``phase_deep_levels``
+    of them at phase depth 2 (channels x 4^ndim at 1/4 resolution): the same
+    parameters (names and shapes those of the plain net) and the same
+    function, up to rounding. The spatial dims must be divisible by
+    2^(r + depth) at each phased resolution r.
     """
 
     def __init__(self, in_channels: int, out_channels: int = 1, ndim: int = 2,
@@ -142,16 +172,17 @@ class MulResUnet(nn.Module):
                  use_bias: bool = True, upsample_mode: str = "nearest",
                  dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
                  remat: bool = False, remat_levels: Optional[int] = None,
-                 phase_space: bool = False):
+                 phase_space: bool = False, phase_levels: Optional[int] = 3,
+                 phase_deep_levels: int = 0):
         super().__init__()
         if len(filters) != len(skip) + 1:
             raise ValueError("filters must be one longer than skip")
-        if phase_space:
-            raise NotImplementedError("phase-space execution: ROADMAP A.12")
         self.ndim, self.dtype = ndim, dtype
         self.remat, self.remat_levels = remat, remat_levels
         self.filters, self.skip = tuple(filters), tuple(skip)
         self.upsample_mode = upsample_mode
+        self.phase_space, self.phase_levels = phase_space, phase_levels
+        self.phase_deep_levels = phase_deep_levels
         self.act = get_activation(act)
         self.drop = Dropout(dropout)
         last = None if (isinstance(last_act, str)
@@ -172,31 +203,51 @@ class MulResUnet(nn.Module):
         self.levels: Dict[int, Dict[str, Optional[str]]] = {}
 
         def build_level(i: int, c_h: int) -> int:
+            ph, dp = self.phased(i - 1), max(self.pdepth(i - 1), 1)
+            enc_ph, enc_dp = self.phased(i), max(self.pdepth(i), 1)
             names: Dict[str, Optional[str]] = {"path": None, "norm": None}
             if skip[i - 1] != 0:
                 names["path"] = add("ResPath", ResPath(
                     c_h, skip[i - 1], ndim, act=act, use_bias=use_bias,
-                    drop=dropout, norm_last=not is3d, dtype=dtype))
+                    drop=dropout, norm_last=not is3d, dtype=dtype, phase=ph,
+                    phase_depth=dp))
+            # with a phase input the stride-2 conv is the phase exit
             names["down"] = add("Conv", Conv(c_h, c_h, 3, stride=2, ndim=ndim,
-                                             use_bias=use_bias, dtype=dtype))
+                                             use_bias=use_bias, dtype=dtype,
+                                             phase_in=ph, phase_depth=dp))
             if is3d:
                 names["norm"] = add("Norm", Norm(c_h))
-            enc = MultiResBlock(c_h, filters[i], **bkw)
+            enc = MultiResBlock(c_h, filters[i], **bkw, phase=enc_ph, phase_depth=enc_dp)
             names["enc"] = add("MultiResBlock", enc)
             c_d = enc.out_channels
             if i < len(filters) - 1:
                 c_d = build_level(i + 1, c_d)
             c_cat = c_d + (skip[i - 1] if skip[i - 1] != 0 else 0)
-            dec = MultiResBlock(c_cat, filters[i - 1], **bkw)
+            dec = MultiResBlock(c_cat, filters[i - 1], **bkw, phase=ph, phase_in=ph,
+                                phase_depth=dp)
             names["dec"] = add("MultiResBlock", dec)
             self.levels[i] = names
             return dec.out_channels
 
-        block0 = MultiResBlock(in_channels, filters[0], **bkw)
+        dp0 = max(self.pdepth(0), 1)
+        block0 = MultiResBlock(in_channels, filters[0], **bkw, phase=self.phased(0),
+                               phase_depth=dp0)
         self.block0 = add("MultiResBlock", block0)
         c0 = build_level(1, block0.out_channels)
         self.head = add("Conv", Conv(c0, out_channels, 1 if ndim == 2 else 3,
-                                     ndim=ndim, use_bias=use_bias, dtype=dtype))
+                                     ndim=ndim, use_bias=use_bias, dtype=dtype,
+                                     phase_in=self.phased(0), phase_out=self.phased(0),
+                                     phase_depth=dp0))
+
+    def phased(self, res: int) -> bool:
+        """Does resolution ``res`` run on phase tensors?"""
+        return self.phase_space and (self.phase_levels is None or res < self.phase_levels)
+
+    def pdepth(self, res: int) -> int:
+        """Phase depth of resolution ``res`` (0: plain)."""
+        if not self.phased(res):
+            return 0
+        return 2 if res < self.phase_deep_levels else 1
 
     def _block(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
         """A MultiResBlock or ResPath of ``level``, checkpointed where remat
@@ -207,7 +258,10 @@ class MulResUnet(nn.Module):
         return checkpointed(m, x, self.drop.generator if self.drop.rate > 0 else None)
 
     def _level(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Resolution i-1 in, resolution i-1 out: phase tensors where that
+        resolution is phased."""
         names = self.levels[i]
+        ph, dp = self.phased(i - 1), max(self.pdepth(i - 1), 1)
         s = self._block(names["path"], i, h) if names["path"] else None
         d = self.get_submodule(names["down"])(h)
         if names["norm"]:
@@ -216,15 +270,35 @@ class MulResUnet(nn.Module):
         d = self._block(names["enc"], i, d)
         if i < len(self.filters) - 1:
             d = self._level(i + 1, d)
-        d = upsample(d, 2, self.upsample_mode)
+        if self.phased(i):
+            for _ in range(max(self.pdepth(i), 1)):
+                d = depth_to_space(d)
+        if ph:
+            # the x2 upsample lands in phase layout: its phase grid is d's grid
+            d = upsample_into_phase(d, "nearest" if self.upsample_mode == "nearest"
+                                    else "linear")
+            for _ in range(dp - 1):
+                d = space_to_depth(d)
+        else:
+            d = upsample(d, 2, self.upsample_mode)
         y = concat_crop([s, d]) if s is not None else d
         return self._block(names["dec"], i, y)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
+        for r in range(len(self.filters)):
+            m = 2 ** (r + self.pdepth(r))
+            if self.phased(r) and any(dim % m for dim in x.shape[2:]):
+                raise ValueError(f"phase level {r} needs spatial dims divisible by {m}, got "
+                                 f"{tuple(x.shape[2:])}: raise pad_multiple or lower "
+                                 f"phase_levels")
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self._block(self.block0, 0, x)
         x = self._level(1, x)
-        x = self.last_act(self.get_submodule(self.head)(x))
+        x = self.get_submodule(self.head)(x)
+        if self.phased(0):
+            for _ in range(max(self.pdepth(0), 1)):
+                x = depth_to_space(x)
+        x = self.last_act(x)
         return x.to(in_dtype)

@@ -1,6 +1,7 @@
 """What the port refuses: every feature it does not serve yet raises
 NotImplementedError naming its ROADMAP item, and a canvas of the wrong
-shape is rejected; the solver options and nets it serves build."""
+shape is rejected; the solver options, nets and conv formulations it
+serves (phase space and tapmm among them) build."""
 import numpy as np
 import pytest
 import torch
@@ -18,18 +19,12 @@ def tiny_cfg(**kw):
     return Config(**base)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(phase_space=True), dict(spatial_shards=2), dict(vmap_conv_mode="tapmm"),
-])
+@pytest.mark.parametrize("kw", [dict(spatial_shards=2)])
 def test_unported_features_raise(kw, tmp_path):
-    """The solver refuses phase space and tapmm; spatial shards are the
-    CLI's (a library solve ignores the field, as the JAX one does), so
-    ``cli.run`` refuses them."""
+    """Spatial shards are the CLI's (a library solve ignores the field, as
+    the JAX one does), so ``cli.run`` refuses them."""
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        if "spatial_shards" in kw:
-            cli.run(tiny_cfg(**kw), str(tmp_path), device="cpu")
-        else:
-            DIPSolver(tiny_cfg(**kw), device="cpu")
+        cli.run(tiny_cfg(**kw), str(tmp_path), device="cpu")
 
 
 def test_cli_and_weights_refusals(tmp_path):
@@ -48,7 +43,8 @@ def test_cli_and_weights_refusals(tmp_path):
     dict(opt_over="net,input"), dict(virtual_input=True), dict(remat=True),
     dict(filter_noise_with_wavelet=True), dict(lowpass_fs=250.0, lowpass_fc=40.0),
     dict(net="part"), dict(net="unet", filters=[4, 8, 8, 8, 8], skip=[4, 4, 4, 4]),
-    dict(net="skip"), dict(net="attmultiunet"),
+    dict(net="skip"), dict(net="attmultiunet"), dict(phase_space=True),
+    dict(vmap_conv_mode="tapmm"),
 ])
 def test_served_features_build(kw):
     solver = DIPSolver(tiny_cfg(**kw), device="cpu")
