@@ -120,8 +120,40 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       packed and folded weight gradients (wgrad kernel off), against phase
       3's losses.
 
+8. patch batches on one card (``parallel/mesh.py``), the launch counters
+   set to 0 just before each run and read just after:
+   a. the flagship's flags through ``cli.run --batch_patches 8`` on phase
+      5a's hyperbolic volume at (256, 128, 128), 66 % of its traces NaN, cut
+      into 8 patches of (128, 64, 64) (the voxels of phase 4's one patch),
+      6 iterations in chunks of 3: one batch of 8 lanes, launches of the
+      lane kernels 6 / 6 / 192 / 24 (fused loss forward and backward, wgrad,
+      upsample backward) and none of the one-lane wrappers, hooks on the
+      lane wgrad's and the upsample's callers check their shapes, the
+      bundles' keys; then the same 8 patches one after another
+      (``--batch_patches 0``): each lane's iteration-0 loss to rel 1e-3 of
+      its solo solve (bf16, grouped against plain cuDNN convs); s/iteration
+      of the batch and a patch beside the sequential run's and phase 4's,
+      and the peak memory;
+   b. BENCH_2D.json's configuration on the lines gather (MulResUnet 2D,
+      filters [16..256], inputdepth 64, bf16, fused loss) through
+      ``solve_patches_batched``, B lanes with B decimation masks from seeds
+      0..B-1, 3 chunks of 25 iterations: the one-lane solver (no vmap),
+      then B = 1, 32 with tapmm, 32 grouped, 64 with tapmm; s / 1000
+      iterations a patch beside the reference's V100 47 s, 75 / 75 lane
+      fused-loss launches whatever B is;
+   c. the lane kernels against their plain versions: the fused loss at
+      (32, 170 x 100) and (8, 128 x 64 x 64), bf16 and float32 ``out``, each
+      lane bit-equal to a one-lane launch, CUDA-graph times beside the
+      bound; the lane wgrad at every shape 8a saw (1e-4 of max |dW| + 1e-4)
+      beside its bound, the plain version and ``conv3d_weight`` with
+      ``groups=8``, and the sum of launches x ms of an 8a iteration; the
+      lane-folded upsample backward, one launch bit-equal to per-lane calls;
+   d. ``overlap_add_sharded`` and the repaired ``overlap_add`` on the card
+      at 8a's tiling (8a's outputs) and an overlapping one: two calls
+      bit-equal, within 1e-6 of a float64 numpy overlap-add.
+
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
-next-to-last line, the ``{"phase7": ...}``, ``{"phase6": ...}``,
+next-to-last line, the ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``,
 ``{"cli": ...}`` and ``{"main_path": ...}`` lines before it, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1436,6 +1468,438 @@ def check_formulations(dev, small_losses: np.ndarray) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 8: patch batches on one card (parallel/mesh.py)
+# ----------------------------------------------------------------------
+
+# 8a: the flagship volume cut into 8 patches of (128, 64, 64), one lane each
+BATCH_PATCH = (128, 64, 64)
+BATCH_LANES = 8
+_H = [tuple(s // 2 for s in sp) for sp in _L]   # the levels of a (128, 64, 64) patch
+# the lane launch's shapes: the flagship net's 24 wgrad shapes at the patch's
+# levels, each as often an iteration as on the main path
+BATCH_WGRAD_SHAPES = [(ci, co, _H[_L.index(sp)], n) for ci, co, sp, n in WGRAD_SHAPES]
+BATCH_UPSAMPLE_SHAPES = [(BATCH_LANES * c, _H[_L.index(sp)]) for c, sp in UPSAMPLE_SHAPES]
+# 8b: BENCH_2D.json's configuration (scripts/bench_2d.py) on the lines data
+LINES_2D = dict(datadim="2d", loss="mae", lr=1e-3, inputdepth=64,
+                filters=[16, 32, 64, 128, 256], skip=[16, 32, 64, 128], upsample="nearest",
+                gain=1.0, reg_noise_std=0.03, dtype="bfloat16", fused_loss=True,
+                epochs=75, scan_chunk=25)
+V100_S_PER_1000 = 47.0   # the reference's V100 figure for the lines patch (README.md)
+
+
+def reset_lane_counts() -> None:
+    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+    reset_counts()
+    FL.fused_sums_lanes.launches = 0
+    FL.loss_sums_grad_lanes.launches = 0
+    WG.wgrad3d_lanes.launches = 0
+
+
+def read_lane_counts() -> dict:
+    """The lane wrappers' launches, the upsample's, and the one-lane
+    wrappers' (which a batch must not launch)."""
+    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+    one = read_counts()
+    return {"fused_loss_lanes": FL.fused_sums_lanes.launches,
+            "fused_loss_grad_lanes": FL.loss_sums_grad_lanes.launches,
+            "wgrad3d_lanes": WG.wgrad3d_lanes.launches, "upsample_bwd": one["upsample_bwd"],
+            "one_lane": one["fused_loss"] + one["fused_loss_grad"] + one["wgrad3d"]}
+
+
+class batches:
+    """Records every ``solve_patches_batched`` result and the lane kernels'
+    shapes (at their callers: a wrapper counts its launches on its own
+    name) while the block runs."""
+
+    def __enter__(self):
+        from deep_prior_interpolation_tpu_torch import parallel
+        from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+        from deep_prior_interpolation_tpu_torch.ops import upsample as U
+        self.results, self.wgrad, self.up = [], collections.Counter(), collections.Counter()
+        self.real = (parallel.solve_patches_batched, conv_vjp.wgrad3d_lanes,
+                     U._LinearUpsample2x.backward)
+        real_solve, real_wg, real_up = self.real
+
+        def solve(*a, **k):
+            res = real_solve(*a, **k)
+            self.results.append(res)
+            return res
+
+        def wg(x, dy, k):
+            self.wgrad[(x.shape[1], dy.shape[1], tuple(x.shape[2:]))] += 1
+            return real_wg(x, dy, k)
+
+        def up(ctx, g):
+            self.up[(g.shape[0] * g.shape[1], tuple(s // 2 for s in g.shape[2:]))] += 1
+            return real_up(ctx, g)
+        parallel.solve_patches_batched, conv_vjp.wgrad3d_lanes = solve, wg
+        U._LinearUpsample2x.backward = staticmethod(up)
+        return self
+
+    def __exit__(self, *exc):
+        from deep_prior_interpolation_tpu_torch import parallel
+        from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+        from deep_prior_interpolation_tpu_torch.ops import upsample as U
+        parallel.solve_patches_batched, conv_vjp.wgrad3d_lanes = self.real[:2]
+        U._LinearUpsample2x.backward = staticmethod(self.real[2])
+
+
+def batch_survey(dev, tmp: str, main: dict) -> dict:
+    """8a: the flagship volume as 8 patches of (128, 64, 64) through
+    ``cli.run --batch_patches 8`` (one batch of 8 lanes), then the same
+    patches one after another (``--batch_patches 0``): launch counts and
+    shapes, bundles, each lane's iteration-0 loss against its solo solve,
+    s/iteration and peak memory beside phase 4's."""
+    from deep_prior_interpolation_tpu_torch import cli
+    from deep_prior_interpolation_tpu_torch.config import parse_arguments
+    from deep_prior_interpolation_tpu_torch.data import hyperbolic_events, random_trace_mask
+    from deep_prior_interpolation_tpu_torch.io import load_run
+
+    root = os.path.join(tmp, "batch")
+    os.makedirs(root, exist_ok=True)
+    vol = hyperbolic_events(256, 128, 128)
+    kept = random_trace_mask(vol.shape, 0.66, 1) > 0
+    np.save(os.path.join(root, "original.npy"), vol)
+    np.save(os.path.join(root, "corrupted.npy"), np.where(kept, vol, np.nan).astype(np.float32))
+
+    def flags(outdir, batch):
+        return parse_arguments(flagship_flags() + [
+            "--imgdir", root, "--imgname", "original.npy", "--maskname", "corrupted.npy",
+            "--outdir", outdir, "--datadim", "3d", "--patch_shape", *map(str, BATCH_PATCH),
+            "--gain", "40", "--epochs", "6", "--scan_chunk", "3",
+            "--batch_patches", str(batch)])
+
+    set_kernels(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lane_counts()
+    with batches() as rec:
+        out = cli.run(flags("batched", BATCH_LANES), results_root=root)
+    counts = read_lane_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"fused_loss_lanes": 6, "fused_loss_grad_lanes": 6, "wgrad3d_lanes": 6 * 32,
+            "upsample_bwd": 6 * 4, "one_lane": 0}
+    log(f"8a batch: launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"8a: the batch's launch counts are {counts}")
+    want_wg = {(ci, co, sp): 6 * n for ci, co, sp, n in BATCH_WGRAD_SHAPES}
+    if dict(rec.wgrad) != want_wg:
+        fail(f"8a: the batch's lane wgrad shapes are {dict(rec.wgrad)}, not {want_wg}")
+    want_up = {(c, sp): 6 for c, sp in BATCH_UPSAMPLE_SHAPES}
+    if dict(rec.up) != want_up:
+        fail(f"8a: the batch's upsample shapes are {dict(rec.up)}, not {want_up}")
+    if len(rec.results) != 1 or len(rec.results[0]) != BATCH_LANES:
+        fail(f"8a: {len(rec.results)} batches, not one of {BATCH_LANES} patches")
+    names = [str(i) for i in range(BATCH_LANES)]
+    keys = [k for k in BUNDLE_KEYS if k != "pocs"]   # a run without --pocs has none
+    for name in names:
+        with np.load(os.path.join(out, f"{name}_run.npz"), allow_pickle=True) as z:
+            if list(z.files) != keys:
+                fail(f"8a: bundle {name} has keys {z.files}, not {keys}")
+    batched = [load_run(os.path.join(out, f"{n}_run.npz")) for n in names]
+    chunks = rec.results[0][0].chunk_seconds
+    steady = statistics.median(chunks[1:]) / 3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_lane_counts()
+    with solves() as seq_rec:
+        seq_out = cli.run(flags("sequential", 0), results_root=root)
+    seq_counts = read_counts()
+    seq_peak = torch.cuda.max_memory_allocated()
+    seq = [load_run(os.path.join(seq_out, f"{n}_run.npz")) for n in names]
+    seq_steady = [r.chunk_seconds[1] / 3 for r in seq_rec.results]
+    log(f"8a sequential: launches {seq_counts} (expected 48, 48, {8 * 6 * 32}, {8 * 6 * 4})")
+    if seq_counts != {"fused_loss": 48, "fused_loss_grad": 48, "wgrad3d": 8 * 6 * 32,
+                      "upsample_bwd": 8 * 6 * 4}:
+        fail(f"8a: the sequential run's launch counts are {seq_counts}")
+    rels = []
+    for name, b, s in zip(names, batched, seq):
+        lb, ls = np.asarray(b["history"]["loss"]), np.asarray(s["history"]["loss"])
+        if not (len(lb) == 6 and np.all(np.isfinite(lb)) and np.all(np.isfinite(b["output"]))):
+            fail(f"8a: lane {name}'s history or output is not finite: {lb}")
+        rels.append(float(abs(lb[0] - ls[0]) / abs(ls[0])))
+        log(f"8a lane {name}: batch loss {lb.tolist()}\n            solo  loss {ls.tolist()}")
+    log(f"8a: iteration-0 loss rel err of each lane to its solo solve {rels} (tol 1e-3: "
+        f"bf16, grouped against plain cuDNN convs)")
+    if not max(rels) <= 1e-3:
+        fail("8a: a lane's iteration-0 loss differs from its solo solve")
+    log(f"8a: batch chunk seconds {chunks}, steady {steady:.4f} s/iteration for the "
+        f"{BATCH_LANES} lanes = {steady / BATCH_LANES:.4f} s/iteration a patch; sequential "
+        f"{statistics.median(seq_steady):.4f} s/iteration a patch (median of {seq_steady}); "
+        f"phase 4 (one (256, 128, 128) patch, the same voxels) {main['s_per_iter']:.4f}")
+    log(f"8a: peak memory batch {peak / 2**30:.2f} GiB, sequential {seq_peak / 2**30:.2f} GiB, "
+        f"phase 4 {main['peak_bytes'] / 2**30:.2f} GiB")
+    outputs = np.stack([b["output"][..., 0] for b in batched])
+    return {"launches": counts, "s_per_iter": steady, "s_per_iter_per_patch":
+            steady / BATCH_LANES, "sequential_s_per_iter_per_patch": statistics.median(seq_steady),
+            "peak_memory_bytes": peak, "sequential_peak_memory_bytes": seq_peak,
+            "rel_err_it0": rels, "wgrad_shapes": sorted(rec.wgrad), "outputs": outputs}
+
+
+def lines_batches(dev) -> dict:
+    """8b: BENCH_2D.json's configuration on the lines gather, B patches with
+    B decimation masks (seeds 0..B-1) through ``solve_patches_batched``, 3
+    chunks of 25 iterations each: B = 1, 32 (tapmm and grouped), 64
+    (tapmm), after lane 0's patch through the one-lane solver; steady
+    s/1000 iterations a patch beside the reference's V100."""
+    from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import lines_dataset
+    from deep_prior_interpolation_tpu_torch.parallel import solve_patches_batched
+
+    img, _ = lines_dataset()
+    nt, nx = img.shape[:2]
+    mask0 = np.repeat((np.random.RandomState(0).rand(1, nx) > 0.66).astype(np.float32),
+                      nt, 0)[..., None]
+    # the lane-0 patch through the one-lane solver, no vmap: what a lane of
+    # the batch pays against the solo step
+    cfg = Config(**LINES_2D)
+    reset_lane_counts()
+    solo = DIPSolver(cfg, device=dev).solve(img, mask0, seed=0)
+    counts = read_counts()
+    per = statistics.median(solo.chunk_seconds[1:]) / cfg.scan_chunk * 1000.0
+    log(f"8b solo (DIPSolver.solve): chunk seconds {solo.chunk_seconds}, {per:.3f} s / 1000 "
+        f"iterations ({V100_S_PER_1000 / per:.2f}x the reference's V100), launches {counts}")
+    if counts["fused_loss"] != 75 or counts["fused_loss_grad"] != 75:
+        fail(f"8b solo: launches {counts}, not 75 / 75")
+    runs = {"solo": {"s_per_1000_per_patch": per, "chunk_seconds": solo.chunk_seconds}}
+    for b, mode in ((1, "grouped"), (32, "tapmm"), (32, "grouped"), (64, "tapmm")):
+        masks = [np.repeat((np.random.RandomState(i).rand(1, nx) > 0.66).astype(np.float32),
+                           nt, 0)[..., None] for i in range(b)]
+        patches = [{"image": img, "mask": m, "name": str(i)} for i, m in enumerate(masks)]
+        cfg = Config(**LINES_2D, vmap_conv_mode=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_lane_counts()
+        res = solve_patches_batched(cfg, DIPSolver(cfg, device=dev), patches)
+        counts = read_lane_counts()
+        peak = torch.cuda.max_memory_allocated()
+        chunks = res[0].chunk_seconds
+        per = statistics.median(chunks[1:]) / cfg.scan_chunk / b * 1000.0
+        loss = np.asarray([r.history.loss for r in res])
+        label = f"b{b}_{mode}"
+        log(f"8b {label}: chunk seconds {chunks}, {per:.3f} s / 1000 iterations a patch "
+            f"({V100_S_PER_1000 / per:.2f}x the reference's V100 {V100_S_PER_1000} s), peak "
+            f"{peak / 2**30:.2f} GiB, launches {counts}, lane 0 loss {loss[0, ::25].tolist()}")
+        if counts["fused_loss_lanes"] != 75 or counts["fused_loss_grad_lanes"] != 75 \
+                or counts["one_lane"] != 0:
+            fail(f"8b {label}: launches {counts}, not 75 / 75 lane launches")
+        if loss.shape != (b, 75) or not np.all(np.isfinite(loss)):
+            fail(f"8b {label}: the losses are not {b} x 75 finite values")
+        runs[label] = {"s_per_1000_per_patch": per, "chunk_seconds": chunks,
+                       "peak_memory_bytes": peak, "launches": counts}
+    return runs
+
+
+def _lane_loss_rows(dev, b: int, sp, dtype) -> dict:
+    """8c: the lane fused loss at (b, *sp) against b one-lane launches (bit
+    for bit) and its plain version; forward and backward timed by
+    CUDA-graph replay beside their bounds."""
+    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = (b, 1, 1) + tuple(sp)
+    img = torch.randn(shape, generator=g, device=dev)
+    out = (img + torch.randn(shape, generator=g, device=dev)).to(dtype)
+    mask = (torch.rand(shape, generator=g, device=dev) > 0.66).float()
+    gin = torch.randn((b, 8), generator=g, device=dev)
+    sums = FL.fused_sums_lanes(out, img, mask)
+    grad = FL.loss_sums_grad_lanes(out, img, mask, gin)
+    one_s = torch.stack([FL.fused_sums(out[i].clone(), img[i].clone(), mask[i].clone())
+                         for i in range(b)])
+    one_g = torch.stack([FL.loss_sums_grad(out[i].clone(), img[i].clone(), mask[i].clone(),
+                                           gin[i].clone()) for i in range(b)])
+    ref = FL.fused_sums_lanes_plain(out, img, mask)
+    rel = float(((sums - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    abs_err = float((sums - ref).abs().max())
+    gref = FL.loss_sums_grad_lanes_plain(out, img, mask, gin).float()
+    gerr = float((grad.float() - gref).abs().max())
+    same = torch.equal(sums, one_s) and torch.equal(grad, one_g)
+    name = str(dtype).split(".")[-1]
+    n = math.prod(sp) * b
+    (fb, fby), (bb, bby) = _loss_bounds(n, dtype)
+    copies = [(out.clone(), img.clone(), mask.clone()) for _ in range(2)]
+    grads = [c + (gin,) for c in copies]
+    row = {"lanes": b, "spatial": list(sp), "out_dtype": name, "bit_equal_to_one_lane": same,
+           "max_rel_err": rel, "max_abs_err": abs_err, "grad_max_abs_err": gerr,
+           "fwd": {"ms": graph_ms(cycling(FL.fused_sums_lanes, copies)),
+                   "plain_ms": graph_ms(cycling(FL.fused_sums_lanes_plain, copies)),
+                   "bound_ms": fb, "bound_by": fby},
+           "bwd": {"ms": graph_ms(cycling(FL.loss_sums_grad_lanes, grads)),
+                   "plain_ms": graph_ms(cycling(FL.loss_sums_grad_lanes_plain, grads)),
+                   "bound_ms": bb, "bound_by": bby}}
+    log(f"8c fused loss lanes {b} x {tuple(sp)} {name}: each lane bit-equal to a one-lane "
+        f"launch {same}; sums max rel err to plain {rel:.3e} (tol 1e-4), grad max abs err "
+        f"{gerr:.3e}; forward {row['fwd']['ms']:.4f} ms (plain {row['fwd']['plain_ms']:.4f}, "
+        f"bound {fb:.4f} {fby}), backward {row['bwd']['ms']:.4f} ms (plain "
+        f"{row['bwd']['plain_ms']:.4f}, bound {bb:.4f} {bby})")
+    if not (same and rel <= 1e-4):
+        fail(f"8c: the lane fused loss at {b} x {tuple(sp)} {name} is not each lane's "
+             f"one-lane result or disagrees with the plain version")
+    if not gerr <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(gref.abs().max()):
+        fail(f"8c: the lane fused loss gradient at {b} x {tuple(sp)} {name} disagrees")
+    return row
+
+
+def lane_wgrad_row(dev, ci: int, co: int, sp, n: int, g) -> dict:
+    """8c: the lane wgrad launch (8 lanes, bf16) against its plain version
+    (1e-4 of max |dW| + 1e-4), timed beside its bound, the plain version
+    and the one library call, ``conv3d_weight`` with ``groups=8``."""
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+
+    b = BATCH_LANES
+    x = torch.randn((b, ci) + tuple(sp), generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((b, co) + tuple(sp), generator=g, device=dev).to(torch.bfloat16)
+    got = WG.wgrad3d_lanes(x, dy, 3)
+    torch.cuda.synchronize()
+    ref = WG.wgrad3d_lanes_plain(x, dy, 3)
+    err = float((got - ref).abs().max())
+    lim = 1e-4 * float(ref.abs().max()) + 1e-4
+    del got, ref
+    row = {"lanes": b, "ci": ci, "co": co, "spatial": list(sp), "dtype": "bfloat16",
+           "launches_per_iteration": n, "max_abs_err": err, "tol": lim,
+           "ms": time_ms(lambda: WG.wgrad3d_lanes(x, dy, 3)),
+           "plain_ms": time_ms(lambda: WG.wgrad3d_lanes_plain(x, dy, 3))}
+    xg, dyg = x.reshape((1, b * ci) + tuple(sp)), dy.reshape((1, b * co) + tuple(sp))
+    row["library_ms"] = time_ms(lambda: torch.nn.grad.conv3d_weight(
+        xg, (b * co, ci, 3, 3, 3), dyg, stride=1, padding=1, groups=b))
+    n_bytes = b * ((ci + co) * math.prod(sp) * 2 + co * ci * 27 * 4)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, b * 2.0 * ci * co *
+                                                _valid_products(sp, 3), torch.bfloat16)
+    log(f"8c wgrad lanes {b} x {ci}->{co} {tuple(sp)}: max abs err {err:.3e} (tol {lim:.3e}); "
+        f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} conv3d_weight(groups={b}) "
+        f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']}), "
+        f"{n} launches/iteration")
+    if not err <= lim:
+        fail(f"8c: the lane wgrad at {ci}->{co} {tuple(sp)} disagrees with the plain version")
+    return row
+
+
+def lane_kernels(dev, survey: dict) -> dict:
+    """8c: the lane-batched kernels against their plain versions, timed."""
+    from torch.func import vmap
+
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    fused = [_lane_loss_rows(dev, b, sp, dt)
+             for b, sp in ((32, (170, 100)), (BATCH_LANES, BATCH_PATCH))
+             for dt in (torch.bfloat16, torch.float32)]
+    seen = set(survey["wgrad_shapes"])
+    g = torch.Generator(device=dev).manual_seed(12)
+    rows = [lane_wgrad_row(dev, ci, co, sp, n, g) for ci, co, sp, n in BATCH_WGRAD_SHAPES
+            if (ci, co, sp) in seen]
+    if len(rows) != len(seen):
+        fail(f"8c: 8a saw wgrad shapes {sorted(seen)} beyond the listed ones")
+    per_iter = sum(r["ms"] * r["launches_per_iteration"] for r in rows)
+    lib_iter = sum(r["library_ms"] * r["launches_per_iteration"] for r in rows)
+    log(f"8c wgrad lanes ms/iteration of 8a: sum of launches x ms over {len(rows)} shapes "
+        f"({sum(r['launches_per_iteration'] for r in rows)} launches) = {per_iter:.4f} "
+        f"(conv3d_weight groups={BATCH_LANES}: {lib_iter:.4f})")
+
+    up_rows = []
+    for c, sp in BATCH_UPSAMPLE_SHAPES:
+        x = torch.randn((BATCH_LANES, 1, c // BATCH_LANES) + sp, device=dev,
+                        dtype=torch.bfloat16, requires_grad=True)
+        y = vmap(U.linear_upsample2x)(x)
+        gy = torch.randn(y.shape, device=dev, dtype=torch.bfloat16)
+        before = U.upsample_bwd.launches
+        (dx,) = torch.autograd.grad(y, x, gy)
+        launched = U.upsample_bwd.launches - before
+        per_lane = torch.stack([U.upsample_bwd(gy[i], 3) for i in range(BATCH_LANES)])
+        same = torch.equal(dx, per_lane) and launched == 1
+        folded = gy.reshape((-1,) + tuple(gy.shape[2:]))
+        ms = time_ms(lambda: U.upsample_bwd(folded, 3))
+        b_ms, b_by = bound_ms(9 * folded.numel() // 8 * 2, 8.0 * folded.numel(), torch.float32)
+        log(f"8c upsample_bwd lane-folded {c} planes x {sp} bf16: one launch, bit-equal to "
+            f"per-lane calls {same}; ms {ms:.4f} bound {b_ms:.4f} ({b_by})")
+        if not same:
+            fail(f"8c: the lane-folded upsample backward at {c} x {sp} is not the per-lane one")
+        up_rows.append({"planes": c, "spatial": list(sp), "ms": ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "bit_equal_to_lanes": same})
+    return {"fused": fused, "wgrad": rows, "wgrad_ms_per_iteration": per_iter,
+            "wgrad_library_ms_per_iteration": lib_iter, "upsample": up_rows}
+
+
+def batch_assembly(dev, survey: dict) -> dict:
+    """8d: ``overlap_add_sharded`` on the card at 8a's tiling (and the
+    repaired ``overlap_add`` at an overlapping one): two calls bit-equal,
+    within 1e-6 of a float64 numpy overlap-add."""
+    from deep_prior_interpolation_tpu_torch.data import overlap_add
+    from deep_prior_interpolation_tpu_torch.data.patcher import flat_index_map
+    from deep_prior_interpolation_tpu_torch.parallel import make_mesh, overlap_add_sharded
+
+    image = (256, 128, 128)
+    out = {}
+    for label, patches, stride in (
+            ("8a tiling (exact)", survey["outputs"], BATCH_PATCH),
+            ("overlapping (stride 64, 32, 32)", None, (64, 32, 32))):
+        idx = flat_index_map(image, BATCH_PATCH, stride)
+        if patches is None:
+            patches = np.random.RandomState(13).randn(idx.shape[0], *BATCH_PATCH)
+        patches = np.asarray(patches, np.float32)
+        flat = np.zeros(math.prod(image))
+        counts = np.zeros_like(flat)
+        np.add.at(flat, idx.ravel(), patches.astype(np.float64).reshape(-1))
+        np.add.at(counts, idx.ravel(), 1.0)
+        want = (flat / np.maximum(counts, 1.0)).reshape(image)
+        t = torch.from_numpy(patches).to(dev)
+        mesh = make_mesh(1)
+        a = overlap_add_sharded(t, image, BATCH_PATCH, stride, mesh)
+        b = overlap_add_sharded(t, image, BATCH_PATCH, stride, mesh)
+        c, d = overlap_add(t, image, BATCH_PATCH, stride), overlap_add(t, image, BATCH_PATCH, stride)
+        err = float(np.max(np.abs(a.cpu().numpy() - want)) / max(np.max(np.abs(want)), 1e-30))
+        err_c = float(np.max(np.abs(c.cpu().numpy() - want)) / max(np.max(np.abs(want)), 1e-30))
+        same = torch.equal(a, b) and torch.equal(c, d)
+        log(f"8d {label}, {idx.shape[0]} patches: overlap_add_sharded and overlap_add on the "
+            f"card, two calls bit-equal {same}; max err to float64 numpy (of max |v|) "
+            f"{err:.3e} and {err_c:.3e} (tol 1e-6)")
+        if not (same and err <= 1e-6 and err_c <= 1e-6):
+            fail(f"8d: the card's overlap-add at the {label} is not repeatable or disagrees")
+        out[label] = {"patches": int(idx.shape[0]), "bit_equal": same, "rel_err": err,
+                      "overlap_add_rel_err": err_c}
+    return out
+
+
+def lane_entries(survey: dict, kernels: dict) -> list:
+    """The lane-batched kernels' entries of the kernels line: the 8a
+    launches, headline figures at 8a's shapes."""
+    fused = next(r for r in kernels["fused"] if r["lanes"] == BATCH_LANES
+                 and r["out_dtype"] == "bfloat16")
+    common = {"route": "cuda", "source": "deep_prior_interpolation_tpu_torch/csrc/fused_loss.cu",
+              "shape": [BATCH_LANES, 1, 1] + list(BATCH_PATCH), "library_ms": None}
+    fwd = {"name": "fused_loss_lanes", **common,
+           "replaces": "deep_prior_interpolation_tpu/ops/pallas_kernels.py:85",
+           "launches": survey["launches"]["fused_loss_lanes"],
+           "max_abs_err": max(r["max_abs_err"] for r in kernels["fused"]),
+           "tolerance": "each lane bit-equal to a one-lane launch; sums rel 1e-4 of plain",
+           "variants": kernels["fused"], **{k: fused["fwd"][k] for k in
+                                            ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    bwd = {"name": "fused_loss_grad_lanes", **common,
+           "replaces": "deep_prior_interpolation_tpu/ops/pallas_kernels.py:128",
+           "launches": survey["launches"]["fused_loss_grad_lanes"],
+           "max_abs_err": max(r["grad_max_abs_err"] for r in kernels["fused"]),
+           "tolerance": "each lane bit-equal to a one-lane launch; bf16 2^-7, float32 1e-5 "
+                        "of max |plain|",
+           **{k: fused["bwd"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+    head = max(kernels["wgrad"], key=lambda r: r["ms"] * r["launches_per_iteration"])
+    wg = {"name": "wgrad3d_lanes", "route": "cuda",
+          "source": "deep_prior_interpolation_tpu_torch/csrc/wgrad3d.cu",
+          "replaces": "deep_prior_interpolation_tpu/ops/pallas_wgrad.py:182",
+          "launches": survey["launches"]["wgrad3d_lanes"],
+          "max_abs_err": max(r["max_abs_err"] for r in kernels["wgrad"]),
+          "tolerance": "1e-4 of max |dW| + 1e-4 per shape",
+          "shape": [BATCH_LANES, head["ci"], head["co"]] + head["spatial"],
+          "ms_per_iteration": kernels["wgrad_ms_per_iteration"],
+          "library_ms_per_iteration": kernels["wgrad_library_ms_per_iteration"],
+          "shapes": kernels["wgrad"], **{k: head[k] for k in
+                                         ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by")}}
+    return [fwd, bwd, wg]
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -1544,6 +2008,13 @@ def main() -> None:
         phase7["7e_formulations"] = phase("7e_formulations", check_formulations, dev, small)
         seconds["7_total"] = time.time() - t7
         log(f"phase 7: {seconds['7_total']:.1f} s")
+        t8 = time.time()
+        survey8 = phase("8a_batch_survey", batch_survey, dev, tmp, main)
+        lines8 = phase("8b_lines_batches", lines_batches, dev)
+        kernels8 = phase("8c_lane_kernels", lane_kernels, dev, survey8)
+        assembly8 = phase("8d_assembly", batch_assembly, dev, survey8)
+        seconds["8_total"] = time.time() - t8
+        log(f"phase 8: {seconds['8_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase seconds: {json.dumps(seconds)}")
@@ -1559,10 +2030,17 @@ def main() -> None:
                                "ensemble": ensemble, "seconds": seconds}}))
     phase7["seconds"] = {k: v for k, v in seconds.items() if k.startswith("7")}
     log(json.dumps({"phase7": phase7}))
+    phase8 = {"8a_batch": {k: v for k, v in survey8.items() if k != "outputs"},
+              "8b_lines": lines8, "8d_assembly": assembly8,
+              "seconds": {k: v for k, v in seconds.items() if k.startswith("8")}}
+    log(json.dumps({"phase8": phase8}))
     upsample["phase_launches"] = phase7["7a_flagship"]["launches"]["upsample_bwd"]
+    upsample["lanes_launches"] = survey8["launches"]["upsample_bwd"]
+    upsample["lanes_shapes"] = kernels8["upsample"]
     fused["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss"]
     fused_grad["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss_grad"]
-    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]}))
+    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]
+                    + lane_entries(survey8, kernels8)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,17 +17,23 @@ switches on the DIP+POCS loss. A run:
 
 It runs on ``cuda:{gpu}`` (``cuda`` without ``--gpu``; an index past the
 cards warns and takes ``cuda:0``). Only ``run(..., device="cpu")`` runs it on
-the CPU; with no CUDA and no device it raises. Patch batches and spatial
-sharding are not ported (ROADMAP A.13): ``--batch_patches > 1`` without
-``--start_from_prev`` and ``--spatial_shards > 1`` raise here. With
-``--start_from_prev`` the JAX package solves the patches one after another
-whatever ``--batch_patches`` says, and so does the port. ``--netdir`` takes
-the port's ``<name>_model.pt`` or a JAX run's ``<name>_model.msgpack``.
+the CPU; with no CUDA and no device it raises.
+
+``--batch_patches N`` (N > 1) solves the patches not done yet N at a time
+(``parallel.solve_patches_batched``: one lane a patch, seeded ``seed + i``
+within its group) and writes each patch's bundle, snapshots and model as
+the sequential run does; ``--mesh_shape M`` lays each group's lanes over M
+CUDA devices. As in the JAX package, a batch solves every patch of its
+group (an all-corrupted one too) and takes no ``--netdir``; with
+``--start_from_prev`` the patches are solved one after another whatever
+``--batch_patches`` says. Spatial sharding is not ported (ROADMAP A.13b):
+``--spatial_shards > 1`` raises here. ``--netdir`` takes the port's
+``<name>_model.pt`` or a JAX run's ``<name>_model.msgpack``.
 """
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,12 +72,9 @@ def run(cfg: Config, results_root: str = "./results",
         corrupted: Optional[np.ndarray] = None,
         device: Union[str, torch.device, None] = None) -> str:
     """Execute a full interpolation run; returns the output directory."""
-    if cfg.batch_patches and cfg.batch_patches > 1 and not cfg.start_from_prev:
-        raise NotImplementedError("--batch_patches > 1 (patch batches over a mesh): "
-                                  "ROADMAP A.13")
     if cfg.spatial_shards and cfg.spatial_shards > 1:
         raise NotImplementedError("--spatial_shards > 1 (a patch sharded over several "
-                                  "devices): ROADMAP A.13")
+                                  "devices): ROADMAP A.13b")
     dev = run_device(cfg, device)
     outpath = os.path.join(results_root,
                            cfg.outdir if cfg.outdir is not None else random_code())
@@ -85,6 +88,11 @@ def run(cfg: Config, results_root: str = "./results",
 
     outchannel = cfg.imgchannel or patches[0]["image"].shape[-1]
     solver = DIPSolver(cfg, outchannel=outchannel, device=dev)
+
+    if cfg.batch_patches and cfg.batch_patches > 1 and not cfg.start_from_prev:
+        _run_batched(cfg, solver, patches, outpath, done, dev)
+        _log(f"Interpolation done! Saved to {outpath}")
+        return outpath
 
     prev_params = None
     for i, patch in enumerate(patches):
@@ -129,6 +137,28 @@ def run(cfg: Config, results_root: str = "./results",
 
     _log(f"Interpolation done! Saved to {outpath}")
     return outpath
+
+
+def _run_batched(cfg: Config, solver: DIPSolver, patches: List[dict], outpath: str,
+                 done: set, dev: torch.device) -> None:
+    """The patches not done yet, ``--batch_patches`` at a time, each group
+    through ``solve_patches_batched``; the files of each patch as the
+    sequential run writes them."""
+    from .parallel import solve_patches_batched
+
+    todo = [p for p in patches if p["name"] not in done]
+    for start in range(0, len(todo), cfg.batch_patches):
+        group = todo[start:start + cfg.batch_patches]
+        for patch, res in zip(group, solve_patches_batched(cfg, solver, group)):
+            name = patch["name"]
+            save_run(outpath, name, res.history, patch["mask"], patch["image"], res.out_best,
+                     elapsed=res.elapsed, noise=res.noise, pocs=res.pocs, device=dev)
+            for it, snap in res.snapshots.items():
+                np.save(os.path.join(
+                    outpath, f"{name}_output{str(it).zfill(res.history.zfill)}.npy"), snap)
+            if cfg.savemodel:
+                save_params(os.path.join(outpath, f"{name}_model.pt"), res.params)
+            _log(f"Finished patch {name}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

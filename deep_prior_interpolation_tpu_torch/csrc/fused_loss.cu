@@ -11,6 +11,16 @@
 //   dpi_loss_sums_grad:  grad = g0 sign(d) m + 2 g1 d m - 2 g3 (t - o) + g5
 //                               + 2 g6 o + g7 t, in out's dtype
 //
+// Lanes: B independent problems of n voxels each, stacked (lane b's voxels
+// at b * n), give B x 8 sums and the gradient of all B in one launch each,
+// the counterpart of the batching rule of pallas_call under jax.vmap (a grid
+// dimension for the lane). Lane b is blockIdx.y, with the one-lane grid of n
+// voxels in x, its own workspace rows and its own ticket, and reads its 8
+// incoming gradients at g + 8 b: each lane computes exactly what a one-lane
+// launch on its inputs computes, bit for bit (where the lane's bases are
+// 16-byte aligned as a fresh tensor's are: n a multiple of 8 for bf16 out,
+// of 4 for float32).
+//
 // What bounds both on an H100 (3.35 TB/s, 67 TFLOP/s fp32): bytes. There is
 // no reuse and about 2 flops a byte. At the flagship's 4.19 M voxels with
 // bf16 `out` the forward reads 10 bytes a voxel (42 MB, 12.5 us) and the
@@ -20,7 +30,7 @@
 // Design.
 //  * Persistent grid: the wrapper asks dpi_loss_blocks for the blocks that
 //    fit on the card at once (occupancy x SMs) and launches at most that
-//    many, fewer for a small n; a grid-stride walk covers the rest.
+//    many a lane, fewer for a small n; a grid-stride walk covers the rest.
 //  * Coalesced wide loads: the unit is 4 voxels, one float4 each of `img`
 //    and `mask` and 8 bytes of bf16 `out` (a float4 of float32), so the
 //    lanes of a warp read one contiguous 512-byte run of each float32 input
@@ -150,6 +160,15 @@ __global__ void __launch_bounds__(kThreads) loss_sums_kernel(
     const OutT* __restrict__ o, const float* __restrict__ t, const float* __restrict__ m,
     long long n, int vec, float* __restrict__ ws, unsigned* __restrict__ ticket,
     float* __restrict__ sums) {
+  // this block's lane: its inputs, workspace rows, ticket and sums
+  const long long lane = blockIdx.y;
+  o += lane * n;
+  t += lane * n;
+  m += lane * n;
+  ws += lane * gridDim.x * kSums;
+  ticket += lane;
+  sums += lane * kSums;
+  vec = vec && aligned16(o) && aligned16(t) && aligned16(m);
   float s[kSums];
 #pragma unroll
   for (int j = 0; j < kSums; ++j) s[j] = 0.f;
@@ -233,6 +252,13 @@ template <typename OutT>
 __global__ void __launch_bounds__(kThreads) loss_grad_kernel(
     const OutT* __restrict__ o, const float* __restrict__ t, const float* __restrict__ m,
     const float* __restrict__ gin, OutT* __restrict__ grad, long long n, int vec) {
+  const long long lane = blockIdx.y;
+  o += lane * n;
+  t += lane * n;
+  m += lane * n;
+  gin += lane * kSums;
+  grad += lane * n;
+  vec = vec && aligned16(o) && aligned16(t) && aligned16(m) && aligned16(grad);
   // doubling and negating are exact, so these are the JAX package's
   // g[1] * 2.0, g[3] * (-2.0) and g[6] * 2.0
   const Grads g = {gin[0], 2.f * gin[1], -2.f * gin[3], gin[5], 2.f * gin[6], gin[7]};
@@ -297,13 +323,14 @@ extern "C" int dpi_loss_blocks(int which, int out_bf16, int* blocks) {
                   : max_blocks(loss_grad_kernel<float>, blocks);
 }
 
-// The 8 sums into `sums`. `ws` holds 8 floats for each of `blocks` blocks
-// and `ticket` is 0 before the launch and after it; both belong to one
+// The 8 sums of each of `lanes` lanes of n voxels into `sums` (lanes x 8).
+// `ws` holds 8 floats for each of `blocks` blocks of each lane and `ticket`
+// one counter a lane, 0 before the launch and after it; both belong to one
 // stream at a time.
 extern "C" int dpi_loss_sums(const void* o, const float* t, const float* m, long long n,
-                             int out_bf16, int blocks, float* ws, unsigned* ticket, float* sums,
-                             void* stream) {
-  const int grid = grid_for(n, blocks, kUnrollSums);
+                             int lanes, int out_bf16, int blocks, float* ws, unsigned* ticket,
+                             float* sums, void* stream) {
+  const dim3 grid(grid_for(n, blocks, kUnrollSums), lanes);
   const int vec = aligned16(o) && aligned16(t) && aligned16(m);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)
@@ -315,12 +342,12 @@ extern "C" int dpi_loss_sums(const void* o, const float* t, const float* m, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// grad (n values of out's dtype) from the 8 incoming gradients `g` (float32,
-// on the device).
+// grad (lanes x n values of out's dtype) from the 8 incoming gradients of
+// each lane `g` (lanes x 8 float32, on the device).
 extern "C" int dpi_loss_sums_grad(const void* o, const float* t, const float* m, const float* g,
-                                  void* grad, long long n, int out_bf16, int blocks,
+                                  void* grad, long long n, int lanes, int out_bf16, int blocks,
                                   void* stream) {
-  const int grid = grid_for(n, blocks, kUnrollGrad);
+  const dim3 grid(grid_for(n, blocks, kUnrollGrad), lanes);
   const int vec = aligned16(o) && aligned16(t) && aligned16(m) && aligned16(grad);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16)

@@ -1,4 +1,5 @@
-// Weight gradient of a same-pad, stride-1, batch-1 3D convolution.
+// Weight gradient of a same-pad, stride-1, batch-1 3D convolution, for one
+// lane or for B lanes (B independent convolutions of one shape) at once.
 //
 // Replaces the Pallas TPU kernel in
 // deep_prior_interpolation_tpu/ops/pallas_wgrad.py (_make_kernel, reached
@@ -10,6 +11,16 @@
 //
 // with zero padding implicit. The contraction axis is the volume (4.19 M
 // positions at the flagship) against a tiny Co x Ci x k^3 output.
+//
+// Lanes: x (B, Ci, D, H, W) and dy (B, Co, D, H, W) give dW (B, Co, Ci, k,
+// k, k) in one launch, lane b's dW from lane b's x and dy alone: the
+// counterpart of the batching rule of pallas_call under jax.vmap, which adds
+// the lane as a grid dimension. Here the lane is the outer part of the
+// grid's z (z = lane * dranges + D range), so the clusters of a tile's
+// splits never span two lanes; the tensor maps have the lane as a fifth dim,
+// so a box past a lane's channels is zero-filled as it is at B = 1. Every
+// lane runs the one-lane grid on its own data, so each lane's dW is
+// bit-identical to a one-lane launch of the same plan.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s fp32):
 //  * full resolution (256x128x128), bf16: bytes. 67 -> 4 must read
@@ -32,7 +43,7 @@
 //    streamed through shared memory once, one plane a step; R sits in a
 //    ring of t0b + stages - 1 planes (t0b = k for k = 3), so the k depth taps
 //    reuse it: every plane of both operands is read once per block.
-//  * Staging: TMA (cp.async.bulk.tensor; 4D tensor maps made on the host
+//  * Staging: TMA (cp.async.bulk.tensor; 5D tensor maps made on the host
 //    with cuTensorMapEncodeTiled, found through the runtime's driver entry
 //    point, so no -lcuda) when rows are 16-byte aligned. One thread issues,
 //    an mbarrier per stage reports, and `stages` (2-4) planes are in flight
@@ -85,6 +96,7 @@ struct Plan {
   int planes, sgroups, ngroups, bands, dranges, stages;
   int xs;                                  // 1: S is x (taps flipped)
   int tma;
+  int lanes;                               // B: independent convolutions
 };
 
 constexpr int kBarBytes = 128;   // up to 16 mbarriers, one a stage
@@ -132,12 +144,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, int c3, uint64_t* bar) {
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, int c4, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
       "r"(smem_u32(bar))
       : "memory");
 }
@@ -190,7 +202,7 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr) {
 // of the row, so the -p halo sits inside those columns.
 template <typename T>
 struct Block {
-  int s0, r0, tb, h0, d_lo, nsteps, e0, split, p, rr, nslot, cs, cr, wpad;
+  int lane, s0, r0, tb, h0, d_lo, nsteps, e0, split, p, rr, nslot, cs, cr, wpad;
   long long sstage, rplane;  // elements of one S stage / one R plane
   T* S;
   T* R;
@@ -213,12 +225,14 @@ __device__ __forceinline__ Block<T> block_of(const Plan& P, unsigned char* smem,
   b.r0 = ng * cr;
   b.cs = cs;
   b.cr = cr;
+  const int dz = blockIdx.z % P.dranges;
+  b.lane = blockIdx.z / P.dranges;
   b.h0 = blockIdx.y * P.hb;
-  b.d_lo = blockIdx.z * P.planes;
+  b.d_lo = dz * P.planes;
   b.nsteps = min(P.D, b.d_lo + P.planes) - b.d_lo;
   b.p = (P.k - 1) / 2;
   b.e0 = b.d_lo + b.tb * P.t0b - b.p;  // the first R plane of the ring
-  b.split = blockIdx.y * P.dranges + blockIdx.z;
+  b.split = blockIdx.y * P.dranges + dz;
   b.rr = ring_rows(P);
   b.nslot = P.t0b + P.stages - 1;
   b.wpad = 16 / (int)sizeof(T);
@@ -245,11 +259,11 @@ __device__ __forceinline__ void issue(const Plan& P, const Block<T>& b, int i,
   const uint32_t rbox = (uint32_t)(b.cr * b.rr * P.rsr * sizeof(T));
   mbar_expect_tx(bar, sbox + (uint32_t)(j_hi - j_lo) * rbox);
   if (flat_s(P))
-    tma_load_4d(b.s_of(i, P.stages), smap, b.h0 * P.W, 0, b.d_lo + i, b.s0, bar);
+    tma_load_5d(b.s_of(i, P.stages), smap, b.h0 * P.W, 0, b.d_lo + i, b.s0, b.lane, bar);
   else
-    tma_load_4d(b.s_of(i, P.stages), smap, 0, b.h0, b.d_lo + i, b.s0, bar);
+    tma_load_5d(b.s_of(i, P.stages), smap, 0, b.h0, b.d_lo + i, b.s0, b.lane, bar);
   for (int j = j_lo; j < j_hi; ++j)
-    tma_load_4d(b.r_of(j), rmap, -b.wpad, b.h0 - b.p, b.e0 + j, b.r0, bar);
+    tma_load_5d(b.r_of(j), rmap, -b.wpad, b.h0 - b.p, b.e0 + j, b.r0, b.lane, bar);
 }
 
 // The same boxes by plain loads, all threads: dst[c][r][j] =
@@ -291,6 +305,12 @@ __device__ __forceinline__ void walk_begin(const Plan& P, const Block<T>& b,
     for (int i = 0; i < P.stages && i < b.nsteps; ++i) issue(P, b, i, smap, rmap);
 }
 
+// The block's lane of a (B, C, D, H, W) operand of C channels.
+template <typename T>
+__device__ __forceinline__ const T* lane_of(const T* g, const Plan& P, const Block<T>& b, int C) {
+  return g + (long long)b.lane * C * P.D * P.H * P.W;
+}
+
 // Step i's data is in shared memory when this returns.
 template <typename T>
 __device__ __forceinline__ void walk_wait(const Plan& P, const Block<T>& b, int i,
@@ -299,6 +319,8 @@ __device__ __forceinline__ void walk_wait(const Plan& P, const Block<T>& b, int 
     mbar_wait(b.bar + (i % P.stages), (i / P.stages) & 1);
     return;
   }
+  Sg = lane_of(Sg, P, b, P.sc);
+  Rg = lane_of(Rg, P, b, P.rc);
   __syncthreads();
   if (flat_s(P))  // the band's rows end to end: one "row" of scs positions from (h0, 0)
     load_box(b.s_of(i, P.stages), Sg, P, P.sc, b.s0, b.cs, b.d_lo + i, 0, 1, b.h0 * P.W, P.scs,
@@ -414,11 +436,12 @@ __device__ __forceinline__ void cluster_sum_tile(const Plan& P, const Tile& t, i
   cluster_sync();  // no block leaves while another reads its tile
 }
 
-// The block's tile to dW: alone, summed over its cluster, or to its split of
-// the workspace.
+// The block's tile to its lane's dW: alone, summed over its cluster, or to
+// its split of the lane's workspace.
 __device__ __forceinline__ void finish_tile(const Plan& P, const Tile& t, int nco, int split,
-                                            const float* tile, float* __restrict__ dst) {
+                                            int lane, const float* tile, float* __restrict__ dst) {
   const int parts = P.bands * P.dranges;
+  dst += (long long)lane * (parts > kMaxCluster ? parts : 1) * P.sc * P.rc * P.k * P.k * P.k;
   if (parts > 1 && parts <= kMaxCluster)
     cluster_sum_tile(P, t, nco, tile, dst);
   else
@@ -580,7 +603,7 @@ wgrad3d_mma(const uint16_t* __restrict__ Sg, const uint16_t* __restrict__ Rg,
         if (tl < TPW) tile[tile_at(P, tt, sl, rl, u0 - b.tb * P.t0b, u1, u2)] = acc[m][j][e];
       }
   __syncthreads();
-  finish_tile(P, tt, P.xs ? b.cr : b.cs, b.split, tile, dst);
+  finish_tile(P, tt, P.xs ? b.cr : b.cs, b.split, b.lane, tile, dst);
 }
 
 // ---- float32: CUDA cores ----------------------------------------------
@@ -668,15 +691,18 @@ wgrad3d_fma(const float* __restrict__ Sg, const float* __restrict__ Rg, float* _
         for (int c = 0; c < 4; ++c)
           tile[tile_at(P, tt, s4 + a * P.mg, r4 + c * P.nb, u0 - b.tb * P.t0b, u1, t)] = acc[t][a][c];
   __syncthreads();
-  finish_tile(P, tt, P.xs ? b.cr : b.cs, b.split, tile, dst);
+  finish_tile(P, tt, P.xs ? b.cr : b.cs, b.split, b.lane, tile, dst);
 }
 
 // The partial sums, in a fixed order: plane c * group * stride of `dst`
 // (c = blockIdx.y) becomes the sum of planes (c * group + j) * stride of
 // `src`, j < group. Passes in place with stride 1, 16, 256, ... and a last
-// one into dW leave the total there.
+// one into dW leave the total there. blockIdx.z is the lane: its planes lie
+// src_lane (dst_lane) floats after the lane before's.
 __global__ void wgrad3d_sum(const float* src, float* dst, long long n, int planes, int stride,
-                            int group) {
+                            int group, long long src_lane, long long dst_lane) {
+  src += blockIdx.z * src_lane;
+  dst += blockIdx.z * dst_lane;
   const int first = blockIdx.y * group;
   const int last = min(first + group, (planes + stride - 1) / stride);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -710,18 +736,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4D map (W, H, D, C) of a contiguous (C, D, H, W) tensor, box
-// (bw, bh, 1, bc), zero fill outside.
-bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int C, int D, int H, int W, int bw,
-              int bh, int bc) {
+// A 5D map (W, H, D, C, B) of a contiguous (B, C, D, H, W) tensor, box
+// (bw, bh, 1, bc, 1), zero fill outside (past a lane's C channels too).
+bool make_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int C, int D, int H, int W,
+              int bw, int bh, int bc) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t esz = bf16 ? 2 : 4;
-  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)C};
-  const cuuint64_t strides[3] = {W * esz, (cuuint64_t)H * W * esz, (cuuint64_t)D * H * W * esz};
-  const cuuint32_t box[4] = {(cuuint32_t)bw, (cuuint32_t)bh, 1u, (cuuint32_t)bc};
-  const cuuint32_t estr[4] = {1u, 1u, 1u, 1u};
-  return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+  const cuuint64_t dims[5] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D, (cuuint64_t)C,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {W * esz, (cuuint64_t)H * W * esz, (cuuint64_t)D * H * W * esz,
+                                 (cuuint64_t)C * D * H * W * esz};
+  const cuuint32_t box[5] = {(cuuint32_t)bw, (cuuint32_t)bh, 1u, (cuuint32_t)bc, 1u};
+  const cuuint32_t estr[5] = {1u, 1u, 1u, 1u, 1u};
+  return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
              const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -760,13 +788,13 @@ cudaError_t launch(dim3 grid, int threads, int smem, cudaStream_t st, const T* s
 
 }  // namespace
 
-// s, r: device pointers to contiguous (1, C, D, H, W) tensors of one dtype
+// s, r: device pointers to contiguous (B, C, D, H, W) tensors of one dtype
 // (bfloat16 or float32): S, the streamed operand, and R, the shifted one (x
-// and dy if xs, else dy and x). out: float32 (Co, Ci, k, k, k); ws: float32
-// [bands * dranges, Co*Ci*k^3], unused (may be null) with up to kMaxCluster
-// splits. arg: 27 ints, in order is_bf16, tma, xs, then the fields of
-// ops/wgrad.py's Plan from sc to smem; tma = 1 only if every row and base is
-// 16-byte aligned and every box dimension is <= 256.
+// and dy if xs, else dy and x). out: float32 (B, Co, Ci, k, k, k); ws: float32
+// [B, bands * dranges, Co*Ci*k^3], unused (may be null) with up to kMaxCluster
+// splits. arg: 28 ints, in order is_bf16, tma, xs, then the fields of
+// ops/wgrad.py's Plan from sc to smem, then B; tma = 1 only if every row and
+// base is 16-byte aligned and every box dimension is <= 256.
 // Launches on `stream`, does not synchronise; returns a CUDA error code, 0
 // on success.
 extern "C" int dpi_wgrad3d(const void* s, const void* r, float* ws, float* out, const int* arg,
@@ -776,10 +804,10 @@ extern "C" int dpi_wgrad3d(const void* s, const void* r, float* ws, float* out, 
   const int nb = arg[11], rcw = arg[12], wt = arg[13], t0b = arg[14], hb = arg[15];
   const int rsw = arg[16], rsr = arg[17], scs = arg[18], planes = arg[19], sgroups = arg[20];
   const int ngroups = arg[21], bands = arg[22], dranges = arg[23], stages = arg[24];
-  const int threads = arg[25], smem = arg[26];
+  const int threads = arg[25], smem = arg[26], lanes = arg[27];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan P{sc, rc, D, H, W, k, mt, mg, nb, rcw, wt, t0b, hb, rsw, rsr, scs, planes, sgroups,
-               ngroups, bands, dranges, stages, xs, tma};
+               ngroups, bands, dranges, stages, xs, tma, lanes};
   const int cs = is_bf16 ? 16 * mt * mg : 4 * mg;
   const int cr = is_bf16 ? rcw * nb : 4 * nb;
   CUtensorMap sm, rm;
@@ -798,11 +826,11 @@ extern "C" int dpi_wgrad3d(const void* s, const void* r, float* ws, float* out, 
   }
   // S: boxes of rows (rsw, hb), or with flat_s one run of scs positions of
   // the plane seen as a single row of H x W
-  if (tma && !((flat_s(P) ? make_map(&sm, s, is_bf16, sc, D, 1, H * W, scs, 1, cs)
-                          : make_map(&sm, s, is_bf16, sc, D, H, W, rsw, hb, cs)) &&
-               make_map(&rm, r, is_bf16, rc, D, H, W, rsr, ring_rows(P), cr)))
+  if (tma && !((flat_s(P) ? make_map(&sm, s, is_bf16, lanes, sc, D, 1, H * W, scs, 1, cs)
+                          : make_map(&sm, s, is_bf16, lanes, sc, D, H, W, rsw, hb, cs)) &&
+               make_map(&rm, r, is_bf16, lanes, rc, D, H, W, rsr, ring_rows(P), cr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(sgroups * ngroups * (k / t0b), bands, dranges);
+  const dim3 grid(sgroups * ngroups * (k / t0b), bands, dranges * lanes);
   const int splits = bands * dranges;
   float* dst = splits <= kMaxCluster ? out : ws;
   cudaError_t err = cudaErrorInvalidValue;
@@ -830,10 +858,12 @@ extern "C" int dpi_wgrad3d(const void* s, const void* r, float* ws, float* out, 
   // more than 16 splits: sum them 16 at a time in place first, then into dW
   const long long n = (long long)sc * rc * k * k * k;
   const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
+  const long long ws_lane = (long long)splits * n;
   int stride = 1;
   for (; splits > 16 * stride; stride *= 16)
-    wgrad3d_sum<<<dim3(blocks, (splits + 16 * stride - 1) / (16 * stride)), 256, 0, st>>>(
-        ws, ws, n, splits, stride, 16);
-  wgrad3d_sum<<<blocks, 256, 0, st>>>(ws, out, n, splits, stride, (splits + stride - 1) / stride);
+    wgrad3d_sum<<<dim3(blocks, (splits + 16 * stride - 1) / (16 * stride), lanes), 256, 0, st>>>(
+        ws, ws, n, splits, stride, 16, ws_lane, ws_lane);
+  wgrad3d_sum<<<dim3(blocks, 1, lanes), 256, 0, st>>>(ws, out, n, splits, stride,
+                                                     (splits + stride - 1) / stride, ws_lane, n);
   return static_cast<int>(cudaGetLastError());
 }

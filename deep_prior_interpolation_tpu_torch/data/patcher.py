@@ -108,27 +108,34 @@ def flat_index_map(image_shape, dim, stride) -> np.ndarray:
     return flat.astype(np.int32)
 
 
+def add_tiles(vol: torch.Tensor, tiles, starts: np.ndarray,
+              dim: Sequence[int]) -> torch.Tensor:
+    """Add tile j (``tiles[j]``, or the number ``tiles``) into ``vol`` at the
+    box of ``starts[j]``, one box after another in tile order: a fixed
+    order with no atomic scatter, so two calls are bit-equal on any
+    device."""
+    for j, st in enumerate(starts):
+        box = tuple(slice(int(a), int(a) + int(d)) for a, d in zip(st, dim))
+        vol[box] += tiles if isinstance(tiles, float) else tiles[j]
+    return vol
+
+
 def overlap_add(patches: torch.Tensor, image_shape: Sequence[int],
                 dim: Sequence[int], stride: Sequence[int],
                 normalize: bool = True) -> torch.Tensor:
-    """Overlap-add assembly as one ``index_add_`` on the patches' device.
+    """Overlap-add assembly on the patches' device (:func:`add_tiles`: tile
+    order, no atomics).
 
     ``patches``: (P, *dim). Returns the volume of ``image_shape``, averaged
     over the overlaps when ``normalize``.
     """
     patches = torch.as_tensor(patches)
-    idx = torch.from_numpy(
-        flat_index_map(tuple(image_shape), tuple(dim), tuple(stride)).astype(np.int64)
-    ).to(patches.device).reshape(-1)
-    size = int(np.prod(image_shape))
-    flat = torch.zeros(size, dtype=patches.dtype, device=patches.device)
-    flat.index_add_(0, idx, patches.reshape(-1))
+    starts = _grid_starts(tuple(image_shape), tuple(dim), tuple(stride))
+    zeros = dict(dtype=patches.dtype, device=patches.device)
+    vol = add_tiles(torch.zeros(tuple(image_shape), **zeros), patches, starts, dim)
     if normalize:
-        counts = torch.zeros(size, dtype=patches.dtype, device=patches.device)
-        counts.index_add_(0, idx, torch.ones(idx.numel(), dtype=patches.dtype,
-                                             device=patches.device))
-        flat = flat / counts
-    return flat.reshape(tuple(image_shape))
+        vol = vol / add_tiles(torch.zeros(tuple(image_shape), **zeros), 1.0, starts, dim)
+    return vol
 
 
 # ----------------------------------------------------------------------

@@ -45,6 +45,15 @@ All of that state stays on the device as tensors. The host reads it once
 per chunk: one copy of the chunk's metrics and the ``done`` flag, which is
 also the chunk's synchronisation point.
 
+The same step serves B patches at once (``parallel/mesh.py``), each lane
+with its own parameters, Adam state, generators, trackers and ``done``
+flag: the parameters are (B, *shape) leaves viewing one (B, P) buffer, the
+net runs under ``torch.func.vmap`` over ``functional_call`` (its convs,
+loss and upsamples through their vmap rules, which batch the kernels over
+the lanes), every draw is made lane by lane from that lane's generators,
+and every tracker is a (B,) tensor. Lane i computes what a solve with seed
+``cfg.seed + i`` computes, but for the rounding of the batched ops.
+
 Where the JAX package refuses a configuration the port raises the same
 error class: under ``dtype="bfloat16"`` input optimisation, and a net output
 that is not bfloat16 (data forgetting, the partial-conv U-Net), raise
@@ -63,6 +72,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from torch.func import functional_call, vmap
 
 from ..config import Config
 from ..io import checkpoint as ckpt_io
@@ -271,6 +282,12 @@ def extract_noise_canvas(s: StepSettings, st: Dict[str, Any], data,
     return _to_channels_last(_crop_center(canvas.detach().float(), spatial))
 
 
+def _lane(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-lane (B,) tensor shaped to broadcast against ``like`` (B, ...);
+    a scalar (one lane) as it is."""
+    return t if t.dim() == 0 else t.reshape(tuple(t.shape) + (1,) * (like.dim() - t.dim()))
+
+
 def pocs_term(out: torch.Tensor, main: torch.Tensor, data, hyper,
               s: StepSettings):
     """``(total, reg, eps, th)``: the f-k projection of ``out`` (no gradient
@@ -294,20 +311,38 @@ class _FlatParams:
     moments beside it, so the update is a handful of large tensor ops. An
     optimised canvas is a leaf of its own beside it (its dtype, its own
     moments), sharing Adam's count, as ``optax.scale_by_adam`` keeps one
-    count for its whole tree."""
+    count for its whole tree.
 
-    def __init__(self, model: torch.nn.Module, canvas: Optional[torch.Tensor] = None):
-        self.params = [p for p in model.parameters()]
+    With ``rows`` (B flat parameter vectors, one a lane) the buffer is
+    (B, P) and the parameters are (B, *shape) leaves viewing it, by the
+    model's names (``names``); the model's own parameters are left alone.
+    The canvas is then (B, ...), the count (B,)."""
+
+    def __init__(self, model: torch.nn.Module, canvas: Optional[torch.Tensor] = None,
+                 rows: Optional[List[torch.Tensor]] = None):
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.lead: Tuple[int, ...] = () if rows is None else (len(rows),)
         with torch.no_grad():
-            self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+            if rows is None:
+                self.params = [p for _, p in named]
+                self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+            else:
+                self.flat = torch.stack(rows)
+                self.params = []
             off = 0
-            for p in self.params:
+            for _, p in named:
                 n = p.numel()
-                p.data = self.flat[off:off + n].view_as(p)
+                if rows is None:
+                    p.data = self.flat[off:off + n].view_as(p)
+                else:
+                    self.params.append(self.flat[:, off:off + n].view(
+                        self.lead + tuple(p.shape)).requires_grad_(True))
                 off += n
+        self._sizes = [p.numel() for _, p in named]
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
-        self.count = torch.zeros((), dtype=torch.int32, device=self.flat.device)
+        self.count = torch.zeros(self.lead, dtype=torch.int32, device=self.flat.device)
         self.canvas = None
         if canvas is not None:
             self.canvas = canvas.detach().clone().requires_grad_(True)
@@ -316,7 +351,7 @@ class _FlatParams:
         # the conv kernels (rank >= 4) that parameter noise perturbs: their
         # leaves, their flat positions and each leaf's size, made at the
         # first perturbation (the positions take 8 bytes a parameter)
-        self._kernels = [i for i, p in enumerate(self.params) if p.ndim >= 4]
+        self._kernels = [i for i, (_, p) in enumerate(named) if p.ndim >= 4]
         self._kernel_idx = self._kernel_sizes = None
 
     def leaves(self) -> List[torch.Tensor]:
@@ -325,25 +360,33 @@ class _FlatParams:
         return self.params + ([self.canvas] if self.canvas is not None else [])
 
     @torch.no_grad()
-    def perturb(self, generator: torch.Generator) -> torch.Tensor:
+    def perturb(self, generator: Union[torch.Generator, List[torch.Generator]]) -> torch.Tensor:
         """Add ``N(0, 1) * std(kernel) * 0.02`` to every conv kernel, in
-        place (population std of each kernel); returns the parameters as
-        they were, which ``adam_step`` keeps where ``done``."""
+        place (population std of each kernel; with lanes, lane i's kernels
+        from ``generator[i]``); returns the parameters as they were, which
+        ``adam_step`` keeps where ``done``."""
         before = self.flat.clone()
         if self._kernel_idx is None:
-            offs = np.cumsum([0] + [p.numel() for p in self.params])
+            offs = np.cumsum([0] + self._sizes)
             dev = self.flat.device
             self._kernel_idx = torch.cat(
                 [torch.arange(int(offs[i]), int(offs[i + 1]), device=dev)
                  for i in self._kernels] or [torch.zeros(0, dtype=torch.int64, device=dev)])
-            self._kernel_sizes = torch.tensor([self.params[i].numel() for i in self._kernels],
+            self._kernel_sizes = torch.tensor([self._sizes[i] for i in self._kernels],
                                               dtype=torch.int64, device=dev)
         n = self._kernel_idx.numel()
-        if n:
-            stds = torch.stack([self.params[i].std(correction=0) for i in self._kernels])
+        if not n:
+            return before
+        if self.lead:
+            rows = [(self.flat[b], [p[b] for p in self.params], generator[b])
+                    for b in range(self.lead[0])]
+        else:
+            rows = [(self.flat, self.params, generator)]
+        for flat, params, gen in rows:
+            stds = torch.stack([params[i].std(correction=0) for i in self._kernels])
             std = torch.repeat_interleave(stds, self._kernel_sizes, output_size=n)
-            noise = torch.randn(n, generator=generator, device=self.flat.device)
-            self.flat.index_add_(0, self._kernel_idx, noise * std * 0.02)
+            noise = torch.randn(n, generator=gen, device=self.flat.device)
+            flat.index_add_(0, self._kernel_idx, noise * std * 0.02)
         return before
 
     @staticmethod
@@ -357,23 +400,27 @@ class _FlatParams:
                   frozen: Optional[torch.Tensor] = None) -> None:
         """``optax.scale_by_adam(0.9, 0.999, 1e-8)`` then ``p - lr * d``;
         nothing moves where ``done``, and the parameters are then
-        ``frozen`` (the unperturbed ones under parameter noise)."""
+        ``frozen`` (the unperturbed ones under parameter noise). With lanes,
+        ``lr`` and ``done`` are (B,), one a lane."""
         n_net = len(self.params)
-        g = torch.cat([gi.reshape(-1) for gi in grads[:n_net]]).float()
+        g = torch.cat([gi.reshape(self.lead + (-1,)) for gi in grads[:n_net]], dim=-1).float()
         count_inc = self.count + 1
         one = torch.ones((), dtype=torch.float32, device=g.device)
         bc1 = 1 - (one * _B1) ** count_inc
         bc2 = 1 - (one * _B2) ** count_inc
-        mu, nu, d = self._adam(g, self.mu, self.nu, bc1, bc2)
-        keep = self.flat if frozen is None else frozen
-        self.flat.copy_(torch.where(done, keep, self.flat - lr * d))
-        self.mu.copy_(torch.where(done, self.mu, mu))
-        self.nu.copy_(torch.where(done, self.nu, nu))
+        f = self.flat
+        mu, nu, d = self._adam(g, self.mu, self.nu, _lane(bc1, f), _lane(bc2, f))
+        keep = f if frozen is None else frozen
+        self.flat.copy_(torch.where(_lane(done, f), keep, f - _lane(lr, f) * d))
+        self.mu.copy_(torch.where(_lane(done, f), self.mu, mu))
+        self.nu.copy_(torch.where(_lane(done, f), self.nu, nu))
         if self.canvas is not None:
-            mu, nu, d = self._adam(grads[n_net], self.canvas_mu, self.canvas_nu, bc1, bc2)
-            self.canvas.copy_(torch.where(done, self.canvas, self.canvas - lr * d))
-            self.canvas_mu.copy_(torch.where(done, self.canvas_mu, mu))
-            self.canvas_nu.copy_(torch.where(done, self.canvas_nu, nu))
+            c = self.canvas
+            mu, nu, d = self._adam(grads[n_net], self.canvas_mu, self.canvas_nu,
+                                   _lane(bc1, c), _lane(bc2, c))
+            self.canvas.copy_(torch.where(_lane(done, c), c, c - _lane(lr, c) * d))
+            self.canvas_mu.copy_(torch.where(_lane(done, c), self.canvas_mu, mu))
+            self.canvas_nu.copy_(torch.where(_lane(done, c), self.canvas_nu, nu))
         self.count.copy_(torch.where(done, self.count, count_inc))
 
 
@@ -520,10 +567,12 @@ class DIPSolver:
 
     @staticmethod
     def _net_input(it: int, st: Dict[str, Any], data, s: StepSettings,
-                   gens: Mapping[str, torch.Generator], regenerate) -> torch.Tensor:
+                   gens, regenerate) -> torch.Tensor:
         """The canvas plus this step's perturbations, through which no
         gradient flows. A function of its own, so that the perturbations
-        and a drawn canvas are freed before the forward."""
+        and a drawn canvas are freed before the forward. With lanes
+        (``gens`` a list, one dict a lane) each lane's noise is drawn from
+        its own generator, at one lane's shape."""
         if s.opt_input:
             base = st["flat"].canvas
         elif s.virtual_input:
@@ -532,51 +581,89 @@ class DIPSolver:
             base = data["base_input"]
         extra = None
         if s.reg_noise_std > 0:
-            extra = s.reg_noise_std * get_noise(gens["noise"], base.shape, "n",
-                                                base.dtype, base.device)
+            if isinstance(gens, list):
+                extra = s.reg_noise_std * torch.stack([
+                    get_noise(g["noise"], base.shape[1:], "n", base.dtype, base.device)
+                    for g in gens])
+            else:
+                extra = s.reg_noise_std * get_noise(gens["noise"], base.shape, "n",
+                                                    base.dtype, base.device)
         if s.forget_factor > 0:
             # float32 data: a bfloat16 canvas makes a float32 net input
             fe = data["forget_w"][min(it, s.forget_factor)] * data["forget_data"]
             extra = fe if extra is None else extra + fe
         return base if extra is None else base + extra
 
-    def _step(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings,
-              gens: Mapping[str, torch.Generator], regenerate) -> Dict[str, torch.Tensor]:
-        model, flat = self.model, st["flat"]
-        img, mask = data["img"], data["mask"]
-        inp = self._net_input(it, st, data, s, gens, regenerate)
-        frozen = flat.perturb(gens["param"]) if s.param_noise else None
-
-        out = model(inp, data["net_mask"]) if s.takes_mask else model(inp)
-        if out.dtype != st["out_best"].dtype:
+    @staticmethod
+    def _loss_terms(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor, data, hyper,
+                    s: StepSettings, out_dtype: torch.dtype):
+        """The cropped output, the loss and the step's metrics (snr, pcorr,
+        and with POCS df, reg, eps, th) of one lane's net output."""
+        if out.dtype != out_dtype:
             raise TypeError(f"the net's output is {out.dtype}, the tracked best output "
-                            f"{st['out_best'].dtype}: the JAX package's scan refuses a "
-                            f"carry whose dtype changes")
+                            f"{out_dtype}: the JAX package's scan refuses a carry whose "
+                            f"dtype changes")
         out = _crop_center(out, s.orig_spatial)
         if s.fused_loss:
             main, mets = fused_loss_metrics(out, img, mask, loss=s.loss)
+            ys = {"snr": mets["snr"].detach(), "pcorr": mets["pcorr"].detach()}
         else:
             main = L.get_loss_fn(s.loss)(out, img, mask)
+            with torch.no_grad():
+                out32 = out.detach().float()
+                ys = {"snr": L.snr(out32, img), "pcorr": L.pcorr(out32, img)}
         loss = main
         if s.pocs:
             loss, reg, eps, th = pocs_term(out, main, data, hyper, s)
-        grads = torch.autograd.grad(loss, flat.leaves())
+            ys.update({"df": main.detach(), "reg": reg.detach(),
+                       "eps": eps.detach().float(), "th": th.float()})
+        return out, loss, ys
+
+    def _lane_forward(self, inp: torch.Tensor, st: Dict[str, Any], data, hyper,
+                      s: StepSettings):
+        """The net and the loss of B lanes at once: ``torch.func.vmap`` over
+        ``functional_call`` with each lane's parameters and data."""
+        flat = st["flat"]
+        keys = [k for k in ("img", "mask", "net_mask", "pocs_wdata", "pocs_wmask")
+                if data.get(k) is not None]
+        out_dtype = st["out_best"].dtype
+
+        def one(params, x, lane_data):
+            net_in = (x, lane_data["net_mask"]) if s.takes_mask else (x,)
+            out = functional_call(self.model, dict(zip(flat.names, params)), net_in)
+            return self._loss_terms(out, lane_data["img"], lane_data["mask"], lane_data,
+                                    hyper, s, out_dtype)
+        return vmap(one)(flat.params, inp, {k: data[k] for k in keys})
+
+    def _step(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings,
+              gens, regenerate) -> Dict[str, torch.Tensor]:
+        """One iteration of one lane (``gens`` a dict) or of B lanes (a list
+        of B dicts; every tracker a (B,) tensor)."""
+        flat = st["flat"]
+        lanes = isinstance(gens, list)
+        inp = self._net_input(it, st, data, s, gens, regenerate)
+        frozen = None
+        if s.param_noise:
+            frozen = flat.perturb([g["param"] for g in gens] if lanes else gens["param"])
+        if lanes:
+            out, loss, ys = self._lane_forward(inp, st, data, hyper, s)
+            grads = torch.autograd.grad(loss.sum(), flat.leaves())
+        else:
+            net_out = (self.model(inp, data["net_mask"]) if s.takes_mask
+                       else self.model(inp))
+            out, loss, ys = self._loss_terms(net_out, data["img"], data["mask"], data, hyper,
+                                             s, st["out_best"].dtype)
+            grads = torch.autograd.grad(loss, flat.leaves())
         done, lr = st["done"], st["lr"]
         flat.adam_step(grads, lr, done, frozen)
 
         with torch.no_grad():
             loss = loss.detach()
             out = out.detach()
-            if s.fused_loss:
-                snr_v, pcorr_v = mets["snr"].detach(), mets["pcorr"].detach()
-            else:
-                out32 = out.float()
-                snr_v, pcorr_v = L.snr(out32, img), L.pcorr(out32, img)
-
             better = (loss <= st["loss_min"]) & ~done
-            st["out_best"] = torch.where(better, out, st["out_best"])
+            st["out_best"] = torch.where(_lane(better, out), out, st["out_best"])
             if s.track_last:
-                st["out_last"] = torch.where(done, st["out_last"], out)
+                st["out_last"] = torch.where(_lane(done, out), st["out_last"], out)
             st["loss_min"] = torch.where(better, loss, st["loss_min"])
 
             # ReduceLROnPlateau (rel threshold, min mode)
@@ -608,11 +695,8 @@ class DIPSolver:
             st["es_best"] = torch.where(done, eb, eb2)
             st["es_bad"] = torch.where(done, ebad, ebad2)
             st["done"] = done | stop | torch.isnan(loss) | (it + 1 >= hyper["epochs"])
-        ys = {"loss": loss, "snr": snr_v.float(), "pcorr": pcorr_v.float(),
-              "lr": lr, "recorded": (~done).float()}
-        if s.pocs:
-            ys.update({"df": main.detach(), "reg": reg.detach(),
-                       "eps": eps.detach().float(), "th": th.float()})
+        ys.update({"loss": loss, "snr": ys["snr"].float(), "pcorr": ys["pcorr"].float(),
+                   "lr": lr, "recorded": (~done).float()})
         return ys
 
     def _save_checkpoint(self, path: str, st: Dict[str, Any],
@@ -676,7 +760,7 @@ class DIPSolver:
         chunk (see ``_profiled``).
         """
         if spatial_mesh is not None:
-            raise NotImplementedError("spatial sharding: ROADMAP A.13")
+            raise NotImplementedError("spatial sharding: ROADMAP A.13b")
         if not checkpoint_path:
             return self._solve(img, mask, seed, init_params, noise, verbose, None, 0,
                                profile_dir)

@@ -20,7 +20,10 @@ is a name-for-name transpose.
   by 2 is the gather of ``ops/upsample.py`` (a CUDA kernel on the card).
 * ``Dropout`` is flax's, always on when rate > 0: each element is kept with
   probability 1 - rate and divided by 1 - rate. Its draws come from the
-  explicit generator ``set_dropout_generator`` hands every Dropout of a net.
+  explicit generator ``set_dropout_generator`` hands every Dropout of a net;
+  a net run over lanes under ``torch.func.vmap`` (a batch of patches) is
+  handed one generator a lane, and lane i's mask is the draw a net run alone
+  on generator i makes.
 * ``Compact`` is the base of the zoo nets: a child is made the first time
   ``forward`` asks for it, from the tensor it gets, and named as flax names
   the children of a compact module (``Conv_0``, ``Norm_3``, ...), so the
@@ -33,7 +36,7 @@ is a name-for-name transpose.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -276,15 +279,44 @@ def lanczos_downsample(x: torch.Tensor, factor: int, support: int = 2) -> torch.
     return x
 
 
+class _LaneUniform(torch.autograd.Function):
+    """Uniform float32 draws of x's shape under ``torch.func.vmap``, lane i's
+    from ``generators[i]``: the vmap rule draws lane by lane, so each lane
+    draws what an unbatched call on its generator draws."""
+
+    @staticmethod
+    def forward(x, generators):
+        raise RuntimeError("one generator a lane draws only under torch.func.vmap; an "
+                           "unbatched net takes one generator")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, generators):
+        if len(generators) != info.batch_size:
+            raise ValueError(f"{len(generators)} dropout generators for "
+                             f"{info.batch_size} lanes")
+        x = x.movedim(in_dims[0], 0)
+        return torch.stack([torch.rand(x.shape[1:], generator=g, device=x.device)
+                            for g in generators]), 0
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout`` (always on when rate > 0): keep each element with
     probability 1 - rate, a uniform float32 draw from ``generator`` below
-    1 - rate, and divide the kept ones by 1 - rate."""
+    1 - rate, and divide the kept ones by 1 - rate. ``generator`` may be a
+    list, one a lane of a ``torch.func.vmap``."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
-        self.generator: Optional[torch.Generator] = None
+        self.generator: Union[torch.Generator, Sequence[torch.Generator], None] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate <= 0.0 or Compact.building:
@@ -295,12 +327,18 @@ class Dropout(nn.Module):
             raise RuntimeError("dropout > 0 draws from an explicit generator: "
                                "call set_dropout_generator(model, generator) first")
         keep = 1.0 - self.rate
-        kept = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        if isinstance(self.generator, torch.Generator):
+            kept = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        else:
+            kept = _LaneUniform.apply(x, tuple(self.generator)) < keep
         return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Hand ``generator`` to every Dropout of ``model``."""
+def set_dropout_generator(model: nn.Module,
+                          generator: Union[torch.Generator, Sequence[torch.Generator], None]
+                          ) -> None:
+    """Hand ``generator`` (or one generator a lane) to every Dropout of
+    ``model``."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator

@@ -14,7 +14,11 @@ its auto-names (``MultiResBlock_0``, ``ResPath_0``, ``Conv_0``, ``Norm_0``,
 ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes their
 insides instead of keeping them: level 0 is the first block, level i its
 skip path, encoder and decoder. The names stay those of the plain net (flax
-prefixes a remat block's name with ``Checkpoint``).
+prefixes a remat block's name with ``Checkpoint``). Under ``torch.func.vmap``
+(one net a lane, ``parallel/mesh.py``) a checkpoint cannot hold the vmapped
+block, whose tensors live only inside the vmap: the block's vmap rule
+checkpoints the lanes' block as a whole instead, a vmap of the block over
+the lanes' inputs and parameters, which the backward runs again.
 
 ``phase_space`` runs the largest resolutions on phase tensors
 (``ops/phase_space.py``): the same modules, parameters and function; the
@@ -23,10 +27,11 @@ upsample straight into phase layout (``upsample_into_phase``) above one.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv_vjp import conv_impl, current_conv_impl
@@ -124,30 +129,83 @@ class ResPath(nn.Module):
         return x
 
 
+def _replayed(fn, generators: Sequence[torch.Generator]):
+    """``fn`` whose first call draws from ``generators`` as they stand and
+    whose later calls (a checkpoint's recompute) draw from those same states
+    again, leaving each generator where the step has moved it
+    (``torch.utils.checkpoint`` restores only the global generators)."""
+    starts = [g.get_state() for g in generators]
+    first = [True]
+
+    def run(*args):
+        if first[0] or not generators:
+            first[0] = False
+            return fn(*args)
+        now = [g.get_state() for g in generators]
+        for g, st in zip(generators, starts):
+            g.set_state(st)
+        try:
+            return fn(*args)
+        finally:
+            for g, st in zip(generators, now):
+                g.set_state(st)
+    return run
+
+
 def checkpointed(module: nn.Module, x: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Union[torch.Generator, Sequence[torch.Generator], None]
+                 ) -> torch.Tensor:
     """``module(x)`` whose backward recomputes the forward. The recompute
     runs under the forward's conv formulation (``conv_impl``: the backward
     may run on another thread); it draws its dropout masks from the
     generator state the forward started from, so it rebuilds the same
-    masks, and leaves the generator where the step has moved it
-    (``torch.utils.checkpoint`` restores only the global generators)."""
+    masks, and leaves the generator where the step has moved it. Under
+    ``torch.func.vmap`` (``generator`` one a lane, or None) the lanes' block
+    is checkpointed as a whole (:class:`_LaneCheckpoint`)."""
     mode = current_conv_impl()
-    start = generator.get_state() if generator is not None else None
-    first = [True]
+    if torch._C._functorch.is_batchedtensor(x):
+        names = tuple(n for n, _ in module.named_parameters())
+        params = [p for _, p in module.named_parameters()]
+        return _LaneCheckpoint.apply(x, module, names, tuple(generator or ()), mode, *params)
 
-    def run(h: torch.Tensor) -> torch.Tensor:
+    def forward(h: torch.Tensor) -> torch.Tensor:
         with conv_impl(mode):
-            if first[0] or generator is None:
-                first[0] = False
-                return module(h)
-            now = generator.get_state()
-            generator.set_state(start)
-            try:
-                return module(h)
-            finally:
-                generator.set_state(now)
+            return module(h)
+    run = _replayed(forward, [generator] if generator is not None else [])
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+class _LaneCheckpoint(torch.autograd.Function):
+    """A block of a vmapped net, checkpointed over its lanes: the vmap rule
+    takes the lanes' input and parameters and checkpoints a vmap of the
+    block over them (``functional_call`` with each lane's parameters), so
+    the recompute in the backward needs nothing of the outer vmap."""
+
+    @staticmethod
+    def forward(x, module, names, generators, mode, *params):
+        raise RuntimeError("_LaneCheckpoint runs only under torch.func.vmap")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("_LaneCheckpoint runs only under torch.func.vmap")
+
+    @staticmethod
+    def vmap(info, in_dims, x, module, names, generators, mode, *params):
+        b = info.batch_size
+        x, *params = (v.movedim(d, 0) if d is not None else v.expand((b,) + tuple(v.shape))
+                      for v, d in zip((x,) + params, (in_dims[0],) + in_dims[5:]))
+
+        def lanes(h: torch.Tensor, *ps: torch.Tensor) -> torch.Tensor:
+            def one(h1, *p1):
+                return functional_call(module, dict(zip(names, p1)), (h1,))
+            with conv_impl(mode):
+                return vmap(one)(h, *ps)
+        run = _replayed(lanes, list(generators))
+        return checkpoint(run, x, *params, use_reentrant=False, preserve_rng_state=False), 0
 
 
 class MulResUnet(nn.Module):

@@ -23,6 +23,15 @@ the sum of one matrix product a kernel tap, each in float32, rounded once
 at the end. A conv records the formulation it ran under and its backward
 takes the same one, also when autograd runs it on another thread (as it
 does for CUDA tensors) or a remat recomputes it.
+
+Under ``torch.func.vmap`` (a batch of patches, each with its own weights:
+``parallel/mesh.py``) the conv's vmap rule runs B lanes at once, as the JAX
+package's ``vmap`` does: x (B, N, C, *sp) and w (B, O, I, *k). "conv" is a
+grouped cuDNN conv over (N, B*C, *sp) with ``groups=B`` (the JAX package's
+"grouped" lowering), its dx the grouped transpose; dW goes to the wgrad
+kernel's lane launch (``wgrad3d_lanes``) where the gate admits the lane's
+conv, else per lane to the packed or folded form, else to the grouped
+library weight gradient. "tapmm" takes one batched float32 product a tap.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ from typing import Iterator, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from .wgrad import wgrad3d, wgrad_supported
+from .wgrad import wgrad3d, wgrad3d_lanes, wgrad_supported
 
 __all__ = ["conv_same", "conv_impl", "current_conv_impl", "use_wgrad_kernel"]
 
@@ -250,15 +259,18 @@ def _symmetric(pads: Pads) -> bool:
 
 class _ConvSame(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, pads, mode):
-        ctx.save_for_backward(x, w)
-        ctx.stride, ctx.pads, ctx.mode = stride, pads, mode
+    def forward(x, w, stride, pads, mode):
         if mode == "tapmm":
             return _tap_conv(x, w, stride, pads)
         conv = _FWD[w.ndim - 2]
         if _symmetric(pads):
             return conv(x, w, stride=stride, padding=tuple(lo for lo, _ in pads))
         return conv(F.pad(x, _flat(pads)), w, stride=stride)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, ctx.stride, ctx.pads, ctx.mode = inputs
+        ctx.save_for_backward(x, w)
 
     @staticmethod
     def backward(ctx, dy):
@@ -291,6 +303,139 @@ class _ConvSame(torch.autograd.Function):
                 dw = _DW[nd](x, w.shape, dy, stride=stride, padding=padding)
             else:
                 dw = _DW[nd](F.pad(x, _flat(pads)), w.shape, dy, stride=stride)
+        return dx, dw, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, stride, pads, mode):
+        b = info.batch_size
+        x, w = (v.movedim(d, 0) if d is not None else v.expand((b,) + tuple(v.shape))
+                for v, d in zip((x, w), in_dims[:2]))
+        return _ConvSameLanes.apply(x, w, stride, pads, mode), 0
+
+
+def _tap_lanes(x: torch.Tensor, ks: Sequence[int], stride: int, pads: Pads):
+    """The padded lane input (B, N, C, *sp_p), the output grid and the taps."""
+    b, n = x.shape[:2]
+    xp = F.pad(x.reshape((b * n,) + tuple(x.shape[2:])), _flat(pads))
+    xp = xp.reshape((b, n) + tuple(xp.shape[1:]))
+    out_sp = [(xp.shape[3 + i] - ks[i]) // stride + 1 for i in range(len(ks))]
+    return xp, out_sp, list(_taps(ks))
+
+
+def _lane_slice(t, out_sp, stride) -> tuple:
+    return (slice(None),) + _tap_slice(t, out_sp, stride)
+
+
+def _tap_conv_lanes(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads) -> torch.Tensor:
+    """:func:`_tap_conv` of B lanes: one batched float32 product a tap."""
+    b, n, ci = x.shape[:3]
+    co = w.shape[1]
+    xp, out_sp, taps = _tap_lanes(x, w.shape[3:], stride, pads)
+    wf = w.float()
+    acc = None
+    for t in taps:
+        xs = xp[_lane_slice(t, out_sp, stride)].float().reshape(b, n, ci, -1)
+        c = torch.matmul(wf[(slice(None),) * 3 + t].unsqueeze(1), xs)   # (B, N, O, S)
+        acc = c if acc is None else acc + c
+    return acc.reshape([b, n, co] + out_sp).to(x.dtype)
+
+
+def _tap_conv_input_lanes(dy, w, x_shape, stride: int, pads: Pads) -> torch.Tensor:
+    """:func:`_tap_conv_input` of B lanes, float32."""
+    b, n, co, *out_sp = dy.shape
+    ci, ks = w.shape[2], w.shape[3:]
+    dxp = dy.new_zeros([b * n, ci] + [x_shape[3 + i] + sum(pads[i]) for i in range(len(ks))],
+                       dtype=torch.float32)
+    dyf = dy.float().reshape(b, n, co, -1)
+    wf = w.float()
+    for t in _taps(ks):
+        dxp[_tap_slice(t, out_sp, stride)] += torch.matmul(
+            wf[(slice(None),) * 3 + t].transpose(1, 2).unsqueeze(1), dyf).reshape(
+                [b * n, ci] + out_sp)
+    crop = (slice(None), slice(None)) + tuple(
+        slice(pads[i][0], pads[i][0] + x_shape[3 + i]) for i in range(len(ks)))
+    return dxp[crop].reshape(x_shape)
+
+
+def _tap_conv_weight_lanes(x, dy, w_shape, stride: int, pads: Pads) -> torch.Tensor:
+    """:func:`_tap_conv_weight` of B lanes, float32: (B, O, I, *k)."""
+    b, n, co = dy.shape[:3]
+    ci = x.shape[2]
+    xp, out_sp, taps = _tap_lanes(x, w_shape[3:], stride, pads)
+    dyf = dy.float().reshape(b, n, co, -1)
+    cols = []
+    for t in taps:
+        xs = xp[_lane_slice(t, out_sp, stride)].float().reshape(b, n, ci, -1)
+        cols.append(torch.matmul(dyf, xs.transpose(2, 3)).sum(1))
+    return torch.stack(cols, -1).reshape(w_shape)
+
+
+def _grouped(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, C, *sp) -> (N, B*C, *sp): the lanes as channel groups."""
+    b, n, c = x.shape[:3]
+    return x.transpose(0, 1).reshape((n, b * c) + tuple(x.shape[3:]))
+
+
+def _ungrouped(y: torch.Tensor, b: int) -> torch.Tensor:
+    """(N, B*O, *sp) -> (B, N, O, *sp)."""
+    n = y.shape[0]
+    return y.reshape((n, b, -1) + tuple(y.shape[2:])).transpose(0, 1)
+
+
+class _ConvSameLanes(torch.autograd.Function):
+    """B lanes of :class:`_ConvSame`: x (B, N, C, *sp), w (B, O, I, *k)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pads, mode):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.pads, ctx.mode = stride, pads, mode
+        b = x.shape[0]
+        if mode == "tapmm":
+            return _tap_conv_lanes(x, w, stride, pads)
+        conv = _FWD[w.ndim - 3]
+        xg, wg = _grouped(x), w.reshape((-1,) + tuple(w.shape[2:]))
+        if _symmetric(pads):
+            y = conv(xg, wg, stride=stride, padding=tuple(lo for lo, _ in pads), groups=b)
+        else:
+            y = conv(F.pad(xg, _flat(pads)), wg, stride=stride, groups=b)
+        return _ungrouped(y, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        nd = w.ndim - 3
+        b = x.shape[0]
+        stride, pads, tap = ctx.stride, ctx.pads, ctx.mode == "tapmm"
+        sym = _symmetric(pads)
+        padding = tuple(lo for lo, _ in pads)
+        lane_x, lane_w = tuple(x.shape[1:]), tuple(w.shape[1:])
+        xg, wg, dyg = _grouped(x), w.reshape((-1,) + tuple(w.shape[2:])), _grouped(dy)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            if tap:
+                dx = _tap_conv_input_lanes(dy, w, x.shape, stride, pads).to(x.dtype)
+            elif sym:
+                dx = _ungrouped(_DX[nd](xg.shape, wg, dyg, stride=stride, padding=padding,
+                                        groups=b), b)
+            else:
+                xp_shape = xg.shape[:2] + tuple(xg.shape[2 + i] + lo + hi
+                                                for i, (lo, hi) in enumerate(pads))
+                dxp = _DX[nd](xp_shape, wg, dyg, stride=stride, groups=b)
+                dx = _ungrouped(dxp[(slice(None), slice(None)) + tuple(
+                    slice(lo, lo + xg.shape[2 + i]) for i, (lo, _) in enumerate(pads))], b)
+        if ctx.needs_input_grad[1]:
+            if use_wgrad_kernel(lane_x, lane_w, stride, pads):
+                dw = wgrad3d_lanes(x[:, 0], dy[:, 0], w.shape[3]).to(w.dtype)
+            elif _use_packed(lane_x, lane_w, stride, pads, x.element_size()):
+                wg_fn = _packed_wgrad if stride == 1 else _folded_wgrad
+                dw = torch.stack([wg_fn(x[i], dy[i], lane_w, stride, pads)
+                                  for i in range(b)]).to(w.dtype)
+            elif tap:
+                dw = _tap_conv_weight_lanes(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
+            else:
+                xin = xg if sym else F.pad(xg, _flat(pads))
+                dw = _DW[nd](xin, wg.shape, dyg, stride=stride,
+                             padding=padding if sym else 0, groups=b).reshape(w.shape)
         return dx, dw, None, None, None
 
 

@@ -132,16 +132,28 @@ upsample_bwd.launches = 0
 
 
 class _LinearUpsample2x(torch.autograd.Function):
-    """``F.interpolate`` forward; the gather backward of ``upsample_bwd``."""
+    """``F.interpolate`` forward; the gather backward of ``upsample_bwd``.
+    Under ``torch.func.vmap`` the lanes fold into the batch dim, (B*N, C,
+    *spatial): the upsample is per plane, so the one kernel launch of the
+    backward covers all lanes' planes."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.ndim = x.dim() - 2
-        return F.interpolate(x, scale_factor=2, mode=_MODES[ctx.ndim], align_corners=False)
+    def forward(x):
+        return F.interpolate(x, scale_factor=2, mode=_MODES[x.dim() - 2], align_corners=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ndim = inputs[0].dim() - 2
 
     @staticmethod
     def backward(ctx, g):
         return upsample_bwd(g, ctx.ndim)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        x = x.movedim(in_dims[0], 0)
+        y = _LinearUpsample2x.apply(x.reshape((-1,) + tuple(x.shape[2:])))
+        return y.reshape(tuple(x.shape[:2]) + tuple(y.shape[1:])), 0
 
 
 def linear_upsample2x(x: torch.Tensor) -> torch.Tensor:

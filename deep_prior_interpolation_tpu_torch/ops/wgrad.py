@@ -34,6 +34,14 @@ checkpoint carries them), which then never times a pinned shape.
 
 ``wgrad3d`` takes the plain version for tensors on the CPU and launches the
 kernel for CUDA tensors (``wgrad3d.launches`` counts the launches).
+
+``wgrad3d_lanes`` is the same for B lanes at once, the counterpart of the
+batching rule of ``pallas_call`` under ``jax.vmap`` (a grid dimension for
+the lane): x (B, Ci, D, H, W) and dy (B, Co, D, H, W) give dW (B, Co, Ci, k,
+k, k) in one launch (``wgrad3d_lanes.launches``), lane b's from lane b's
+inputs alone and bit-identical to a one-lane launch of the same grid. The
+planner weighs the lanes as more blocks of the same grid, so the grid it
+keeps for B lanes is keyed by the lane shape, and a pinned grid names it.
 ``wgrad_supported`` is the gate ``conv_vjp.conv_same`` applies before it asks
 for the kernel: Hopper's own rules, not the TPU's ``H, W % 8`` and VMEM ones.
 """
@@ -49,7 +57,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["pin_plans", "tuned_plans", "wgrad3d", "wgrad3d_plain", "wgrad_supported"]
+__all__ = ["pin_plans", "tuned_plans", "wgrad3d", "wgrad3d_lanes", "wgrad3d_lanes_plain",
+           "wgrad3d_plain", "wgrad_supported"]
 
 _MAX_K = 7                  # odd k up to 7
 _SMS = 132                  # H100 SXM
@@ -99,6 +108,23 @@ def wgrad3d_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
             for t2 in range(k):
                 xs = xp[:, t0:t0 + d, t1:t1 + h, t2:t2 + w].reshape(ci, -1)
                 dw[:, :, t0, t1, t2] = dyf @ xs.T
+    return dw
+
+
+def wgrad3d_lanes_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dW (B, Co, Ci, k, k, k) float32 of B lanes: per-tap shifted slices and
+    one float32 batched matmul a tap; independent of cuDNN."""
+    b, ci, d, h, w = x.shape
+    co = dy.shape[1]
+    p = (k - 1) // 2
+    xp = F.pad(x.float(), (p, p, p, p, p, p))
+    dyf = dy.float().reshape(b, co, -1)
+    dw = torch.empty((b, co, ci, k, k, k), dtype=torch.float32, device=x.device)
+    for t0 in range(k):
+        for t1 in range(k):
+            for t2 in range(k):
+                xs = xp[:, :, t0:t0 + d, t1:t1 + h, t2:t2 + w].reshape(b, ci, -1)
+                dw[:, :, :, t0, t1, t2] = torch.bmm(dyf, xs.transpose(1, 2))
     return dw
 
 
@@ -212,12 +238,20 @@ _COPY_RATE = 64
 _BYTES_RATE = 1800
 _STEP_CYCLES = 600   # a step's barrier wait, block barrier and copy issue
 _CANDIDATES = 10     # grids the wrapper times on a card at a shape's first call
+# positions (hb x W x planes) a block of a lane launch sums into one float32
+# accumulator: lanes fill the card with few D ranges, and a block that walked
+# a lane's whole (128, 64, 64) volume in 4-8 bands summed 74-139 k positions,
+# whose rounding reached 1-1.8e-4 of max |dW| (H100, bf16); at 2^15 it stays
+# near 0.4e-4. One-lane grids keep the planner they had (their grids are
+# pinned in checkpoints).
+_LANE_RUN = 1 << 15
 
 
 def _role_plans(ci: int, co: int, d: int, h: int, w: int, k: int, bf16: bool,
-                x_streams: bool) -> list:
+                x_streams: bool, lanes: int = 1) -> list:
     """(cost, grid) of each tile shape with S = x (``x_streams``) or dy: the
-    least costly, and the least costly of at most ``_MAX_CLUSTER`` splits."""
+    least costly, and the least costly of at most ``_MAX_CLUSTER`` splits.
+    ``lanes`` launches the grid once a lane, in one launch."""
     role = []
     p = (k - 1) // 2
     sc, rc = (ci, co) if x_streams else (co, ci)
@@ -258,7 +292,7 @@ def _role_plans(ci: int, co: int, d: int, h: int, w: int, k: int, bf16: bool,
     if bf16 and w % 8 == 0:   # flat S takes even bands too: those that divide H
         hbs |= {b for b in (2, 4, 8, 16) if h % b == 0}
     hbs = sorted(hbs)
-    in_cycles = (sc + rc) * d * h * w * esz / _BYTES_RATE
+    in_cycles = lanes * (sc + rc) * d * h * w * esz / _BYTES_RATE
     for mt, mg, nb, rcw, sgroups, ngroups in tiles:
         if bf16:
             threads = 32 * mg * nb * wt
@@ -303,12 +337,14 @@ def _role_plans(ci: int, co: int, d: int, h: int, w: int, k: int, bf16: bool,
                 per_range = sgroups * ngroups * (k // t0b) * bands
                 for n in range(1, min(d, 64) + 1):
                     planes = -(-d // n)
+                    if lanes > 1 and hb * w * planes > _LANE_RUN:
+                        continue
                     dranges = -(-d // planes)
-                    waves = -(-per_range * dranges // cap)
+                    waves = -(-per_range * dranges * lanes // cap)
                     # dW, and past _MAX_CLUSTER splits a workspace plane each,
                     # written and read
                     splits = bands * dranges
-                    ws = ((2 * splits + 1 if splits > _MAX_CLUSTER else 1)
+                    ws = (lanes * (2 * splits + 1 if splits > _MAX_CLUSTER else 1)
                           * sc * rc * taps * 4 / _BYTES_RATE)
                     t = max(waves * (planes + 2) * step, in_cycles) + ws
                     key = (t, splits, -stages)
@@ -328,15 +364,19 @@ def _role_plans(ci: int, co: int, d: int, h: int, w: int, k: int, bf16: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _plans(ci: int, co: int, d: int, h: int, w: int, k: int, bf16: bool) -> Tuple[Plan, ...]:
+def _plans(ci: int, co: int, d: int, h: int, w: int, k: int, bf16: bool,
+           lanes: int = 1) -> Tuple[Plan, ...]:
     """The least costly grids under the cost model above, best first, one for
     each tile shape (channel tiles and band height; its TMA stages and D
     planes a block searched) for each role of the operands (S = x or dy):
     ``_CANDIDATES`` of any split count and half as many more of at most
-    ``_MAX_CLUSTER`` splits, which need no workspace."""
+    ``_MAX_CLUSTER`` splits, which need no workspace. ``lanes``: the grids of
+    a launch of that many lanes, whose blocks sum at most ``_LANE_RUN``
+    positions each."""
     found = []
     for x_streams in (co <= ci, co > ci):
-        role = sorted(_role_plans(ci, co, d, h, w, k, bf16, x_streams), key=lambda r: r[0])
+        role = sorted(_role_plans(ci, co, d, h, w, k, bf16, x_streams, lanes),
+                      key=lambda r: r[0])
         some = role[:_CANDIDATES]
         found += some + [r for r in role if r[1].splits <= _MAX_CLUSTER
                          and r not in some][:_CANDIDATES // 2]
@@ -412,29 +452,32 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _args(pl: Plan, aligned: bool) -> ctypes.Array:
+def _args(pl: Plan, aligned: bool, lanes: int = 1) -> ctypes.Array:
     """The kernel's int arguments for plan ``pl`` on inputs whose bases are
     16-byte aligned or not: is_bf16, tma, x_streams, then the plan from
-    ``sc`` on. TMA needs 16-byte aligned bases, row strides and first
-    columns, and boxes of <= 256."""
+    ``sc`` on, then the lanes. TMA needs 16-byte aligned bases, row strides
+    and first columns, and boxes of <= 256."""
     tma = ((pl.w * (2 if pl.bf16 else 4)) % 16 == 0 and aligned
            and max(pl.rsr, pl.cs, pl.cr, (pl.hb + pl.k - 1) | 1) <= 256)
-    return (ctypes.c_int * 27)(int(pl.bf16), int(tma), int(pl.x_streams),
-                               *pl[Plan._fields.index("sc"):])
+    return (ctypes.c_int * 28)(int(pl.bf16), int(tma), int(pl.x_streams),
+                               *pl[Plan._fields.index("sc"):], lanes)
 
 
 def _launch(pl: Plan, x: torch.Tensor, dy: torch.Tensor,
-            args: ctypes.Array = None) -> torch.Tensor:
+            args: ctypes.Array = None, lanes: bool = False) -> torch.Tensor:
     """One launch of the kernel (and its sum of the splits) on plan ``pl``
-    and the current stream of x's device, the current one; raises if the
-    launch fails."""
+    and the current stream of x's device, the current one, over the B lanes
+    of x (B, Ci, ...) and dy (B, Co, ...); raises if the launch fails.
+    Returns dW (B, Co, Ci, k, k, k) with ``lanes``, else (Co, Ci, k, k, k)
+    of a one-lane launch."""
+    b = x.shape[0]
     if args is None:
-        args = _args(pl, _aligned(x, dy))
+        args = _args(pl, _aligned(x, dy), b)
     s, r = (x, dy) if pl.x_streams else (dy, x)
-    out = torch.empty((dy.shape[1], x.shape[1], pl.k, pl.k, pl.k), dtype=torch.float32,
+    out = torch.empty((b, dy.shape[1], x.shape[1], pl.k, pl.k, pl.k), dtype=torch.float32,
                       device=x.device)
     # up to _MAX_CLUSTER splits write dW themselves; more a workspace plane each
-    ws = (torch.empty((pl.splits, out.numel()), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((b, pl.splits, out[0].numel()), dtype=torch.float32, device=x.device)
           if pl.splits > _MAX_CLUSTER else None)
     rc = _library().dpi_wgrad3d(
         s.data_ptr(), r.data_ptr(), None if ws is None else ws.data_ptr(), out.data_ptr(),
@@ -442,7 +485,7 @@ def _launch(pl: Plan, x: torch.Tensor, dy: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"wgrad3d kernel launch failed: CUDA error {rc} "
                            f"(x {tuple(x.shape)}, dy {tuple(dy.shape)}, k {pl.k})")
-    return out
+    return out if lanes else out[0]
 
 
 # (shapes, k, dtypes, 16-byte aligned bases) -> (plan, its arguments); no
@@ -475,12 +518,12 @@ def pin_plans(entries: Sequence[Dict[str, Any]]) -> int:
     for e in entries:
         xs, ds, k, xt, dt, al = e["key"]
         pl = Plan.from_json(e["plan"])
-        if pl not in _plans(xs[1], ds[1], *xs[2:], k, xt == "bfloat16"):
+        if pl not in _plans(xs[1], ds[1], *xs[2:], k, xt == "bfloat16", xs[0]):
             warnings.warn(f"wgrad3d: the pinned grid for x {xs}, dy {ds} is not one "
                           f"of this planner's; the shape will be timed again")
             continue
         _tuned[(tuple(xs), tuple(ds), k, _DTYPES[xt], _DTYPES[dt], bool(al))] = \
-            (pl, _args(pl, bool(al)))
+            (pl, _args(pl, bool(al), xs[0]))
         pinned += 1
     return pinned
 
@@ -492,7 +535,7 @@ def _events_ms(pl: Plan, args: ctypes.Array, x: torch.Tensor, dy: torch.Tensor,
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
-        _launch(pl, x, dy, args)
+        _launch(pl, x, dy, args, lanes=True)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
@@ -503,22 +546,24 @@ def _tune(x: torch.Tensor, dy: torch.Tensor, k: int) -> Tuple[Plan, ctypes.Array
     card: each timed over 3 launches after one, the best three again over
     two windows of 10. All candidates compute the same sums; the choice is
     kept, so repeated calls give bit-identical results."""
-    cands = [(pl, _args(pl, _aligned(x, dy)))
+    cands = [(pl, _args(pl, _aligned(x, dy), x.shape[0]))
              for pl in _plans(x.shape[1], dy.shape[1], *x.shape[2:], k,
-                              x.dtype == torch.bfloat16)]
+                              x.dtype == torch.bfloat16, x.shape[0])]
     if len(cands) == 1:
         return cands[0]
     first = []
     for i, (pl, args) in enumerate(cands):
-        _launch(pl, x, dy, args)
+        _launch(pl, x, dy, args, lanes=True)
         first.append((_events_ms(pl, args, x, dy, 3), i))
     finalists = [cands[i] for _, i in sorted(first)[:3]]
     return min(finalists, key=lambda c: min(_events_ms(*c, x, dy, 10) for _ in range(2)))
 
 
-def _validate(x: torch.Tensor, dy: torch.Tensor, k: int) -> None:
-    if x.dim() != 5 or dy.dim() != 5 or x.shape[0] != 1 or dy.shape[0] != 1:
-        raise ValueError(f"wgrad3d takes (1, C, D, H, W) tensors, got "
+def _validate(x: torch.Tensor, dy: torch.Tensor, k: int, lanes: bool = False) -> None:
+    if x.dim() != 5 or dy.dim() != 5 or x.shape[0] != dy.shape[0] or x.shape[0] < 1 \
+            or (not lanes and x.shape[0] != 1):
+        raise ValueError(f"wgrad3d{'_lanes' if lanes else ''} takes "
+                         f"({'B' if lanes else '1'}, C, D, H, W) tensors, got "
                          f"{tuple(x.shape)} and {tuple(dy.shape)}")
     if x.shape[2:] != dy.shape[2:]:
         raise ValueError(f"spatial mismatch: {tuple(x.shape)} vs {tuple(dy.shape)}")
@@ -526,13 +571,9 @@ def _validate(x: torch.Tensor, dy: torch.Tensor, k: int) -> None:
         raise ValueError(f"wgrad3d needs an odd kernel size, got {k}")
 
 
-def wgrad3d(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """dW (Co, Ci, k, k, k) float32 of a same-pad stride-1 k^3 conv. The
-    first call at a shape checks the inputs and picks the grid; later calls
-    at that shape only launch."""
-    if x.device.type == "cpu" and dy.device.type == "cpu":
-        _validate(x, dy, k)
-        return wgrad3d_plain(x, dy, k)
+def _run(x: torch.Tensor, dy: torch.Tensor, k: int, lanes: bool) -> torch.Tensor:
+    """One launch on CUDA tensors: the tuned grid for this shape, picked at
+    the shape's first call (which checks the inputs)."""
     x, dy = x.contiguous(), dy.contiguous()
     if not (x.is_cuda and dy.device == x.device):
         raise ValueError(f"wgrad3d needs both inputs on one CUDA device, got "
@@ -540,7 +581,7 @@ def wgrad3d(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     key = (tuple(x.shape), tuple(dy.shape), k, x.dtype, dy.dtype, _aligned(x, dy))
     tuned = _tuned.get(key)
     if tuned is None:
-        _validate(x, dy, k)
+        _validate(x, dy, k, lanes)
         if x.dtype != dy.dtype or x.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"wgrad3d takes two bfloat16 or two float32 tensors, "
                             f"got {x.dtype} and {dy.dtype}")
@@ -550,11 +591,36 @@ def wgrad3d(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
             tuned = _tuned[key] = _tune(x, dy, k)
     if x.device.index != torch.cuda.current_device():
         with torch.cuda.device(x.device):
-            out = _launch(tuned[0], x, dy, tuned[1])
-    else:
-        out = _launch(tuned[0], x, dy, tuned[1])
+            return _launch(tuned[0], x, dy, tuned[1], lanes)
+    return _launch(tuned[0], x, dy, tuned[1], lanes)
+
+
+def wgrad3d(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dW (Co, Ci, k, k, k) float32 of a same-pad stride-1 k^3 conv. The
+    first call at a shape checks the inputs and picks the grid; later calls
+    at that shape only launch."""
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        _validate(x, dy, k)
+        return wgrad3d_plain(x, dy, k)
+    out = _run(x, dy, k, lanes=False)
     wgrad3d.launches += 1
     return out
 
 
 wgrad3d.launches = 0
+
+
+def wgrad3d_lanes(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dW (B, Co, Ci, k, k, k) float32 of B same-pad stride-1 k^3 convs, x
+    (B, Ci, D, H, W) and dy (B, Co, D, H, W): the plain version on the CPU,
+    one launch of the kernel with the lane as a grid dimension on CUDA
+    tensors."""
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        _validate(x, dy, k, lanes=True)
+        return wgrad3d_lanes_plain(x, dy, k)
+    out = _run(x, dy, k, lanes=True)
+    wgrad3d_lanes.launches += 1
+    return out
+
+
+wgrad3d_lanes.launches = 0

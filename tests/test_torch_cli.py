@@ -130,8 +130,8 @@ def test_netdir_and_start_from_prev_load_the_weights(pocs_run, tmp_path):
 
 
 def test_refusals_and_the_device(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        cli.run(_cfg("b", "--batch_patches", "2"), str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
+        cli.run(_cfg("b", "--spatial_shards", "2"), str(tmp_path), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.run(_cfg("nocuda"), str(tmp_path))

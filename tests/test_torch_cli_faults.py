@@ -111,7 +111,7 @@ def test_spatial_shards_is_the_clis_field(tmp_path):
     sharded = DIPSolver(Config(**kw, spatial_shards=2), device="cpu").solve(img, mask, seed=0)
     np.testing.assert_array_equal(sharded.history.loss, plain.history.loss)
     np.testing.assert_array_equal(sharded.out_best, plain.out_best)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
         cli.run(parse_arguments(FLAGS[:-3] + ["--spatial_shards", "2", "--outdir", "s"]),
                 str(tmp_path), device="cpu")
     assert not os.path.exists(tmp_path / "s")

@@ -1,5 +1,5 @@
-"""What the port refuses: every feature it does not serve yet raises
-NotImplementedError naming its ROADMAP item, and a canvas of the wrong
+"""What the port refuses: every feature it does not serve yet (spatial
+shards, ROADMAP A.13b) raises NotImplementedError naming its ROADMAP item, and a canvas of the wrong
 shape is rejected; the solver options, nets and conv formulations it
 serves (phase space and tapmm among them) build."""
 import numpy as np
@@ -28,10 +28,14 @@ def test_unported_features_raise(kw, tmp_path):
 
 
 def test_cli_and_weights_refusals(tmp_path):
-    """Patch batches without ``start_from_prev`` are refused; a weights file
+    """Spatial shards, with patch batches or without, are refused naming
+    ROADMAP A.13b, and so is a solve given a spatial mesh; a weights file
     that is not msgpack is refused with its offset."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        cli.run(tiny_cfg(batch_patches=2), str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
+        cli.run(tiny_cfg(spatial_shards=2, batch_patches=0), str(tmp_path), device="cpu")
+    img = np.zeros((16, 8, 1), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
+        DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=object())
     bad = tmp_path / "weights.msgpack"
     bad.write_bytes(b"\xc1")  # the one byte msgpack never uses
     with pytest.raises(ValueError, match="offset 0"):

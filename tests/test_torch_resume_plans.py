@@ -47,10 +47,12 @@ def test_pinned_grids_are_kept_and_listed(tuned):
     assert WG.pin_plans(json.loads(json.dumps(entries))) == len(entries)
     assert len(tuned) == len(entries)
     assert WG.tuned_plans() == entries
-    # the kernel's arguments: TMA only for aligned bases
+    # the kernel's arguments: TMA only for aligned bases, then the plan and
+    # the lanes (one)
     pl, args = tuned[((1, 67, 256, 128, 128), (1, 4, 256, 128, 128), 3, torch.bfloat16,
                       torch.bfloat16, False)]
-    assert args[1] == 0 and list(args)[3:] == list(pl)[WG.Plan._fields.index("sc"):]
+    assert args[1] == 0 and list(args)[3:-1] == list(pl)[WG.Plan._fields.index("sc"):]
+    assert args[-1] == 1
 
 
 def test_a_grid_this_planner_does_not_list_is_not_pinned(tuned):
