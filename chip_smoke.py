@@ -25,10 +25,17 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    together exceed L2; the eager times are printed beside them. The sum of launches x ms over
    the 32 wgrad launches of an iteration is printed as wgrad ms/iteration.
    The linear upsample's backward (``upsample_bwd``, a gather) at the
-   flagship's four upsample shapes in bf16 and float32 (bf16: within one
-   bf16 rounding of the float32 sum; float32: 1e-6 of max |g|), repeated
-   calls bit-identical, its time beside its bound and the atomic backward of
-   ``F.interpolate`` (``upsample_trilinear3d_backward``).
+   flagship's four upsample shapes in bf16 and float32: bit-equal to the
+   plain version (and so within one bf16 rounding of the float32 sum;
+   float32: 1e-6 of max |g|), repeated calls bit-identical, each shape on
+   the TMA kernel, its time beside its bound, the direct kernel's (the
+   earlier kernel, which the planner keeps for gradients TMA cannot read) and the
+   atomic backward of ``F.interpolate`` (``upsample_trilinear3d_backward``);
+   the same in 2D at the lines net's bilinear shapes with 32 and 64 lanes
+   folded (bit-equal, the kernel each takes, the atomic
+   ``upsample_bilinear2d_backward``); and ``F.interpolate``'s trilinear
+   forward alone at the four 3D shapes beside its bound (no kernel of the
+   port's: a measurement).
 3. small: a tiny 3D solve with both kernels on the card against the same
    solve on the CPU (plain versions), same canvas and weights.
 4. main path: ``DIPSolver(cfg).solve(img, mask, seed=0)`` on the flagship
@@ -36,7 +43,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    bf16, ``fused_loss`` and ``DPI_PALLAS_WGRAD=1``, 9 iterations in chunks
    of 3. The launch counters are set to 0 just before and read just after;
    every kernel must have launched (fused loss forward and backward 9 times
-   each, wgrad 9 x 32, upsample_bwd 9 x 4), and
+   each, wgrad 9 x 32, upsample_bwd 9 x 4, all 36 on its TMA kernel), and
    hooks on the conv's weight gradient and the upsample's backward check that
    their shapes are the 24 and the 4 of phase 2, each as often as listed there.
    A 3-step solve with the kernels off must give the same iteration-0 loss.
@@ -147,10 +154,14 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       bound; the lane wgrad at every shape 8a saw (1e-4 of max |dW| + 1e-4)
       beside its bound, the plain version and ``conv3d_weight`` with
       ``groups=8``, and the sum of launches x ms of an 8a iteration; the
-      lane-folded upsample backward, one launch bit-equal to per-lane calls;
+      lane-folded upsample backward on the TMA kernel, one launch bit-equal to
+      per-lane calls and to the plain version, beside the atomic backward;
    d. ``overlap_add_sharded`` and the repaired ``overlap_add`` on the card
       at 8a's tiling (8a's outputs) and an overlapping one: two calls
       bit-equal, within 1e-6 of a float64 numpy overlap-add.
+
+9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest;
+   every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line, the ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``,
@@ -427,7 +438,7 @@ def check_upsample(dev):
     from deep_prior_interpolation_tpu_torch.ops import upsample as U
 
     g = torch.Generator(device=dev).manual_seed(7)
-    rows, max_abs, per_iter, lib_iter = [], 0.0, 0.0, 0.0
+    rows, max_abs, per_iter, lib_iter, direct_iter = [], 0.0, 0.0, 0.0, 0.0
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
         for c, sp in UPSAMPLE_SHAPES:
@@ -449,18 +460,30 @@ def check_upsample(dev):
             equal = torch.equal(got, ref)
             same = all(torch.equal(U.upsample_bwd(go, 3), got) for _ in range(3))
             max_abs = max(max_abs, float((got.float() - ref.float()).abs().max()))
-            log(f"upsample_bwd {c} x {sp} {name}: max abs err to the float32 sum "
-                f"{float(err32.max()):.3e} (tol {tol}), bit-equal to the plain version "
-                f"{equal}, 3 repeated calls bit-identical {same}")
-            if not ok:
-                fail(f"upsample_bwd {c} x {sp} {name} disagrees with the plain version")
+            plan = U.plan(c, *sp, True, go.element_size(), go.data_ptr() % 16 == 0)
+            log(f"upsample_bwd {c} x {sp} {name} ({plan.kernel} kernel): max abs err to the "
+                f"float32 sum {float(err32.max()):.3e} (tol {tol}), bit-equal to the plain "
+                f"version {equal}, 3 repeated calls bit-identical {same}")
+            if not ok or not equal:
+                fail(f"upsample_bwd {c} x {sp} {name} is not bit-equal to the plain version")
             if not same:
                 fail(f"upsample_bwd {c} x {sp} {name} differs from call to call")
+            if plan.kernel != "tma":
+                fail(f"upsample_bwd {c} x {sp} {name} takes the {plan.kernel} kernel, not tma")
             del got, ref, ref32, err32
-            row = {"channels": c, "spatial": list(sp), "dtype": name,
+            row = {"channels": c, "spatial": list(sp), "dtype": name, "kernel": plan.kernel,
+                   "plan": plan._asdict(),
                    "launches_per_iteration": 1 if dt == torch.bfloat16 else 0,
                    "bit_equal_to_plain": equal}
             row["ms"] = time_ms(lambda: U.upsample_bwd(go, 3))
+            # the direct kernel (the earlier design, kept) at the same shape
+            gin = torch.empty((1, c) + sp, dtype=dt, device=dev)
+            direct = U.direct_plan(c, *sp, True)
+            U._launch(go, gin, direct)
+            if not torch.equal(gin, U.upsample_bwd_plain(go, 3)):
+                fail(f"the direct kernel at {c} x {sp} {name} is not bit-equal to the plain one")
+            row["direct_ms"] = time_ms(lambda: U._launch(go, gin, direct))
+            del gin
             row["plain_ms"] = time_ms(lambda: U.upsample_bwd_plain(go, 3))
             sizes = [1, c, *sp]
             row["library_ms"] = time_ms(lambda: torch.ops.aten.upsample_trilinear3d_backward(
@@ -470,27 +493,100 @@ def check_upsample(dev):
             # output of each of the three passes (4 + 2 + 1 per input)
             row["bound_ms"], row["bound_by"] = bound_ms(9 * n_in * go.element_size(),
                                                         49.0 * n_in, torch.float32)
-            log(f"  ms {row['ms']:.4f} plain {row['plain_ms']:.4f} atomic F.interpolate "
-                f"backward {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
-                f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.0%} of the bound's speed")
+            log(f"  ms {row['ms']:.4f} ({plan.kernel}) direct kernel {row['direct_ms']:.4f} "
+                f"plain {row['plain_ms']:.4f} atomic F.interpolate backward "
+                f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} ({row['bound_by']}), "
+                f"{row['bound_ms'] / row['ms']:.0%} of the bound's speed")
             per_iter += row["launches_per_iteration"] * row["ms"]
             lib_iter += row["launches_per_iteration"] * row["library_ms"]
+            direct_iter += row["launches_per_iteration"] * row["direct_ms"]
             rows.append(row)
             del go
     log(f"upsample_bwd ms/iteration over the {len(UPSAMPLE_SHAPES)} bf16 launches: "
-        f"{per_iter:.4f} (atomic F.interpolate backward {lib_iter:.4f})")
+        f"{per_iter:.4f} (the direct kernel {direct_iter:.4f}, atomic F.interpolate backward "
+        f"{lib_iter:.4f})")
     entry = {"name": "upsample_bwd", "route": "cuda",
              "source": "deep_prior_interpolation_tpu_torch/csrc/upsample.cu",
              "replaces": "deep_prior_interpolation_tpu/models/blocks.py:255",
              "max_abs_err": max_abs, "ms_per_iteration": per_iter,
-             "library_ms_per_iteration": lib_iter,
-             "tolerance": "bf16 one rounding of the float32 sum; float32 1e-6 of max |g|",
+             "direct_ms_per_iteration": direct_iter, "library_ms_per_iteration": lib_iter,
+             "tolerance": "bit-equal to the plain version (bf16: one rounding of the float32 "
+                          "sum; float32 1e-6 of max |g| also checked)",
              "shapes": rows}
     head = rows[len(UPSAMPLE_SHAPES) - 1]  # the largest, 51 x (128, 64, 64) bf16
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
         entry[key] = head[key]
     entry["shape"] = [head["channels"]] + head["spatial"]
     return entry
+
+
+# the lines net's (the 2D MulResUnet on the (170, 100) lines gather) four
+# bilinear upsamples, (C, input H x W), with ``--upsample bilinear``: 8b
+# itself runs nearest upsampling, so these are the shapes its lane batches
+# would give the kernel
+LINES_UPSAMPLE_SHAPES = [(426, (11, 7)), (212, (22, 14)), (105, (44, 28)), (51, (88, 56))]
+
+
+def check_upsample_2d(dev) -> list:
+    """The 2D upsample backward at the lines net's bilinear shapes with B
+    lanes folded into the planes (B = 32, 64), bf16: bit-equal to the plain
+    version, timed beside its bound (5 x the input's bytes) and the atomic
+    ``upsample_bilinear2d_backward``, with the kernel each shape takes."""
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for b in (32, 64):
+        per_iter = lib_iter = 0.0
+        for c, hw in LINES_UPSAMPLE_SHAPES:
+            out_hw = [2 * s for s in hw]
+            go = torch.randn((1, b * c, *out_hw), generator=g, device=dev).to(torch.bfloat16)
+            got = U.upsample_bwd(go, 2)
+            equal = torch.equal(got, U.upsample_bwd_plain(go, 2))
+            kernel = U.plan(b * c, 1, *hw, False, 2, go.data_ptr() % 16 == 0).kernel
+            if not equal:
+                fail(f"upsample_bwd 2D {b} x {c} x {hw} is not bit-equal to the plain version")
+            ms = time_ms(lambda: U.upsample_bwd(go, 2))
+            lib = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                go, out_hw, [1, b * c, *hw], False, 2.0, 2.0))
+            n_in = b * c * math.prod(hw)
+            # 7 flops an output of each pass: 2 x 7 (W) + 7 (H) an input
+            b_ms, b_by = bound_ms(5 * n_in * 2, 21.0 * n_in, torch.float32)
+            log(f"upsample_bwd 2D lines B = {b}: {b * c} planes x {hw} bf16 ({kernel} kernel), "
+                f"bit-equal {equal}; ms {ms:.4f} atomic F.interpolate backward {lib:.4f} "
+                f"bound {b_ms:.4f} ({b_by}), {b_ms / ms:.0%} of the bound's speed")
+            per_iter += ms
+            lib_iter += lib
+            rows.append({"lanes": b, "planes": b * c, "spatial": list(hw), "kernel": kernel,
+                         "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                         "bit_equal_to_plain": equal})
+        log(f"upsample_bwd 2D lines B = {b}: {per_iter:.4f} ms a step over the four "
+            f"(atomic {lib_iter:.4f})")
+    return rows
+
+
+def time_upsample_forward(dev) -> list:
+    """``F.interpolate``'s trilinear forward (the upsample's forward, no
+    kernel of the port's) alone at the main path's four shapes, bf16, beside
+    its bound: the input read once, 8 x its bytes written."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    rows, per_iter = [], 0.0
+    for c, sp in UPSAMPLE_SHAPES:
+        x = torch.randn((1, c, *sp), generator=g, device=dev).to(torch.bfloat16)
+        ms = time_ms(lambda: F.interpolate(x, scale_factor=2, mode="trilinear",
+                                           align_corners=False))
+        n_in = c * math.prod(sp)
+        # 8 outputs of 3 lerps (3 flops each) an input
+        b_ms, b_by = bound_ms(9 * n_in * 2, 72.0 * n_in, torch.float32)
+        log(f"F.interpolate trilinear forward {c} x {sp} bf16: ms {ms:.4f} bound {b_ms:.4f} "
+            f"({b_by}), {b_ms / ms:.0%} of the bound's speed")
+        per_iter += ms
+        rows.append({"channels": c, "spatial": list(sp), "ms": ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "launches_per_iteration": 1})
+    log(f"F.interpolate trilinear forward ms/iteration over the four: {per_iter:.4f}")
+    return rows
 
 
 def _valid_products(sp, k: int) -> int:
@@ -615,6 +711,15 @@ def reset_counts() -> None:
     FL.loss_sums_grad.launches = 0
     WG.wgrad3d.launches = 0
     U.upsample_bwd.launches = 0
+    U.upsample_bwd.tma_launches = 0
+    U.upsample_bwd.direct_launches = 0
+
+
+def read_upsample_kernels() -> dict:
+    """The launches of each of ``upsample_bwd``'s two kernels since the
+    counters were last set to 0 (``upsample_bwd.launches`` is their sum)."""
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+    return {"tma": U.upsample_bwd.tma_launches, "direct": U.upsample_bwd.direct_launches}
 
 
 def read_counts() -> dict:
@@ -714,6 +819,7 @@ def main_path(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     res, counts, seen, seen_up = traced_solve(solver, img, mask)
+    kinds = read_upsample_kernels()
     want = {(ci, co, sp): 9 * n for ci, co, sp, n in WGRAD_SHAPES}
     if dict(seen) != want:
         fail(f"the main path's wgrad shapes are {dict(seen)}, not {want}")
@@ -735,6 +841,9 @@ def main_path(dev) -> dict:
     if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 32,
                   "upsample_bwd": 9 * 4}:
         fail(f"the main path's launch counts are {counts}")
+    log(f"main path: upsample_bwd launches by kernel {kinds} (expected tma {9 * 4}, direct 0)")
+    if kinds != {"tma": 9 * 4, "direct": 0}:
+        fail(f"the main path's upsample launches by kernel are {kinds}")
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
     log(f"main path: chunk seconds {res.chunk_seconds}")
     log(f"main path: steady s/iteration {steady:.4f} (median of chunks 2..), "
@@ -752,7 +861,8 @@ def main_path(dev) -> dict:
         f"rel err {rel:.3e} (tol 1e-5)")
     if not rel <= 1e-5:
         fail("iteration-0 loss differs with the kernels off")
-    return {"counts": counts, "s_per_iter": steady, "peak_bytes": peak, "loss0": l_on}
+    return {"counts": counts, "s_per_iter": steady, "peak_bytes": peak, "loss0": l_on,
+            "upsample_kernels": kinds}
 
 
 # ----------------------------------------------------------------------
@@ -1579,12 +1689,15 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
     with batches() as rec:
         out = cli.run(flags("batched", BATCH_LANES), results_root=root)
     counts = read_lane_counts()
+    kinds = read_upsample_kernels()
     peak = torch.cuda.max_memory_allocated()
     want = {"fused_loss_lanes": 6, "fused_loss_grad_lanes": 6, "wgrad3d_lanes": 6 * 32,
             "upsample_bwd": 6 * 4, "one_lane": 0}
-    log(f"8a batch: launches {counts} (expected {want})")
+    log(f"8a batch: launches {counts} (expected {want}); upsample_bwd by kernel {kinds}")
     if counts != want:
         fail(f"8a: the batch's launch counts are {counts}")
+    if kinds != {"tma": 6 * 4, "direct": 0}:
+        fail(f"8a: the batch's upsample launches by kernel are {kinds}")
     want_wg = {(ci, co, sp): 6 * n for ci, co, sp, n in BATCH_WGRAD_SHAPES}
     if dict(rec.wgrad) != want_wg:
         fail(f"8a: the batch's lane wgrad shapes are {dict(rec.wgrad)}, not {want_wg}")
@@ -1634,8 +1747,9 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
     log(f"8a: peak memory batch {peak / 2**30:.2f} GiB, sequential {seq_peak / 2**30:.2f} GiB, "
         f"phase 4 {main['peak_bytes'] / 2**30:.2f} GiB")
     outputs = np.stack([b["output"][..., 0] for b in batched])
-    return {"launches": counts, "s_per_iter": steady, "s_per_iter_per_patch":
-            steady / BATCH_LANES, "sequential_s_per_iter_per_patch": statistics.median(seq_steady),
+    return {"launches": counts, "upsample_kernels": kinds, "s_per_iter": steady,
+            "s_per_iter_per_patch": steady / BATCH_LANES,
+            "sequential_s_per_iter_per_patch": statistics.median(seq_steady),
             "peak_memory_bytes": peak, "sequential_peak_memory_bytes": seq_peak,
             "rel_err_it0": rels, "wgrad_shapes": sorted(rec.wgrad), "outputs": outputs}
 
@@ -1811,14 +1925,26 @@ def lane_kernels(dev, survey: dict) -> dict:
         per_lane = torch.stack([U.upsample_bwd(gy[i], 3) for i in range(BATCH_LANES)])
         same = torch.equal(dx, per_lane) and launched == 1
         folded = gy.reshape((-1,) + tuple(gy.shape[2:]))
+        plain = torch.equal(dx.reshape(folded.shape[:2] + dx.shape[3:]),
+                            U.upsample_bwd_plain(folded, 3))
+        kernel = U.plan(c, *sp, True, 2, folded.data_ptr() % 16 == 0).kernel
         ms = time_ms(lambda: U.upsample_bwd(folded, 3))
+        lib = time_ms(lambda: torch.ops.aten.upsample_trilinear3d_backward(
+            folded, list(folded.shape[2:]), [*folded.shape[:2], *sp], False, 2.0, 2.0, 2.0))
         b_ms, b_by = bound_ms(9 * folded.numel() // 8 * 2, 8.0 * folded.numel(), torch.float32)
-        log(f"8c upsample_bwd lane-folded {c} planes x {sp} bf16: one launch, bit-equal to "
-            f"per-lane calls {same}; ms {ms:.4f} bound {b_ms:.4f} ({b_by})")
-        if not same:
-            fail(f"8c: the lane-folded upsample backward at {c} x {sp} is not the per-lane one")
-        up_rows.append({"planes": c, "spatial": list(sp), "ms": ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "bit_equal_to_lanes": same})
+        log(f"8c upsample_bwd lane-folded {c} planes x {sp} bf16 ({kernel} kernel): one launch, "
+            f"bit-equal to per-lane calls {same} and to the plain version {plain}; ms {ms:.4f} "
+            f"atomic F.interpolate backward {lib:.4f} bound {b_ms:.4f} ({b_by}), "
+            f"{b_ms / ms:.0%} of the bound's speed")
+        if not (same and plain):
+            fail(f"8c: the lane-folded upsample backward at {c} x {sp} is not the per-lane one "
+                 f"or not the plain one")
+        if kernel != "tma":
+            fail(f"8c: the lane-folded upsample backward at {c} x {sp} takes the {kernel} kernel")
+        up_rows.append({"planes": c, "spatial": list(sp), "kernel": kernel, "ms": ms,
+                        "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                        "launches_per_iteration": 1, "bit_equal_to_lanes": same,
+                        "bit_equal_to_plain": plain})
     return {"fused": fused, "wgrad": rows, "wgrad_ms_per_iteration": per_iter,
             "wgrad_library_ms_per_iteration": lib_iter, "upsample": up_rows}
 
@@ -1943,6 +2069,29 @@ def profile_flagship(dev, out_dir: str, **kw) -> None:
         log(f"profile:   {fam:34s} {ms / per:9.3f} ms  {ms / total:6.1%}")
 
 
+# the CUDA-only tests (each skips without a card), run by the smoke test on it
+CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
+              "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
+              "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py"]
+
+
+def run_cuda_tests() -> str:
+    """The CUDA-only tests in a child pytest (``--noconftest``: the tests'
+    conftest imports JAX, which the card's machine may lack); fails the run
+    unless every test passes. Returns pytest's summary line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                          "-p", "no:cacheprovider", *CUDA_TESTS], cwd=here,
+                         capture_output=True, text=True, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    log(f"CUDA tests: {summary}")
+    if out.returncode != 0 or "skipped" in summary:
+        log("\n".join(lines[-60:]))
+        fail(f"the CUDA tests did not all pass: {summary}")
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1981,6 +2130,8 @@ def main() -> None:
     fused, fused_grad = phase("2_fused_loss", check_fused_loss, dev)
     wgrad = phase("2_wgrad", check_wgrad, dev)
     upsample = phase("2_upsample", check_upsample, dev)
+    upsample["lines_2d"] = phase("2_upsample_2d", check_upsample_2d, dev)
+    upsample["forward"] = phase("2_upsample_forward", time_upsample_forward, dev)
     small = phase("3_small_solve", check_small_solve, dev)
     main = phase("4_main_path", main_path, dev)
     if "--profile" in sys.argv[1:]:
@@ -2017,11 +2168,13 @@ def main() -> None:
         log(f"phase 8: {seconds['8_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    cuda_tests = phase("9_cuda_tests", run_cuda_tests)
     log(f"phase seconds: {json.dumps(seconds)}")
     fused["launches"] = main["counts"]["fused_loss"]
     fused_grad["launches"] = main["counts"]["fused_loss_grad"]
     wgrad["launches"] = main["counts"]["wgrad3d"]
     upsample["launches"] = main["counts"]["upsample_bwd"]
+    upsample["launches_by_kernel"] = main["upsample_kernels"]
     log(json.dumps({"main_path": {"s_per_iter": main["s_per_iter"],
                                   "peak_memory_bytes": main["peak_bytes"]}}))
     log(json.dumps({"cli": {"survey_3d": survey, "lines_2d": lines,
@@ -2033,9 +2186,11 @@ def main() -> None:
     phase8 = {"8a_batch": {k: v for k, v in survey8.items() if k != "outputs"},
               "8b_lines": lines8, "8d_assembly": assembly8,
               "seconds": {k: v for k, v in seconds.items() if k.startswith("8")}}
+    phase8["cuda_tests"] = cuda_tests
     log(json.dumps({"phase8": phase8}))
     upsample["phase_launches"] = phase7["7a_flagship"]["launches"]["upsample_bwd"]
     upsample["lanes_launches"] = survey8["launches"]["upsample_bwd"]
+    upsample["lanes_launches_by_kernel"] = survey8["upsample_kernels"]
     upsample["lanes_shapes"] = kernels8["upsample"]
     fused["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss"]
     fused_grad["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss_grad"]

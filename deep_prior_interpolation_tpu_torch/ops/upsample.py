@@ -18,14 +18,18 @@ dtype. ``csrc/upsample.cu`` holds the kernel, its design and what bounds it
 on an H100 (bytes); ``ops/_build.py`` compiles it at first use.
 
 ``upsample_bwd`` takes the plain version for tensors on the CPU and launches
-the kernel for CUDA tensors (any other device raises); ``upsample_bwd.launches``
-counts the launches.
+one of two kernels for CUDA tensors (any other device raises), chosen up
+front by ``plan``: ``tma`` (a ring of TMA boxes over D planes) wherever TMA
+can read the gradient (rows of 2W elements a multiple of 16 bytes, a
+16-byte aligned base), ``direct`` (plain loads) for every other gradient.
+``upsample_bwd.launches`` counts the launches, ``upsample_bwd.tma_launches``
+and ``upsample_bwd.direct_launches`` each kernel's.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,22 @@ __all__ = ["linear_upsample2x", "upsample_bwd", "upsample_bwd_plain"]
 _MODES = {2: "bilinear", 3: "trilinear"}
 _SMS = 132   # H100 SXM
 _THREADS = 256
+# an H100 SM's limits: shared memory of the SM, of one block; registers
+_SMEM_SM, _SMEM_BLOCK, _REGS_SM = 233472, 232448, 65536
+_BAR_BYTES, _MAX_STAGES = 128, 8   # csrc/upsample.cu: kBarBytes, kMaxStages
+
+# upsample_bwd_tma's tile configurations, as csrc/upsample.cu instantiates
+# them (index = its `cfg`), one for each tile width: TW input columns and TH
+# rows of a tile, K rows a thread (of 4 columns), P planes a block; picked
+# from 10 tile shapes x 4 ring depths timed on an H100 at the main and the
+# lane paths' shapes (PERF.md)
+TMA_CONFIGS = ((64, 16, 4, 1), (32, 16, 4, 2), (16, 16, 4, 4), (8, 8, 4, 16))
+# registers a thread (ptxas, sm_90a), 3D and 2D, for the blocks an SM holds
+_TMA_REGS = {True: 120, False: 68}
+# the ring's depth, and the shortest D range a block walks (its D halo adds
+# 1/span to the reads)
+_STAGES = 3
+_MIN_SPAN = 4
 
 
 def _axis_bwd(g: torch.Tensor, axis: int) -> torch.Tensor:
@@ -73,21 +93,108 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("upsample")
     # without argtypes ctypes would pass each pointer as a 32-bit int
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dpi_upsample_bwd.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, p]
-    lib.dpi_upsample_bwd.restype = i
+    lib.dpi_upsample_bwd_direct.argtypes = [p, p, ll, i, i, i, i, i, i, i, i, p]
+    lib.dpi_upsample_bwd_direct.restype = i
+    lib.dpi_upsample_bwd_tma.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.dpi_upsample_bwd_tma.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def launch_grid(planes: int, d: int, h: int, w: int) -> Tuple[int, int, int]:
-    """(th, tw, span): a block of tw x th threads over a tile of the input
-    (tw 8, 16 or 32 columns, at most 256 threads) and ``span`` D planes a
-    block walks, as many as leave about 16 blocks an SM."""
+    """(th, tw, span) of the direct kernel: a block of tw x th threads over a
+    tile of the input (tw 8, 16 or 32 columns, at most 256 threads) and
+    ``span`` D planes a block walks, as many as leave about 16 blocks an SM."""
     tw = 32 if w > 16 else 16 if w > 8 else 8
     th = min(_THREADS // tw, 1 << max(0, (h - 1).bit_length()))
     tiles = planes * -(-h // th) * -(-w // tw)
     ranges = max(1, min(d, -(-16 * _SMS // tiles)))
     return th, tw, -(-d // ranges)
+
+
+class Plan(NamedTuple):
+    """One launch of ``upsample_bwd``: which kernel and how it is cut."""
+    kernel: str           # "tma" or "direct"
+    cfg: int              # index of TMA_CONFIGS (-1: direct)
+    th: int               # input rows and columns of a block's tile
+    tw: int
+    stages: int           # boxes in the ring (0: direct)
+    span: int             # D planes (3D; 2D tma: plane groups) a block walks
+    threads: int          # a block's
+    smem: int             # dynamic shared memory bytes of a block
+    blocks: int
+    box: Tuple[int, ...]  # the TMA box, innermost first (direct: ())
+
+
+def tma_readable(w: int, elem_size: int, ptr: int = 0) -> bool:
+    """Whether TMA can read a gradient of input width ``w``: rows of 2 w
+    elements a multiple of 16 bytes and a 16-byte aligned base."""
+    return (2 * w * elem_size) % 16 == 0 and ptr % 16 == 0
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _best_span(work: int, units: int, slots: int, halo: int) -> int:
+    """The span (units a block walks) whose grid of ``work`` x ranges blocks
+    finishes first when ``slots`` blocks run at once and a block takes
+    span + ``halo`` steps: the fewest waves x steps, the longest span on a
+    tie, no span under ``_MIN_SPAN`` (or ``units``)."""
+    best = None
+    for ranges in range(1, units + 1):
+        span = _ceil(units, ranges)
+        if span < min(units, _MIN_SPAN):
+            break
+        cost = _ceil(work * _ceil(units, span), slots) * (span + halo)
+        if best is None or cost < best[0]:
+            best = (cost, span)
+    return best[1]
+
+
+def tma_plan(planes: int, d: int, h: int, w: int, has_d: bool, elem_size: int, cfg: int,
+             stages: Optional[int] = None) -> Plan:
+    """The ``tma`` launch in configuration ``cfg``: a ring of ``stages``
+    boxes (as deep as ``_STAGES`` and shared memory allow, if not given) and
+    the span whose grid finishes first."""
+    tw, th, k, p = TMA_CONFIGS[cfg]
+    threads = p * (th // k) * (tw // 4)
+    ndp = 2 if has_d else 1
+    # a box row starts 16 bytes left of the tile: 2 tw + 32 bytes of columns
+    cols, rows = 2 * tw + 32 // elem_size, 2 * th + 2
+    pitch = _ceil(p * ndp * rows * cols * elem_size, 128) * 128
+    tiles = _ceil(h, th) * _ceil(w, tw)
+    groups, units = (_ceil(planes, p), d) if has_d else (1, _ceil(planes, p))
+    ring = stages or max(1, min(_STAGES, (_SMEM_BLOCK - _BAR_BYTES) // pitch))
+    per_sm = max(1, min(32, 2048 // threads, _REGS_SM // (threads * _TMA_REGS[has_d]),
+                        _SMEM_SM // (_BAR_BYTES + ring * pitch + 1024)))
+    span = _best_span(tiles * groups, units, per_sm * _SMS, ndp - 1)
+    loads = min(span, units) + ndp - 1
+    ring = stages or min(ring, loads)
+    box = (cols, rows, 2, p) if has_d else (cols, rows, p)
+    return Plan("tma", cfg, th, tw, ring, span, threads, _BAR_BYTES + ring * pitch,
+                tiles * groups * _ceil(units, span), box)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(planes: int, d: int, h: int, w: int, has_d: bool, elem_size: int,
+         aligned: bool = True) -> Plan:
+    """The launch of ``upsample_bwd`` for ``planes`` input planes of (d, h, w)
+    (d = 1 in 2D) of ``elem_size``-byte elements: ``tma`` wherever TMA can
+    read the gradient (``tma_readable``; ``aligned``: its base is 16-byte
+    aligned), else ``direct``. Decided from these alone, before the launch."""
+    if aligned and tma_readable(w, elem_size):
+        cfg = 0 if w > 32 else 1 if w > 16 else 2 if w > 8 else 3   # by tile width
+        return tma_plan(planes, d, h, w, has_d, elem_size, cfg)
+    return direct_plan(planes, d, h, w, has_d)
+
+
+def direct_plan(planes: int, d: int, h: int, w: int, has_d: bool) -> Plan:
+    """The ``direct`` launch: ``launch_grid``'s tile and span."""
+    th, tw, span = launch_grid(planes, d, h, w)
+    smem = 4 * 2 * (2 * th + 2) * ((2 * tw + 2) + tw)
+    blocks = planes * _ceil(h, th) * _ceil(w, tw) * (_ceil(d, span) if has_d else 1)
+    return Plan("direct", -1, th, tw, 0, span, th * tw, smem, blocks, ())
 
 
 def _validate(grad_out: torch.Tensor, ndim: int) -> None:
@@ -101,8 +208,9 @@ def _validate(grad_out: torch.Tensor, ndim: int) -> None:
 
 def upsample_bwd(grad_out: torch.Tensor, ndim: int) -> torch.Tensor:
     """The gradient (N, C, *spatial / 2) of the x2 linear upsample, in
-    grad_out's dtype. Plain version on the CPU; one launch of the CUDA kernel
-    on CUDA tensors (bfloat16 or float32; any other device raises)."""
+    grad_out's dtype. Plain version on the CPU; on CUDA tensors (bfloat16 or
+    float32; any other device raises) one launch of the kernel ``plan``
+    names."""
     _validate(grad_out, ndim)
     if grad_out.device.type == "cpu":
         return upsample_bwd_plain(grad_out, ndim)
@@ -116,19 +224,36 @@ def upsample_bwd(grad_out: torch.Tensor, ndim: int) -> torch.Tensor:
     d, h, w = ([1] + sp) if ndim == 2 else sp
     gin = torch.empty((n, c, *sp), dtype=g.dtype, device=g.device)
     if gin.numel():
-        th, tw, span = launch_grid(n * c, d, h, w)
-        dev = g.device.index
-        rc = _library().dpi_upsample_bwd(
-            g.data_ptr(), gin.data_ptr(), n * c, d, h, w, int(ndim == 3),
-            int(g.dtype == torch.bfloat16), th, tw, span, torch._C._cuda_getCurrentRawStream(dev))
-        if rc != 0:
-            raise RuntimeError(f"upsample_bwd kernel launch failed: CUDA error {rc} "
-                               f"(grad_out {tuple(g.shape)})")
-        upsample_bwd.launches += 1
+        p = plan(n * c, d, h, w, ndim == 3, g.element_size(), g.data_ptr() % 16 == 0)
+        _launch(g, gin, p)
     return gin
 
 
+def _launch(g: torch.Tensor, gin: torch.Tensor, p: Plan) -> None:
+    """One launch of ``p``'s kernel from the contiguous gradient ``g`` into
+    ``gin``, counted on ``upsample_bwd``; raises if it is refused."""
+    planes = gin.shape[0] * gin.shape[1]
+    d, h, w = ([1] + list(gin.shape[2:])) if gin.dim() == 4 else gin.shape[2:]
+    args = (g.data_ptr(), gin.data_ptr(), planes, d, h, w, int(gin.dim() == 5),
+            int(g.dtype == torch.bfloat16))
+    stream = torch._C._cuda_getCurrentRawStream(g.device.index)
+    if p.kernel == "tma":
+        rc = _library().dpi_upsample_bwd_tma(*args, p.cfg, p.stages, p.span, stream)
+    else:
+        rc = _library().dpi_upsample_bwd_direct(*args, p.th, p.tw, p.span, stream)
+    if rc != 0:
+        raise RuntimeError(f"upsample_bwd {p.kernel} kernel launch failed: CUDA error {rc} "
+                           f"(grad_out {tuple(g.shape)}, {p})")
+    upsample_bwd.launches += 1
+    if p.kernel == "tma":
+        upsample_bwd.tma_launches += 1
+    else:
+        upsample_bwd.direct_launches += 1
+
+
 upsample_bwd.launches = 0
+upsample_bwd.tma_launches = 0
+upsample_bwd.direct_launches = 0
 
 
 class _LinearUpsample2x(torch.autograd.Function):
