@@ -160,13 +160,33 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       at 8a's tiling (8a's outputs) and an overlapping one: two calls
       bit-equal, within 1e-6 of a float64 numpy overlap-add.
 
-9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest;
-   every one must pass.
+10. spatial shards (``parallel/spatial.py``), the launch counters set to
+    0 just before each run and read just after:
+    a. phase 4's flagship split along H over [cuda:0] x 2 and x 4, 9
+       iterations through ``DIPSolver.solve(spatial_mesh=...)``: launches
+       32 N / N / N / 4 N an iteration (wgrad through the padded-dy route,
+       fused loss forward and backward, upsample_bwd, each shape's kernel
+       printed), the first 3 losses beside phase 4's (iteration 0 to rel
+       1e-3, bf16), s/iteration and peak memory beside phase 4's;
+    b. phase 3's small float32 solve over 4 shards of the card against the
+       unsharded card solve (first 3 losses, rel 1e-4), two sharded solves
+       and a sharded resume from a 3-iteration checkpoint bit-equal;
+    c. each kernel at 10a's shard shapes against its plain version: wgrad
+       on (x with its halo, padded dy) timed beside its bound, the plain
+       version and ``conv3d_weight`` of the shard conv, the shards' dW
+       summed in order against the unsharded dW; the fused loss on each
+       shard's output; ``upsample_bwd`` at every shard shape, bit-equal;
+    d. where there are two cards, 10a's 2-shard solve over cuda:0 and
+       cuda:1 with each card's peak; else a line saying it was skipped.
+
+9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
+   after phase 10; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
-next-to-last line, the ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``,
-``{"cli": ...}`` and ``{"main_path": ...}`` lines before it, the last line
-``{"ok": true, "device": {...}}``.
+next-to-last line (each kernel with its phase-10 launches by shard count),
+the ``{"phase10": ...}``, ``{"phase8": ...}``, ``{"phase7": ...}``,
+``{"phase6": ...}``, ``{"cli": ...}`` and ``{"main_path": ...}`` lines before
+it, the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -779,8 +799,8 @@ def check_small_solve(dev) -> np.ndarray:
     return a
 
 
-def traced_solve(solver, img, mask):
-    """``solver.solve(img, mask, seed=0)`` with the launch counters set to 0
+def traced_solve(solver, img, mask, **kw):
+    """``solver.solve(img, mask, seed=0, **kw)`` with the launch counters set to 0
     just before and read just after, and hooks on the conv's weight gradient
     and the upsample's backward that record the shapes they are asked for
     (at their callers: a wrapper counts its launches on its own name).
@@ -802,7 +822,7 @@ def traced_solve(solver, img, mask):
     conv_vjp.wgrad3d, U._LinearUpsample2x.backward = hook, staticmethod(hook_up)
     reset_counts()
     try:
-        res = solver.solve(img, mask, seed=0)
+        res = solver.solve(img, mask, seed=0, **kw)
     finally:
         conv_vjp.wgrad3d, U._LinearUpsample2x.backward = real, staticmethod(real_up)
     return res, read_counts(), seen, seen_up
@@ -862,7 +882,7 @@ def main_path(dev) -> dict:
     if not rel <= 1e-5:
         fail("iteration-0 loss differs with the kernels off")
     return {"counts": counts, "s_per_iter": steady, "peak_bytes": peak, "loss0": l_on,
-            "upsample_kernels": kinds}
+            "upsample_kernels": kinds, "losses": loss.tolist()}
 
 
 # ----------------------------------------------------------------------
@@ -2026,6 +2046,454 @@ def lane_entries(survey: dict, kernels: dict) -> list:
     return [fwd, bwd, wg]
 
 
+# ----------------------------------------------------------------------
+# phase 10: spatial shards (parallel/spatial.py)
+# ----------------------------------------------------------------------
+
+# the flagship's volume split along H (spatial axis 1: 128 planes in 16
+# blocks of 2^4) over N shards of one card
+SPATIAL_AXIS = 1
+SPATIAL_SHARDS = (2, 4)
+# what was predicted before the first card run of phase 10 (PERF.md)
+PREDICTED_10A = ("N = 2: 0.25-0.35 s/iteration, N = 4: 0.45-0.65 (host-bound: about N "
+                 "times phase 4's launches, plus a halo exchange a conv); peak 16-20 GiB "
+                 "at N = 2, 17-22 at N = 4 (halo-extended copies kept for the backward)")
+
+
+def spatial_counts(n: int, iters: int) -> dict:
+    """The launches of ``iters`` flagship iterations over ``n`` shards: each
+    kernel once a shard where the unsharded step launches it once."""
+    return {"fused_loss": n * iters, "fused_loss_grad": n * iters, "wgrad3d": 32 * n * iters,
+            "upsample_bwd": 4 * n * iters}
+
+
+def _shard_planes(extent: int, n: int) -> list:
+    """The planes of each of ``n`` shards of an axis at one level: shards of
+    whole 16-plane blocks of the padded volume, as ``shard_bounds`` cuts."""
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import shard_bounds
+    scale = 128 // extent
+    return [(a // scale, b // scale) for a, b in shard_bounds(128, n, 16)]
+
+
+def spatial_wgrad_shapes(n: int) -> collections.Counter:
+    """The wgrad shapes of one flagship iteration over ``n`` shards along H
+    and their launches: each of ``WGRAD_SHAPES`` on each shard, x holding
+    the shard's planes and a halo plane on each side."""
+    want = collections.Counter()
+    for ci, co, sp, k in WGRAD_SHAPES:
+        for a, b in _shard_planes(sp[1], n):
+            want[(ci, co, (sp[0], b - a + 2, sp[2]))] += k
+    return want
+
+
+def spatial_upsample_shapes(n: int) -> collections.Counter:
+    """The upsample backward's input shapes of one flagship iteration over
+    ``n`` shards: each shard's planes with a halo plane on each side."""
+    return collections.Counter((c, (sp[0], b - a + 2, sp[2])) for c, sp in UPSAMPLE_SHAPES
+                               for a, b in _shard_planes(sp[1], n))
+
+
+def spatial_solve(dev, mesh, label: str, main: dict) -> dict:
+    """The flagship through ``DIPSolver.solve(spatial_mesh=mesh)``, 9
+    iterations in chunks of 3, traced as phase 4: the launch counts, the
+    first loss against phase 4's (same seed: same parameters, canvas and
+    noise), the s/iteration and each device's peak."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config()
+    set_kernels(True)
+    n = len(mesh)
+    devices = sorted({d.index for d in mesh})
+    solver = DIPSolver(cfg, outchannel=1, device=mesh[0])
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    res, counts, seen, seen_up = traced_solve(solver, img, mask, spatial_mesh=mesh,
+                                              spatial_axis=SPATIAL_AXIS)
+    peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d) for d in devices}
+    kinds = read_upsample_kernels()
+    loss = np.asarray(res.history.loss)
+    want = spatial_counts(n, 9)
+    steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
+    rel = abs(float(loss[0]) - main["loss0"]) / abs(main["loss0"])
+    ups = {f"{c} x {sp}": U.plan(c, *sp, True, 2).kernel for c, sp in sorted(seen_up)}
+    log(f"{label}: first 3 losses {loss[:3].tolist()} against phase 4's {main['losses'][:3]}; "
+        f"iteration-0 rel err {rel:.3e} (tol {LOSS0_TOL_BF16:g}, bf16 sums in another order)")
+    log(f"{label}: chunk seconds {res.chunk_seconds}; steady s/iteration {steady:.4f} against "
+        f"phase 4's {main['s_per_iter']:.4f}; peak memory "
+        f"{ {k: round(v / 2**30, 2) for k, v in peaks.items()} } GiB against phase 4's "
+        f"{main['peak_bytes'] / 2**30:.2f} (predicted: {PREDICTED_10A})")
+    log(f"{label}: launches {counts} (expected {want}); upsample_bwd by kernel {kinds}; the "
+        f"{len(seen_up)} upsample shapes' kernels {ups}; {len(seen)} distinct wgrad shapes "
+        f"({sum(seen.values()) // 9} launches an iteration)")
+    if not (len(loss) == 9 and np.all(np.isfinite(loss))):
+        fail(f"{label}: the sharded flagship's loss is not finite for 9 iterations")
+    if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+        fail(f"{label}: out_best has shape {res.out_best.shape} or is not finite")
+    if counts != want:
+        fail(f"{label}: the sharded path's launch counts are {counts}, not {want}")
+    want_wg = {key: 9 * k for key, k in spatial_wgrad_shapes(n).items()}
+    if dict(seen) != want_wg:
+        fail(f"{label}: the sharded path's wgrad shapes are {dict(seen)}, not {want_wg}")
+    want_up = {key: 9 * k for key, k in spatial_upsample_shapes(n).items()}
+    if dict(seen_up) != want_up:
+        fail(f"{label}: the sharded path's upsample shapes are {dict(seen_up)}, not {want_up}")
+    if not rel <= LOSS0_TOL_BF16:
+        fail(f"{label}: the iteration-0 loss differs from phase 4's")
+    del solver
+    return {"shards": n, "devices": [str(d) for d in mesh], "launches": counts,
+            "upsample_kernels": kinds, "upsample_shape_kernels": ups,
+            "losses": loss.tolist(), "loss0_rel_err": rel, "s_per_iter": steady,
+            "chunk_seconds": res.chunk_seconds, "peak_bytes": peaks,
+            "wgrad_shapes": [[ci, co, list(sp), c // 9]
+                             for (ci, co, sp), c in sorted(seen.items())]}
+
+
+def spatial_flagship(dev, main: dict) -> dict:
+    """10a: the flagship over [cuda:0] * 2 and [cuda:0] * 4 along axis 1."""
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+    return {str(n): spatial_solve(dev, make_spatial_mesh(n, [dev] * n), f"10a {n} shards",
+                                  main) for n in SPATIAL_SHARDS}
+
+
+def _grad_errors(net, grads, ref) -> dict:
+    """The worst conv kernel's max |g - g_ref| over its max |g_ref|, the
+    whole gradient vector's error in norm, and the worst leaf's name."""
+    worst, name = max((float((a - b).abs().max()) / float(b.abs().max()), n)
+                      for (n, _), a, b in zip(net.named_parameters(), grads, ref)
+                      if n.endswith("kernel"))
+    if not all(bool(torch.isfinite(a).all()) for a in list(grads) + list(ref)):
+        worst, name = math.nan, "a gradient that is not finite"
+    flat = torch.cat([a.flatten() for a in grads]), torch.cat([b.flatten() for b in ref])
+    return {"kernel_rel_err": worst, "worst_kernel": name,
+            "norm_rel_err": float((flat[0] - flat[1]).norm()) / float(flat[1].norm())}
+
+
+def spatial_gradients(dev, main: dict) -> dict:
+    """10a: one flagship iteration's parameter gradients (the net and the
+    fused loss; phase 4's parameters, a random canvas), over 2 and 4 shards
+    against the unsharded net's, by the worst conv kernel (max error over
+    its max entry) and the whole vector (in norm). The flagship amplifies
+    rounding (a change of summation order in float32 moves a kernel's
+    gradient by 1e-2 of its max on the CPU at small volumes), so each
+    precision is held to its own error: float32 with TF32 off no further
+    than TF32 (PyTorch's default for float32 convs) moves the unsharded
+    gradients, bfloat16 (phase 4's dtype) no further than the unsharded
+    bf16 gradients lie from the float32 ones; beside them, how far moving
+    every canvas entry one float32 ulp moves the unsharded gradients. The
+    tight check is the CPU's, in float64 at this width
+    (``tests/test_torch_spatial_flagship.py``). Then the witness for 10a's
+    trajectories: 3
+    unsharded bf16 iterations with dW from cuDNN instead of the kernel
+    (another summation order, and dW rounded to bf16: a change at rounding
+    level, no shards), against phase 4's losses."""
+    from types import SimpleNamespace
+
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.models import get_net, init_weights
+    from deep_prior_interpolation_tpu_torch.ops.fused_loss import fused_loss_metrics
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import ShardedStep, SpatialLayout
+
+    img_np, mask_np = flagship_problem(256, 128, 128)
+    img = torch.from_numpy(img_np[..., 0])[None, None].to(dev)
+    mask = torch.from_numpy(mask_np[..., 0])[None, None].to(dev)
+    g = torch.Generator(device=dev).manual_seed(13)
+    x16 = (0.1 * torch.randn((1, 64) + _L[0], generator=g, device=dev)).to(torch.bfloat16)
+    settings = SimpleNamespace(fused_loss=True, loss="mae")
+    set_kernels(True)
+
+    def grads(net, x, n):
+        params = list(net.parameters())
+        if n == 1:
+            loss = fused_loss_metrics(net(x), img, mask)[0]
+        else:
+            layout = SpatialLayout([dev] * n, SPATIAL_AXIS, _L[0], _L[0], 16)
+            step = ShardedStep(net, layout)
+            data = {"img": layout.split(img, True), "mask": layout.split(mask, True)}
+            loss = step.loss_terms(step(layout.split(x)), data, settings, x.dtype, dev)[1]
+        out = [t.detach().float() for t in torch.autograd.grad(loss, params)]
+        torch.cuda.empty_cache()
+        return out
+
+    def held(label, net, got, ref, bound):
+        e = _grad_errors(net, got, ref)
+        log(f"10a gradients {label}: worst conv kernel {e['kernel_rel_err']:.3e} of its max "
+            f"({e['worst_kernel']}), vector {e['norm_rel_err']:.3e} in norm"
+            + ("" if bound is None else f" (bound {bound['kernel_rel_err']:.3e} and "
+                                        f"{bound['norm_rel_err']:.3e})"))
+        if bound is not None and not (e["kernel_rel_err"] <= bound["kernel_rel_err"]
+                                      and e["norm_rel_err"] <= bound["norm_rel_err"]):
+            fail(f"10a: the sharded flagship's gradients ({label}) are further from the "
+                 f"unsharded ones than the precision's own error")
+        return e
+
+    res = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    net = get_net(flagship_config(dtype="float32"))
+    init_weights(net, torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        on = grads(net, x16.float(), 1)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        ref32 = grads(net, x16.float(), 1)
+        own = res["float32_tf32"] = held("float32 unsharded, TF32 on against off (TF32's own "
+                                         "error)", net, on, ref32, None)
+        del on
+        # the witness of the amplification: every canvas entry one ulp up
+        up = torch.nextafter(x16.float(), torch.tensor(math.inf, device=dev))
+        res["float32_ulp"] = held("float32 unsharded, the canvas one ulp up against as it is "
+                                  "(a change at rounding level)", net, grads(net, up, 1), ref32,
+                                  None)
+        del up
+        for n in SPATIAL_SHARDS:
+            res[f"float32_{n}"] = held(f"float32 (TF32 off), {n} shards against unsharded", net,
+                                       grads(net, x16.float(), n), ref32, own)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del net
+    net = get_net(flagship_config())
+    init_weights(net, torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    ref16 = grads(net, x16, 1)
+    own = res["bfloat16_own"] = held("bfloat16 unsharded against float32 (bf16's own error)",
+                                     net, ref16, ref32, None)
+    for n in SPATIAL_SHARDS:
+        res[f"bfloat16_{n}"] = held(f"bfloat16, {n} shards against unsharded", net,
+                                    grads(net, x16, n), ref16, own)
+    del net, ref16, ref32
+    torch.cuda.empty_cache()
+    # the witness: phase 4's solve with dW changed at rounding level
+    set_kernels(False)
+    try:
+        loss = DIPSolver(flagship_config(epochs=3), outchannel=1, device=dev).solve(
+            img_np, mask_np, seed=0).history.loss
+    finally:
+        set_kernels(True)
+    rel = [abs(float(a) - b) / abs(b) for a, b in zip(loss, main["losses"][:3])]
+    res["reorder_losses"], res["reorder_rel_err"] = [float(v) for v in loss], rel
+    log(f"10a witness: unsharded, dW from cuDNN (bf16) instead of the kernel: losses "
+        f"{[float(v) for v in loss]} against phase 4's {main['losses'][:3]}, rel {rel}")
+    return res
+
+
+def spatial_exactness(dev, tmp: str) -> dict:
+    """10b: phase 3's small float32 3D solve over 4 shards of the card
+    against the unsharded card solve (first 3 losses rel 1e-4, as the CPU
+    tests hold them); two sharded solves, and a sharded resume from a
+    3-iteration checkpoint, bit-equal to a straight sharded solve (each
+    with a checkpoint path, so deterministic cuDNN)."""
+    import dataclasses
+
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    cfg, img, mask, noise, init, _ = small_problem()
+    set_kernels(True)
+    mesh = make_spatial_mesh(4, [dev] * 4)
+    kw = dict(seed=0, init_params=init, noise=noise)
+    plain = DIPSolver(cfg, device=dev).solve(img, mask, **kw)
+    reset_counts()
+    sharded = DIPSolver(cfg, device=dev).solve(img, mask, spatial_mesh=mesh,
+                                               spatial_axis=SPATIAL_AXIS, **kw)
+    counts = read_counts()
+    a, b = np.asarray(sharded.history.loss), np.asarray(plain.history.loss)
+    err = float(np.max(np.abs(a[:3] - b[:3]) / np.abs(b[:3])))
+    log(f"10b: sharded {a.tolist()}\n     unsharded {b.tolist()}\n     max rel err of "
+        f"iterations 0-2 {err:.3e} (tol 1e-4); launches {counts}")
+    if not err <= 1e-4:
+        fail("10b: the sharded small solve disagrees with the unsharded one")
+    if counts["fused_loss"] != 4 * 6 or counts["upsample_bwd"] != 4 * 2 * 6 \
+            or counts["wgrad3d"] == 0:
+        fail(f"10b: the sharded small solve did not launch the kernels on every shard: {counts}")
+
+    def run(name, epochs):
+        c = dataclasses.replace(cfg, epochs=epochs, scan_chunk=3)
+        return DIPSolver(c, device=dev).solve(
+            img, mask, spatial_mesh=mesh, spatial_axis=SPATIAL_AXIS,
+            checkpoint_path=os.path.join(tmp, name), checkpoint_every=1, **kw)
+    first, second = run("spatial_a.npz", 6), run("spatial_b.npz", 6)
+    run("spatial_c.npz", 3)
+    resumed = run("spatial_c.npz", 6)
+    twice = (np.array_equal(first.history.loss, second.history.loss)
+             and np.array_equal(first.out_best, second.out_best))
+    resume = (resumed.iters_run == 6 and np.array_equal(first.history.loss, resumed.history.loss)
+              and np.array_equal(first.out_best, resumed.out_best))
+    log(f"10b: two sharded solves bit-equal {twice}; a resume from 3 iterations bit-equal to "
+        f"the straight solve {resume} ({resumed.history.loss})")
+    if not (twice and resume):
+        fail("10b: sharded solves from one seed, or a sharded resume, are not bit-equal")
+    return {"rel_err_first_3": err, "launches": counts, "two_runs_bit_equal": twice,
+            "resume_bit_equal": resume}
+
+
+def spatial_wgrad_row(dev, ci: int, co: int, sp, hs: int, n: int, k: int, g,
+                      time_plain: bool) -> dict:
+    """10c: the wgrad kernel on one shard's (x with its two halo planes,
+    dy padded with zero planes) along H, against its plain version (1e-4 of
+    max |dW| + 1e-4), timed beside its bound, the plain version (where
+    ``time_plain``) and ``conv3d_weight`` of the shard's conv (unpadded
+    along H); ``k`` launches a shard an iteration."""
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+
+    d, h, w = sp
+    x = torch.randn((1, ci, d, hs + 2, w), generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((1, co, d, hs, w), generator=g, device=dev).to(torch.bfloat16)
+    dyp = torch.nn.functional.pad(dy, (0, 0, 1, 1))
+    got = WG.wgrad3d(x, dyp, 3)
+    torch.cuda.synchronize()
+    ref = WG.wgrad3d_plain(x, dyp, 3)
+    err = float((got - ref).abs().max())
+    lim = 1e-4 * float(ref.abs().max()) + 1e-4
+    del got, ref
+    row = {"ci": ci, "co": co, "spatial": list(sp), "shards": n, "x_shape": list(x.shape[2:]),
+           "dy_shape": list(dyp.shape[2:]), "launches_per_iteration": n * k,
+           "max_abs_err": err, "tol": lim, "ms": time_ms(lambda: WG.wgrad3d(x, dyp, 3)),
+           "plain_ms": time_ms(lambda: WG.wgrad3d_plain(x, dyp, 3)) if time_plain else None,
+           "library_ms": time_ms(lambda: torch.nn.grad.conv3d_weight(
+               x, (co, ci, 3, 3, 3), dy, stride=1, padding=(1, 0, 1)))}
+    # x and dy read once, dW written once; the products of the shard's own
+    # (valid along H) conv
+    n_bytes = (ci * x[0, 0].numel() + co * dy[0, 0].numel()) * 2 + co * ci * 27 * 4
+    n_flops = 2.0 * ci * co * 3 * hs * _valid_products((d, 1, w), 3)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops, torch.bfloat16)
+    plain = "not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.4f}"
+    log(f"10c wgrad {ci}->{co} {tuple(sp)}, shard of {hs} of {h} planes (x {tuple(x.shape[2:])}, "
+        f"padded dy), {n} shards: max abs err {err:.3e} (tol {lim:.3e}); ms {row['ms']:.4f} "
+        f"plain {plain} conv3d_weight {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']}), {n * k} launches/iteration")
+    if not err <= lim:
+        fail(f"10c: wgrad on the shard of {ci}->{co} {tuple(sp)} ({n} shards) disagrees with "
+             f"the plain one")
+    return row
+
+
+def spatial_kernels(dev) -> dict:
+    """10c: each kernel at the shard shapes of 10a against its plain
+    version: wgrad on (x with its halo, padded dy) at every one of 10a's
+    shard shapes for 2 and 4 shards (each flagship conv at each shard's H
+    extent), and the shards' dW summed in shard order against the
+    unsharded kernel's dW; the fused loss on each shard's (256, 128 / N,
+    128) bf16 output, forward and backward, and the shards' sums against
+    the whole volume's; the upsample's backward at every shard shape of 10a
+    (bit-equal)."""
+    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    rows = []
+    for n in SPATIAL_SHARDS:
+        for ci, co, sp, k in WGRAD_SHAPES:
+            for hs in sorted({b - a for a, b in _shard_planes(sp[1], n)}):
+                rows.append(spatial_wgrad_row(dev, ci, co, sp, hs, n, k, g,
+                                              (ci, co) in PLAIN_TIMED))
+        per_iter = sum(r["ms"] * r["launches_per_iteration"] for r in rows if r["shards"] == n)
+        log(f"10c wgrad ms/iteration over {n} shards: sum of launches x ms over the "
+            f"{sum(r['shards'] == n for r in rows)} shard shapes = {per_iter:.4f}")
+    got = {(r["ci"], r["co"], tuple(r["x_shape"]), r["shards"]) for r in rows}
+    if got != {key + (n,) for n in SPATIAL_SHARDS for key in spatial_wgrad_shapes(n)}:
+        fail(f"10c: the wgrad rows {sorted(got)} are not 10a's shard shapes")
+    out = {"wgrad": rows}
+    # the shards' dW summed against the whole conv's, the heaviest shape
+    x = torch.randn((1, 67) + _L[0], generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn((1, 4) + _L[0], generator=g, device=dev).to(torch.bfloat16)
+    whole = WG.wgrad3d(x, dy, 3)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1))
+    sums = {}
+    for n in SPATIAL_SHARDS:
+        total = None
+        for a, b in _shard_planes(128, n):
+            dw = WG.wgrad3d(xp[:, :, :, a:b + 2].contiguous(), torch.nn.functional.pad(
+                dy[:, :, :, a:b], (0, 0, 1, 1)), 3)
+            total = dw if total is None else total + dw
+        err = float((total - whole).abs().max())
+        lim = 1e-4 * float(whole.abs().max()) + 1e-4
+        sums[str(n)] = {"max_abs_err": err, "tol": lim}
+        log(f"10c wgrad 67->4 {_L[0]}: the {n} shards' dW summed in order against the "
+            f"unsharded kernel's dW, max abs err {err:.3e} (tol {lim:.3e}, float32 sums in "
+            f"another order)")
+        if not err <= lim:
+            fail(f"10c: the {n} shards' dW do not sum to the unsharded dW")
+    out["wgrad_shard_sums"] = sums
+    del x, dy, xp, whole
+    # the fused loss at the shards' shapes
+    rows = []
+    for n in SPATIAL_SHARDS:
+        shape = (1, 1, 256, 128 // n, 128)
+        img = torch.randn(shape, generator=g, device=dev)
+        o = (img + torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+        mask = (torch.rand(shape, generator=g, device=dev) > 0.66).float()
+        gin = torch.randn(8, generator=g, device=dev)
+        sk, sp_ = FL.fused_sums(o, img, mask), FL.fused_sums_plain(o, img, mask)
+        rel = float(((sk - sp_).abs() / sp_.abs().clamp_min(1e-30)).max())
+        gk, gp = FL.loss_sums_grad(o, img, mask, gin).float(), \
+            FL.loss_sums_grad_plain(o, img, mask, gin).float()
+        gerr = float((gk - gp).abs().max())
+        glim = 2.0 ** -7 * float(gp.abs().max())
+        (fb, fby), (bb, bby) = _loss_bounds(o.numel(), torch.bfloat16)
+        copies = [(o.clone(), img.clone(), mask.clone()) for _ in range(3)]
+        row = {"shards": n, "shape": list(shape), "max_rel_err": rel,
+               "max_abs_err": float((sk - sp_).abs().max()), "grad_max_abs_err": gerr,
+               "fwd": {"ms": graph_ms(cycling(FL.fused_sums, copies)),
+                       "plain_ms": graph_ms(cycling(FL.fused_sums_plain, copies)),
+                       "bound_ms": fb, "bound_by": fby},
+               "bwd": {"ms": graph_ms(cycling(FL.loss_sums_grad, [c + (gin,) for c in copies])),
+                       "plain_ms": graph_ms(cycling(FL.loss_sums_grad_plain,
+                                                    [c + (gin,) for c in copies])),
+                       "bound_ms": bb, "bound_by": bby}}
+        log(f"10c fused loss on a shard {tuple(shape)} bf16: sums rel err {rel:.3e} (tol 1e-4), "
+            f"grad max abs err {gerr:.3e} (tol {glim:.3e}); forward {row['fwd']['ms']:.4f} ms "
+            f"(bound {fb:.4f}), backward {row['bwd']['ms']:.4f} ms (bound {bb:.4f})")
+        if not (rel <= 1e-4 and gerr <= glim):
+            fail(f"10c: the fused loss on the shard {shape} disagrees with the plain version")
+        rows.append(row)
+        del copies
+    out["fused"] = rows
+    # the upsample's backward at every shard shape of 10a: a shard's input
+    # planes with a halo plane on each side, along H
+    ups = []
+    for c, sp in UPSAMPLE_SHAPES:
+        for n in SPATIAL_SHARDS:
+            for hs in sorted({b - a for a, b in _shard_planes(sp[1], n)}):
+                go = torch.randn((1, c, 2 * sp[0], 2 * (hs + 2), 2 * sp[2]), generator=g,
+                                 device=dev).to(torch.bfloat16)
+                got = U.upsample_bwd(go, 3)
+                equal = torch.equal(got, U.upsample_bwd_plain(go, 3))
+                kernel = U.plan(c, sp[0], hs + 2, sp[2], True, 2).kernel
+                row = {"channels": c, "shards": n, "input": [sp[0], hs + 2, sp[2]],
+                       "kernel": kernel, "bit_equal_to_plain": equal,
+                       "ms": time_ms(lambda: U.upsample_bwd(go, 3))}
+                n_in = c * sp[0] * (hs + 2) * sp[2]
+                row["bound_ms"], row["bound_by"] = bound_ms(9 * n_in * 2, 49.0 * n_in,
+                                                            torch.float32)
+                log(f"10c upsample_bwd {c} x {tuple(row['input'])} ({n} shards, {kernel}): "
+                    f"bit-equal to the plain version {equal}; ms {row['ms']:.4f} bound "
+                    f"{row['bound_ms']:.4f}")
+                if not equal:
+                    fail(f"10c: upsample_bwd at the shard shape {c} x {row['input']} is not "
+                         f"bit-equal to the plain version")
+                ups.append(row)
+                del go, got
+    out["upsample"] = ups
+    return out
+
+
+def spatial_multicard(dev, main: dict) -> dict:
+    """10d: 10a's 2-shard solve over cuda:0 and cuda:1, where there are two
+    cards; each device's peak."""
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    if torch.cuda.device_count() < 2:
+        log("10d: skipped, one card (a 2-card mesh needs two)")
+        return {"skipped": "one card"}
+    return spatial_solve(dev, make_spatial_mesh(2), "10d cuda:0 + cuda:1", main)
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -2072,21 +2540,31 @@ def profile_flagship(dev, out_dir: str, **kw) -> None:
 # the CUDA-only tests (each skips without a card), run by the smoke test on it
 CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
-              "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py"]
+              "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
+              "tests/test_torch_cuda_spatial.py"]
+
+
+# the one skip reason the CUDA tests may give, and only on a one-card machine
+TWO_CARDS = "needs two CUDA cards"
 
 
 def run_cuda_tests() -> str:
     """The CUDA-only tests in a child pytest (``--noconftest``: the tests'
     conftest imports JAX, which the card's machine may lack); fails the run
-    unless every test passes. Returns pytest's summary line."""
+    unless every test passes, but for the tests that need two cards where
+    there is one. Returns pytest's summary line."""
     here = os.path.dirname(os.path.abspath(__file__))
-    out = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+    out = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q", "-rs",
                           "-p", "no:cacheprovider", *CUDA_TESTS], cwd=here,
                          capture_output=True, text=True, timeout=900)
     lines = out.stdout.strip().splitlines()
     summary = lines[-1] if lines else ""
+    skips = [ln for ln in lines if ln.startswith("SKIPPED")]
+    allowed = torch.cuda.device_count() < 2 and all(ln.endswith(TWO_CARDS) for ln in skips)
     log(f"CUDA tests: {summary}")
-    if out.returncode != 0 or "skipped" in summary:
+    for ln in skips:
+        log(f"  {ln}")
+    if out.returncode != 0 or ("skipped" in summary and not allowed):
         log("\n".join(lines[-60:]))
         fail(f"the CUDA tests did not all pass: {summary}")
     return summary
@@ -2166,6 +2644,16 @@ def main() -> None:
         assembly8 = phase("8d_assembly", batch_assembly, dev, survey8)
         seconds["8_total"] = time.time() - t8
         log(f"phase 8: {seconds['8_total']:.1f} s")
+        t10 = time.time()
+        phase10 = {"10a_flagship": phase("10a_spatial_flagship", spatial_flagship, dev, main),
+                   "10a_gradients": phase("10a_spatial_gradients", spatial_gradients, dev,
+                                          main),
+                   "10b_exactness": phase("10b_spatial_exactness", spatial_exactness, dev, tmp),
+                   "10c_kernels": phase("10c_spatial_kernels", spatial_kernels, dev),
+                   "10d_multicard": phase("10d_spatial_multicard", spatial_multicard, dev,
+                                          main)}
+        seconds["10_total"] = time.time() - t10
+        log(f"phase 10: {seconds['10_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -2194,6 +2682,17 @@ def main() -> None:
     upsample["lanes_shapes"] = kernels8["upsample"]
     fused["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss"]
     fused_grad["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss_grad"]
+    phase10["seconds"] = {k: v for k, v in seconds.items() if k.startswith("10")}
+    log(json.dumps({"phase10": phase10}))
+    # each kernel's launches on 10a's sharded paths, by shard count, and its
+    # rows at the shard shapes (10c)
+    for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
+                       (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
+        entry["spatial_launches"] = {n: r["launches"][key]
+                                     for n, r in phase10["10a_flagship"].items()}
+    fused["spatial_shapes"] = phase10["10c_kernels"]["fused"]
+    wgrad["spatial_shapes"] = phase10["10c_kernels"]["wgrad"]
+    upsample["spatial_shapes"] = phase10["10c_kernels"]["upsample"]
     log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]
                     + lane_entries(survey8, kernels8)}))
     log(json.dumps({"ok": True, "device": {

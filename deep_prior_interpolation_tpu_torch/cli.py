@@ -26,9 +26,11 @@ the sequential run does; ``--mesh_shape M`` lays each group's lanes over M
 CUDA devices. As in the JAX package, a batch solves every patch of its
 group (an all-corrupted one too) and takes no ``--netdir``; with
 ``--start_from_prev`` the patches are solved one after another whatever
-``--batch_patches`` says. Spatial sharding is not ported (ROADMAP A.13b):
-``--spatial_shards > 1`` raises here. ``--netdir`` takes the port's
-``<name>_model.pt`` or a JAX run's ``<name>_model.msgpack``.
+``--batch_patches`` says. ``--spatial_shards N`` (N > 1) splits each
+patch's volume along ``--spatial_axis`` over N shards
+(``parallel.make_spatial_mesh``: the first N cards, or N shards on the CPU
+for ``device="cpu"``). ``--netdir`` takes the port's ``<name>_model.pt`` or
+a JAX run's ``<name>_model.msgpack``.
 """
 from __future__ import annotations
 
@@ -72,9 +74,10 @@ def run(cfg: Config, results_root: str = "./results",
         corrupted: Optional[np.ndarray] = None,
         device: Union[str, torch.device, None] = None) -> str:
     """Execute a full interpolation run; returns the output directory."""
-    if cfg.spatial_shards and cfg.spatial_shards > 1:
-        raise NotImplementedError("--spatial_shards > 1 (a patch sharded over several "
-                                  "devices): ROADMAP A.13b")
+    sharded = bool(cfg.spatial_shards and cfg.spatial_shards > 1)
+    if sharded:   # what the shards do not cover yet, before anything is written
+        from .parallel.spatial import check_supported
+        check_supported(cfg)
     dev = run_device(cfg, device)
     outpath = os.path.join(results_root,
                            cfg.outdir if cfg.outdir is not None else random_code())
@@ -93,6 +96,14 @@ def run(cfg: Config, results_root: str = "./results",
         _run_batched(cfg, solver, patches, outpath, done, dev)
         _log(f"Interpolation done! Saved to {outpath}")
         return outpath
+
+    spatial_mesh = None
+    if sharded:
+        from .parallel import make_spatial_mesh
+        n = cfg.spatial_shards
+        spatial_mesh = make_spatial_mesh(n, [dev] * n if dev.type == "cpu" else None)
+        _log(f"Spatial sharding: each patch over {n} devices along spatial axis "
+             f"{cfg.spatial_axis}")
 
     prev_params = None
     for i, patch in enumerate(patches):
@@ -122,7 +133,8 @@ def run(cfg: Config, results_root: str = "./results",
 
         res = solver.solve(
             img, mask, seed=cfg.seed + i, init_params=init_params, verbose=True,
-            profile_dir=os.path.join(outpath, "profile") if cfg.profile else None)
+            profile_dir=os.path.join(outpath, "profile") if cfg.profile else None,
+            spatial_mesh=spatial_mesh, spatial_axis=cfg.spatial_axis)
         prev_params = res.params
         _log("\n" + sec2time(res.elapsed))
 

@@ -52,7 +52,10 @@ net runs under ``torch.func.vmap`` over ``functional_call`` (its convs,
 loss and upsamples through their vmap rules, which batch the kernels over
 the lanes), every draw is made lane by lane from that lane's generators,
 and every tracker is a (B,) tensor. Lane i computes what a solve with seed
-``cfg.seed + i`` computes, but for the rounding of the batched ops.
+``cfg.seed + i`` computes, but for the rounding of the batched ops. And it
+serves one patch split along a spatial axis over several shards
+(``spatial_mesh``, ``parallel/spatial.py``): the net walked over the
+shards, the canvas, data and outputs split, everything else whole.
 
 Where the JAX package refuses a configuration the port raises the same
 error class: under ``dtype="bfloat16"`` input optimisation, and a net output
@@ -288,6 +291,21 @@ def _lane(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t if t.dim() == 0 else t.reshape(tuple(t.shape) + (1,) * (like.dim() - t.dim()))
 
 
+def _where(cond: torch.Tensor, a, b):
+    """``torch.where(cond, a, b)`` of one lane, of B lanes (``cond`` (B,)),
+    or of the shards of a spatially sharded output (lists of shards,
+    ``cond`` moved to each shard's device)."""
+    if isinstance(a, list):
+        return [torch.where(cond.to(x.device), x, y) for x, y in zip(a, b)]
+    return torch.where(_lane(cond, a), a, b)
+
+
+def _whole(st: Dict[str, Any], v):
+    """A state entry as one tensor: a sharded one (a list of shards)
+    gathered on the mesh's first device."""
+    return st["spatial"].layout.gather(v) if isinstance(v, list) else v
+
+
 def pocs_term(out: torch.Tensor, main: torch.Tensor, data, hyper,
               s: StepSettings):
     """``(total, reg, eps, th)``: the f-k projection of ``out`` (no gradient
@@ -502,7 +520,7 @@ def _solver_state(st: Dict[str, Any], gens: Mapping[str, torch.Generator]
         state.update({"canvas": flat.canvas.detach(), "canvas_mu": flat.canvas_mu,
                       "canvas_nu": flat.canvas_nu})
     state.update({f"rng_{k}": gens[k].get_state() for k in _STEP_GENERATORS})
-    state.update({k: st[k] for k in _TRACKERS if k in st})
+    state.update({k: _whole(st, st[k]) for k in _TRACKERS if k in st})
     return state
 
 
@@ -522,7 +540,9 @@ def _restore_state(st: Dict[str, Any], gens: Mapping[str, torch.Generator],
     for k in _STEP_GENERATORS:
         gens[k].set_state(saved[f"rng_{k}"])
     for k in _TRACKERS:
-        if k in st:
+        if isinstance(st.get(k), list):   # a sharded output
+            st[k] = st["spatial"].layout.split(saved[k], cropped=True)
+        elif k in st:
             st[k] = saved[k]
 
 
@@ -608,10 +628,9 @@ class DIPSolver:
             main, mets = fused_loss_metrics(out, img, mask, loss=s.loss)
             ys = {"snr": mets["snr"].detach(), "pcorr": mets["pcorr"].detach()}
         else:
-            main = L.get_loss_fn(s.loss)(out, img, mask)
+            main = L.masked_fit([out], [img], [mask], s.loss)
             with torch.no_grad():
-                out32 = out.detach().float()
-                ys = {"snr": L.snr(out32, img), "pcorr": L.pcorr(out32, img)}
+                ys = L.snr_pcorr([out.detach().float()], [img])
         loss = main
         if s.pocs:
             loss, reg, eps, th = pocs_term(out, main, data, hyper, s)
@@ -638,16 +657,26 @@ class DIPSolver:
     def _step(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings,
               gens, regenerate) -> Dict[str, torch.Tensor]:
         """One iteration of one lane (``gens`` a dict) or of B lanes (a list
-        of B dicts; every tracker a (B,) tensor)."""
+        of B dicts; every tracker a (B,) tensor); of one lane over spatial
+        shards where ``st["spatial"]`` holds a ``parallel.spatial.ShardedStep``
+        (the canvas, data and outputs lists of shards)."""
         flat = st["flat"]
         lanes = isinstance(gens, list)
-        inp = self._net_input(it, st, data, s, gens, regenerate)
+        sharded = st.get("spatial")
+        if sharded is not None:
+            inp = sharded.net_input(data, s, gens)
+        else:
+            inp = self._net_input(it, st, data, s, gens, regenerate)
         frozen = None
         if s.param_noise:
             frozen = flat.perturb([g["param"] for g in gens] if lanes else gens["param"])
         if lanes:
             out, loss, ys = self._lane_forward(inp, st, data, hyper, s)
             grads = torch.autograd.grad(loss.sum(), flat.leaves())
+        elif sharded is not None:
+            out, loss, ys = sharded.loss_terms(sharded(inp), data, s, st["out_best"][0].dtype,
+                                               flat.flat.device)
+            grads = torch.autograd.grad(loss, flat.leaves())
         else:
             net_out = (self.model(inp, data["net_mask"]) if s.takes_mask
                        else self.model(inp))
@@ -659,11 +688,11 @@ class DIPSolver:
 
         with torch.no_grad():
             loss = loss.detach()
-            out = out.detach()
+            out = [o.detach() for o in out] if sharded is not None else out.detach()
             better = (loss <= st["loss_min"]) & ~done
-            st["out_best"] = torch.where(_lane(better, out), out, st["out_best"])
+            st["out_best"] = _where(better, out, st["out_best"])
             if s.track_last:
-                st["out_last"] = torch.where(_lane(done, out), st["out_last"], out)
+                st["out_last"] = _where(done, st["out_last"], out)
             st["loss_min"] = torch.where(better, loss, st["loss_min"])
 
             # ReduceLROnPlateau (rel threshold, min mode)
@@ -758,24 +787,31 @@ class DIPSolver:
         ``torch.backends.cudnn.deterministic`` set, and sets it back after.
         ``profile_dir`` captures a ``torch.profiler`` trace of the second
         chunk (see ``_profiled``).
+
+        ``spatial_mesh`` (``parallel.make_spatial_mesh``: a list of devices,
+        repeats allowed) splits the patch's volume along ``spatial_axis``
+        (0 = the first spatial dim) over its shards
+        (``parallel/spatial.py``): the same solve up to the order of its
+        sums; a checkpoint holds whole tensors and resumes on the same mesh.
+        What it does not cover yet raises ``NotImplementedError`` (ROADMAP
+        A.13c) before anything is drawn.
         """
-        if spatial_mesh is not None:
-            raise NotImplementedError("spatial sharding: ROADMAP A.13b")
+        args = (img, mask, seed, init_params, noise, verbose)
         if not checkpoint_path:
-            return self._solve(img, mask, seed, init_params, noise, verbose, None, 0,
-                               profile_dir)
+            return self._solve(*args, None, 0, profile_dir, spatial_mesh, spatial_axis)
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            return self._solve(img, mask, seed, init_params, noise, verbose, checkpoint_path,
-                               checkpoint_every, profile_dir)
+            return self._solve(*args, checkpoint_path, checkpoint_every, profile_dir,
+                               spatial_mesh, spatial_axis)
         finally:
             torch.backends.cudnn.deterministic = deterministic
 
     def _solve(self, img: np.ndarray, mask: np.ndarray, seed: int,
                init_params: Optional[Mapping[str, Any]], noise: Optional[np.ndarray],
                verbose: bool, checkpoint_path: Optional[str], checkpoint_every: int,
-               profile_dir: Optional[str]) -> SolveResult:
+               profile_dir: Optional[str], spatial_mesh=None,
+               spatial_axis: int = 1) -> SolveResult:
         cfg, dev = self.cfg, self.device
         if img.shape != mask.shape:
             raise ValueError("image and mask shapes must match")
@@ -790,6 +826,12 @@ class DIPSolver:
             raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
                             "p - lr * d of the bfloat16 canvas is float32, and the JAX "
                             "package's scan refuses a carry whose dtype changes")
+        layout = None
+        if spatial_mesh is not None:
+            from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported
+            check_supported(cfg)
+            layout = SpatialLayout(spatial_mesh, spatial_axis, padded, spatial,
+                                   2 ** (len(cfg.filters) - 1))
 
         gens = _generators(seed, dev)
         canvas_start = gens["canvas"].get_state()
@@ -837,6 +879,10 @@ class DIPSolver:
             data["base_input"] = base_input = None
         if s.track_last:
             st["out_last"] = torch.zeros(out_shape, dtype=out_dtype, device=dev)
+        if layout is not None:   # the whole canvas and data go once split
+            data, st = layout.shard(data, st)
+            st["spatial"] = ShardedStep(self.model, layout)
+            base_input = None
 
         chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
         if cfg.save_every:
@@ -884,13 +930,15 @@ class DIPSolver:
                 print(hist.log_message(iters_run - 1), end="\r")
             end_iter = (c + 1) * chunk
             if cfg.save_every and end_iter % cfg.save_every == 0 and end_iter < cfg.epochs:
-                snapshots[end_iter] = _to_channels_last(st["out_last"])
+                snapshots[end_iter] = _to_channels_last(_whole(st, st["out_last"]))
             if checkpoint_path and checkpoint_every and (c + 1) % checkpoint_every == 0:
                 self._save_checkpoint(checkpoint_path, st, gens, hist, c + 1, iters_run)
             if bool(host["done"][0]):
                 stopped = iters_run < cfg.epochs
                 break
         elapsed = time.time() - start
+        if layout is not None:
+            data = dict(data, base_input=layout.gather(data["base_input"]))
 
         pocs = None
         if s.pocs:
@@ -899,7 +947,7 @@ class DIPSolver:
                     st["out_best"].float(), data["pocs_wdata"], data["pocs_wmask"],
                     hyper["pocs_thresh"]))
         return SolveResult(
-            out_best=_to_channels_last(st["out_best"]), history=hist,
+            out_best=_to_channels_last(_whole(st, st["out_best"])), history=hist,
             params={k: v.detach().cpu().clone()
                     for k, v in self.model.state_dict().items()},
             elapsed=elapsed, iters_run=iters_run, stopped_early=stopped,

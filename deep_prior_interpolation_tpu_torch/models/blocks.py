@@ -8,8 +8,9 @@ modules carry flax's auto-names (``Conv_0``, ``Norm_0``, ...), so the bridge
 is a name-for-name transpose.
 
 * ``Norm`` is batch-of-1 BatchNorm without running statistics: normalise
-  over all non-channel axes with float32 statistics, eps 1e-5; ``g`` and
-  ``b`` are formed in float32 and applied in the input dtype.
+  over all non-channel axes with float32 statistics (float64 ones for a
+  float64 input), eps 1e-5; ``g`` and ``b`` are formed in float32 and
+  applied in the input dtype.
 * ``Conv`` pads (k-1)//2 on each side, so stride 2 gives ceil(n/2); the
   input and the float32 kernel are cast to the compute dtype, and the bias
   is added in that dtype. ``pad="reflection"`` reflects instead and
@@ -90,7 +91,7 @@ class Norm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(_promoted(x))
         axes = [0] + list(range(2, x.ndim))
         s1 = torch.sum(xf, dim=axes)
         s2 = torch.sum(xf * xf, dim=axes)

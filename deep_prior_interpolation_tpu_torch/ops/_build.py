@@ -8,15 +8,19 @@ edited source is rebuilt and an unchanged one is reused.
 
 ``start_builds`` launches one ``nvcc`` per source, all at once, and
 ``load_library`` waits for its own; nothing is compiled at import.
+``on_device`` is the device guard of every launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import ContextManager, Dict, Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -79,3 +83,14 @@ def load_library(name: str) -> ctypes.CDLL:
         os.replace(tmp, out)
     _loaded[name] = ctypes.CDLL(str(out))
     return _loaded[name]
+
+
+def on_device(device: torch.device) -> ContextManager:
+    """The context a kernel of ``device``'s tensors is launched in: that
+    device made current where the thread's current device is another (a
+    launch goes to the current device, and the stream passed with it is
+    ``device``'s). A spatial mesh over several cards launches shard after
+    shard from one thread."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

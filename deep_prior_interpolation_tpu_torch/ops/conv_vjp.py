@@ -18,6 +18,11 @@ Every switch is read when the backward runs. dW is returned in the
 weight's dtype, so a bf16 net rounds a float32 sum to bf16, as the JAX
 package does.
 
+``conv_halo`` is the same conv on a spatial shard (``parallel/spatial.py``)
+that carries its neighbours' edge planes along one axis and is unpadded
+there; its dW reaches the wgrad kernel as that of the same-padded conv of
+the shard with dy padded by zero planes along the axis.
+
 ``conv_impl("tapmm")`` selects another formulation of the conv itself:
 the sum of one matrix product a kernel tap, each in float32, rounded once
 at the end. A conv records the formulation it ran under and its backward
@@ -40,14 +45,14 @@ import itertools
 import math
 import os
 import threading
-from typing import Iterator, Sequence, Tuple, Union
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from .wgrad import wgrad3d, wgrad3d_lanes, wgrad_supported
 
-__all__ = ["conv_same", "conv_impl", "current_conv_impl", "use_wgrad_kernel"]
+__all__ = ["conv_halo", "conv_same", "conv_impl", "current_conv_impl", "use_wgrad_kernel"]
 
 _FWD = {2: F.conv2d, 3: F.conv3d}
 _DX = {2: torch.nn.grad.conv2d_input, 3: torch.nn.grad.conv3d_input}
@@ -274,36 +279,7 @@ class _ConvSame(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        nd = w.ndim - 2
-        stride, pads, tap = ctx.stride, ctx.pads, ctx.mode == "tapmm"
-        sym = _symmetric(pads)
-        padding = tuple(lo for lo, _ in pads)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            if tap:
-                dx = _tap_conv_input(dy, w, x.shape, stride, pads).to(x.dtype)
-            elif sym:
-                dx = _DX[nd](x.shape, w, dy, stride=stride, padding=padding)
-            else:
-                xp_shape = x.shape[:2] + tuple(x.shape[2 + i] + lo + hi
-                                               for i, (lo, hi) in enumerate(pads))
-                dxp = _DX[nd](xp_shape, w, dy, stride=stride)
-                dx = dxp[(slice(None), slice(None)) + tuple(
-                    slice(lo, lo + x.shape[2 + i]) for i, (lo, _) in enumerate(pads))]
-        if ctx.needs_input_grad[1]:
-            if use_wgrad_kernel(x.shape, w.shape, stride, pads):
-                dw = wgrad3d(x, dy, w.shape[2]).to(w.dtype)
-            elif _use_packed(x.shape, w.shape, stride, pads, x.element_size()):
-                wg = _packed_wgrad if stride == 1 else _folded_wgrad
-                dw = wg(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
-            elif tap:
-                dw = _tap_conv_weight(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
-            elif sym:
-                dw = _DW[nd](x, w.shape, dy, stride=stride, padding=padding)
-            else:
-                dw = _DW[nd](F.pad(x, _flat(pads)), w.shape, dy, stride=stride)
-        return dx, dw, None, None, None
+        return _conv_grads(ctx, dy) + (None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, x, w, stride, pads, mode):
@@ -311,6 +287,69 @@ class _ConvSame(torch.autograd.Function):
         x, w = (v.movedim(d, 0) if d is not None else v.expand((b,) + tuple(v.shape))
                 for v, d in zip((x, w), in_dims[:2]))
         return _ConvSameLanes.apply(x, w, stride, pads, mode), 0
+
+
+def _conv_grads(ctx, dy: torch.Tensor, halo: Optional[int] = None):
+    """(dx, dW) of a :class:`_ConvSame` or :class:`_ConvHalo`. ``halo``: the
+    spatial axis along which x carries its halo planes (unpadded there)."""
+    x, w = ctx.saved_tensors
+    nd = w.ndim - 2
+    stride, pads, tap = ctx.stride, ctx.pads, ctx.mode == "tapmm"
+    sym = _symmetric(pads)
+    padding = tuple(lo for lo, _ in pads)
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        if tap:
+            dx = _tap_conv_input(dy, w, x.shape, stride, pads).to(x.dtype)
+        elif sym:
+            dx = _DX[nd](x.shape, w, dy, stride=stride, padding=padding)
+        else:
+            xp_shape = x.shape[:2] + tuple(x.shape[2 + i] + lo + hi
+                                           for i, (lo, hi) in enumerate(pads))
+            dxp = _DX[nd](xp_shape, w, dy, stride=stride)
+            dx = dxp[(slice(None), slice(None)) + tuple(
+                slice(lo, lo + x.shape[2 + i]) for i, (lo, _) in enumerate(pads))]
+    if ctx.needs_input_grad[1]:
+        k = w.shape[2]
+        if halo is not None and use_wgrad_kernel(x.shape, w.shape, stride, (k - 1) // 2):
+            # dy padded with p zero planes on each side of the halo axis: the
+            # same-pad conv of x's shape, whose taps then read x alone
+            spec = [0, 0] * nd
+            spec[2 * (nd - 1 - halo)] = spec[2 * (nd - 1 - halo) + 1] = (k - 1) // 2
+            dw = wgrad3d(x, F.pad(dy, spec), k).to(w.dtype)
+        elif use_wgrad_kernel(x.shape, w.shape, stride, pads):
+            dw = wgrad3d(x, dy, k).to(w.dtype)
+        elif _use_packed(x.shape, w.shape, stride, pads, x.element_size()):
+            wg = _packed_wgrad if stride == 1 else _folded_wgrad
+            dw = wg(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
+        elif tap:
+            dw = _tap_conv_weight(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
+        elif sym:
+            dw = _DW[nd](x, w.shape, dy, stride=stride, padding=padding)
+        else:
+            dw = _DW[nd](F.pad(x, _flat(pads)), w.shape, dy, stride=stride)
+    return dx, dw
+
+
+class _ConvHalo(torch.autograd.Function):
+    """:class:`_ConvSame` at stride 1 over an input that carries ``p = (k -
+    1) // 2`` halo planes on each side of spatial axis ``axis``, unpadded
+    there; its weight gradient reaches the wgrad kernel through dy padded
+    with p zero planes on each side of that axis."""
+
+    @staticmethod
+    def forward(x, w, pads, mode, axis):
+        return _ConvSame.forward(x, w, 1, pads, mode)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, ctx.pads, ctx.mode, ctx.halo = inputs
+        ctx.stride = 1
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _conv_grads(ctx, dy, ctx.halo) + (None, None, None)
 
 
 def _tap_lanes(x: torch.Tensor, ks: Sequence[int], stride: int, pads: Pads):
@@ -437,6 +476,18 @@ class _ConvSameLanes(torch.autograd.Function):
                 dw = _DW[nd](xin, wg.shape, dyg, stride=stride,
                              padding=padding if sym else 0, groups=b).reshape(w.shape)
         return dx, dw, None, None, None
+
+
+def conv_halo(x: torch.Tensor, w: torch.Tensor, axis: int, padding: Padding = 0) -> torch.Tensor:
+    """Stride-1 conv of a spatial shard that carries its neighbours' ``(k -
+    1) // 2`` edge planes on each side of spatial axis ``axis``
+    (``parallel/spatial.py``): unpadded along ``axis``, ``padding`` on the
+    other axes. dW takes the wgrad kernel where the gate admits the
+    same-padded conv of x's shape: that conv's dW with dy padded by zero
+    planes along ``axis`` is this one's."""
+    pads = list(_pairs(padding, w.ndim - 2))
+    pads[axis] = (0, 0)
+    return _ConvHalo.apply(x, w, tuple(pads), current_conv_impl(), axis)
 
 
 def conv_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

@@ -7,7 +7,9 @@ XLA fuses its plain backward ``_loss_sums_bwd`` into. With ``d = (o-t)*m``
 one pass over ``out`` (o), ``img`` (t) and ``mask`` (m) yields eight float32
 sums: sum|d|, sum d^2, sum t^2, sum (t-o)^2, sum t, sum o, sum o^2, sum t*o.
 ``fused_loss_metrics`` combines them into mae, mse, snr and pcorr exactly as
-the JAX package does (one-pass covariance included).
+the JAX package does (one-pass covariance included), through
+``metrics_from_sums``, which a spatially sharded step applies to the sums of
+its shards.
 
 Both kernels are in ``csrc/fused_loss.cu``, with their design and what bounds
 them on an H100 (bytes); ``ops/_build.py`` compiles it with ``nvcc`` at first
@@ -37,9 +39,9 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_loss_metrics", "fused_sums", "fused_sums_lanes", "fused_sums_lanes_plain",
+__all__ = ["fused_loss_metrics", "fused_loss_sums", "fused_sums", "fused_sums_lanes", "fused_sums_lanes_plain",
            "fused_sums_plain", "loss_sums_grad", "loss_sums_grad_lanes",
-           "loss_sums_grad_lanes_plain", "loss_sums_grad_plain"]
+           "loss_sums_grad_lanes_plain", "loss_sums_grad_plain", "metrics_from_sums"]
 
 _FORWARD, _BACKWARD = 0, 1
 
@@ -166,10 +168,11 @@ def _sums_launch(name: str, out: torch.Tensor, img: torch.Tensor, mask: torch.Te
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ws, ticket = _scratch(dev, stream, lanes)
     sums = torch.empty((lanes, 8), dtype=torch.float32, device=o.device)
-    _check(_library().dpi_loss_sums(
-        o.data_ptr(), t.data_ptr(), m.data_ptr(), o.numel() // lanes, lanes, int(bf16),
-        _blocks(dev, _FORWARD, bf16), ws.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
-        stream), "the fused loss kernel launch")
+    with _build.on_device(o.device):
+        _check(_library().dpi_loss_sums(
+            o.data_ptr(), t.data_ptr(), m.data_ptr(), o.numel() // lanes, lanes, int(bf16),
+            _blocks(dev, _FORWARD, bf16), ws.data_ptr(), ticket.data_ptr(), sums.data_ptr(),
+            stream), "the fused loss kernel launch")
     return sums
 
 
@@ -184,10 +187,11 @@ def _grad_launch(name: str, out: torch.Tensor, img: torch.Tensor, mask: torch.Te
     dev = o.device.index
     bf16 = o.dtype == torch.bfloat16
     grad = torch.empty(out.shape, dtype=o.dtype, device=o.device)
-    _check(_library().dpi_loss_sums_grad(
-        o.data_ptr(), t.data_ptr(), m.data_ptr(), g.data_ptr(), grad.data_ptr(),
-        o.numel() // lanes, lanes, int(bf16), _blocks(dev, _BACKWARD, bf16),
-        torch._C._cuda_getCurrentRawStream(dev)), "the fused loss gradient kernel launch")
+    with _build.on_device(o.device):
+        _check(_library().dpi_loss_sums_grad(
+            o.data_ptr(), t.data_ptr(), m.data_ptr(), g.data_ptr(), grad.data_ptr(),
+            o.numel() // lanes, lanes, int(bf16), _blocks(dev, _BACKWARD, bf16),
+            torch._C._cuda_getCurrentRawStream(dev)), "the fused loss gradient kernel launch")
     return grad
 
 
@@ -308,14 +312,16 @@ class _LossSumsLanes(torch.autograd.Function):
         return loss_sums_grad_lanes(out, img, mask, g), None, None
 
 
-def fused_loss_metrics(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
-                       loss: str = "mae") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, {'snr', 'pcorr', 'mae', 'mse'}) from one pass over the inputs.
+def fused_loss_sums(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The eight sums (``fused_sums``), differentiable in ``out`` through the
+    gradient kernel; ``img`` and ``mask`` are data."""
+    return _LossSums.apply(out, img, mask)
 
-    Differentiable in ``out``; ``img`` and ``mask`` are data.
-    """
-    n = float(out.numel())
-    s = _LossSums.apply(out, img, mask)
+
+def metrics_from_sums(s: torch.Tensor, n: float, loss: str = "mae"
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {'snr', 'pcorr', 'mae', 'mse'}) from the eight sums ``s`` over
+    ``n`` elements, as the JAX package combines them (one-pass covariance)."""
     mae_v = s[0] / n
     mse_v = s[1] / n
     snr_v = 10.0 * torch.log10(s[2] / s[3])
@@ -327,3 +333,12 @@ def fused_loss_metrics(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
     pcorr_v = cov / torch.sqrt(var_t * var_o)
     loss_v = mae_v if loss in ("mae", "l1") else mse_v
     return loss_v, {"snr": snr_v, "pcorr": pcorr_v, "mae": mae_v, "mse": mse_v}
+
+
+def fused_loss_metrics(out: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
+                       loss: str = "mae") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {'snr', 'pcorr', 'mae', 'mse'}) from one pass over the inputs.
+
+    Differentiable in ``out``; ``img`` and ``mask`` are data.
+    """
+    return metrics_from_sums(fused_loss_sums(out, img, mask), float(out.numel()), loss)

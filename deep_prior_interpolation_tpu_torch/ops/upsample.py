@@ -237,10 +237,11 @@ def _launch(g: torch.Tensor, gin: torch.Tensor, p: Plan) -> None:
     args = (g.data_ptr(), gin.data_ptr(), planes, d, h, w, int(gin.dim() == 5),
             int(g.dtype == torch.bfloat16))
     stream = torch._C._cuda_getCurrentRawStream(g.device.index)
-    if p.kernel == "tma":
-        rc = _library().dpi_upsample_bwd_tma(*args, p.cfg, p.stages, p.span, stream)
-    else:
-        rc = _library().dpi_upsample_bwd_direct(*args, p.th, p.tw, p.span, stream)
+    with _build.on_device(g.device):
+        if p.kernel == "tma":
+            rc = _library().dpi_upsample_bwd_tma(*args, p.cfg, p.stages, p.span, stream)
+        else:
+            rc = _library().dpi_upsample_bwd_direct(*args, p.th, p.tw, p.span, stream)
     if rc != 0:
         raise RuntimeError(f"upsample_bwd {p.kernel} kernel launch failed: CUDA error {rc} "
                            f"(grad_out {tuple(g.shape)}, {p})")

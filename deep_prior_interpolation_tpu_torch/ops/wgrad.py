@@ -589,10 +589,8 @@ def _run(x: torch.Tensor, dy: torch.Tensor, k: int, lanes: bool) -> torch.Tensor
             raise ValueError(f"the wgrad3d kernel takes 1 < k <= {_MAX_K}, got {k}")
         with torch.cuda.device(x.device):
             tuned = _tuned[key] = _tune(x, dy, k)
-    if x.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x.device):
-            return _launch(tuned[0], x, dy, tuned[1], lanes)
-    return _launch(tuned[0], x, dy, tuned[1], lanes)
+    with _build.on_device(x.device):
+        return _launch(tuned[0], x, dy, tuned[1], lanes)
 
 
 def wgrad3d(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:

@@ -130,8 +130,19 @@ def test_netdir_and_start_from_prev_load_the_weights(pocs_run, tmp_path):
 
 
 def test_refusals_and_the_device(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
-        cli.run(_cfg("b", "--spatial_shards", "2"), str(tmp_path), device="cpu")
+    # --spatial_shards 2 solves each patch over two CPU shards: the bundles
+    # of an unsharded run, but for the order of the shards' sums
+    sharded = cli.run(_cfg("s", "--spatial_shards", "2"), str(tmp_path), device="cpu")
+    plain = cli.run(_cfg("u"), str(tmp_path), device="cpu")
+    assert completed_patches(sharded) == completed_patches(plain) == ["0", "1"]
+    for n in ("0", "1"):
+        s, p = (load_run(os.path.join(d, f"{n}_run.npz")) for d in (sharded, plain))
+        assert list(s) == list(p)
+        for k in ("image", "mask", "noise"):
+            np.testing.assert_array_equal(s[k], p[k])
+        np.testing.assert_allclose(s["history"]["loss"], p["history"]["loss"], rtol=1e-4)
+        np.testing.assert_allclose(s["output"], p["output"], rtol=0,
+                                   atol=1e-4 * float(np.abs(p["output"]).max()))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.run(_cfg("nocuda"), str(tmp_path))

@@ -1,7 +1,10 @@
-"""What the port refuses: every feature it does not serve yet (spatial
-shards, ROADMAP A.13b) raises NotImplementedError naming its ROADMAP item, and a canvas of the wrong
+"""What the port refuses: every feature it does not serve yet (what a
+spatially sharded solve does not cover, ROADMAP A.13c) raises
+NotImplementedError naming its ROADMAP item, and a canvas of the wrong
 shape is rejected; the solver options, nets and conv formulations it
 serves (phase space and tapmm among them) build."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,23 +22,30 @@ def tiny_cfg(**kw):
     return Config(**base)
 
 
-@pytest.mark.parametrize("kw", [dict(spatial_shards=2)])
+@pytest.mark.parametrize("kw", [dict(spatial_shards=2, pocs=True)])
 def test_unported_features_raise(kw, tmp_path):
     """Spatial shards are the CLI's (a library solve ignores the field, as
-    the JAX one does), so ``cli.run`` refuses them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    the JAX one does); ``cli.run`` refuses a sharded run of what the shards
+    do not cover yet before it solves a patch."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13c"):
         cli.run(tiny_cfg(**kw), str(tmp_path), device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def test_cli_and_weights_refusals(tmp_path):
-    """Spatial shards, with patch batches or without, are refused naming
-    ROADMAP A.13b, and so is a solve given a spatial mesh; a weights file
+    """A sharded run with remat, through the CLI, and a solve given a
+    spatial mesh with dropout are refused naming ROADMAP A.13c; a mesh
+    longer than the sharded axis's blocks is a ValueError; a weights file
     that is not msgpack is refused with its offset."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
-        cli.run(tiny_cfg(spatial_shards=2, batch_patches=0), str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="remat: ROADMAP A.13c"):
+        cli.run(tiny_cfg(spatial_shards=2, batch_patches=0, remat=True), str(tmp_path),
+                device="cpu")
     img = np.zeros((16, 8, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13b"):
-        DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=object())
+    mesh = [torch.device("cpu")] * 2
+    with pytest.raises(NotImplementedError, match="dropout > 0: ROADMAP A.13c"):
+        DIPSolver(tiny_cfg(dropout=0.1), device="cpu").solve(img, img, spatial_mesh=mesh)
+    with pytest.raises(ValueError, match="at most 4 shards"):
+        DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=mesh * 4)
     bad = tmp_path / "weights.msgpack"
     bad.write_bytes(b"\xc1")  # the one byte msgpack never uses
     with pytest.raises(ValueError, match="offset 0"):
