@@ -54,7 +54,7 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       with the flagship's flags and ``--patch_shape 256 128 128 --gain 40
       --epochs 6 --scan_chunk 3 --save_every 3 --pocs --savemodel``: 2
       patches x 6 iterations, launches 12 / 12 / 384 / 48. It checks the bundle
-      keys (the JAX package's), one snapshot and one ``_model.pt`` a patch,
+      keys (the JAX package's), one snapshot and one ``_model.msgpack`` a patch,
       the reconstruction of the run directory against each bundle's
       ``output / 40`` (rtol 1e-6), and that a second run on the same
       directory skips both patches and launches nothing. It prints each
@@ -178,15 +178,34 @@ Phases, each of which ends the run with a non-zero exit code on failure:
        shard's output; ``upsample_bwd`` at every shard shape, bit-equal;
     d. where there are two cards, 10a's 2-shard solve over cuda:0 and
        cuda:1 with each card's peak; else a line saying it was skipped.
+       The upsample's rows of 10c carry the plain version's and the atomic
+       ``upsample_trilinear3d_backward``'s times.
+
+11. the solver's options over spatial shards, each sharded solve traced as
+    10a (launch counters set to 0 just before and read just after: 32 N /
+    N / N / 4 N an iteration, the hooks' wgrad and upsample shapes those of
+    ``spatial_wgrad_shapes(N)`` / ``spatial_upsample_shapes(N)``, every
+    upsample backward on the TMA kernel):
+    a. phase 4's flagship with parameter noise, dropout 0.1, the virtual
+       canvas and remat over [cuda:0] x 2 and x 4, 6 iterations: the
+       iteration-0 loss against the unsharded solve with the same options
+       and seed (rel 1e-4), s/iteration and peak beside 10a's;
+    b. the flagship in float32 (TF32 off) with data forgetting, POCS
+       (adaptive eps) and the low-pass canvas over 2 shards, 4 iterations,
+       without and with remat: iteration 0's loss, df, reg and eps against
+       the unsharded solve's (rel 1e-4), the peak of each;
+    c. phase 3's small float32 solve with dropout, parameter noise and
+       remat over 4 shards: two solves and a resume bit-equal.
 
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 10; every one must pass.
+   after phase 11; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
-next-to-last line (each kernel with its phase-10 launches by shard count),
-the ``{"phase10": ...}``, ``{"phase8": ...}``, ``{"phase7": ...}``,
-``{"phase6": ...}``, ``{"cli": ...}`` and ``{"main_path": ...}`` lines before
-it, the last line ``{"ok": true, "device": {...}}``.
+next-to-last line (each kernel with its launches by shard count in 10a,
+11a and 11b), the ``{"phase11": ...}``, ``{"phase10": ...}``,
+``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
+and ``{"main_path": ...}`` lines before it, the last line ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -950,7 +969,7 @@ def cli_survey(dev, tmp: str) -> dict:
 
     files = set(os.listdir(out))
     for i, name in enumerate(("0", "1")):
-        for f in (f"{name}_run.npz", f"{name}_output3.npy", f"{name}_model.pt"):
+        for f in (f"{name}_run.npz", f"{name}_output3.npy", f"{name}_model.msgpack"):
             if f not in files:
                 fail(f"the survey did not write {f}: {sorted(files)}")
         with np.load(os.path.join(out, f"{name}_run.npz"), allow_pickle=True) as z:
@@ -2093,19 +2112,19 @@ def spatial_upsample_shapes(n: int) -> collections.Counter:
                                for a, b in _shard_planes(sp[1], n))
 
 
-def spatial_solve(dev, mesh, label: str, main: dict) -> dict:
-    """The flagship through ``DIPSolver.solve(spatial_mesh=mesh)``, 9
-    iterations in chunks of 3, traced as phase 4: the launch counts, the
-    first loss against phase 4's (same seed: same parameters, canvas and
-    noise), the s/iteration and each device's peak."""
+def sharded_flagship(mesh, cfg, img, mask, label: str) -> tuple:
+    """The flagship (``cfg``) through ``DIPSolver.solve(spatial_mesh=mesh)``
+    along H, traced as phase 4; fails unless every loss and ``out_best`` is
+    finite, the launches are ``spatial_counts``, the wgrad and upsample
+    hooks see ``spatial_wgrad_shapes``/``spatial_upsample_shapes`` as often
+    as ``cfg.epochs`` iterations give them, and every upsample backward runs
+    on the TMA kernel. Returns the result and its summary: launches,
+    losses, s/iteration (the median of chunks 2..), each device's peak."""
     from deep_prior_interpolation_tpu_torch import DIPSolver
-    from deep_prior_interpolation_tpu_torch.data import flagship_problem
     from deep_prior_interpolation_tpu_torch.ops import upsample as U
 
-    img, mask = flagship_problem(256, 128, 128)
-    cfg = flagship_config()
     set_kernels(True)
-    n = len(mesh)
+    n, iters = len(mesh), cfg.epochs
     devices = sorted({d.index for d in mesh})
     solver = DIPSolver(cfg, outchannel=1, device=mesh[0])
     for d in devices:
@@ -2116,40 +2135,57 @@ def spatial_solve(dev, mesh, label: str, main: dict) -> dict:
     peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d) for d in devices}
     kinds = read_upsample_kernels()
     loss = np.asarray(res.history.loss)
-    want = spatial_counts(n, 9)
+    want = spatial_counts(n, iters)
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
-    rel = abs(float(loss[0]) - main["loss0"]) / abs(main["loss0"])
     ups = {f"{c} x {sp}": U.plan(c, *sp, True, 2).kernel for c, sp in sorted(seen_up)}
-    log(f"{label}: first 3 losses {loss[:3].tolist()} against phase 4's {main['losses'][:3]}; "
-        f"iteration-0 rel err {rel:.3e} (tol {LOSS0_TOL_BF16:g}, bf16 sums in another order)")
-    log(f"{label}: chunk seconds {res.chunk_seconds}; steady s/iteration {steady:.4f} against "
-        f"phase 4's {main['s_per_iter']:.4f}; peak memory "
-        f"{ {k: round(v / 2**30, 2) for k, v in peaks.items()} } GiB against phase 4's "
-        f"{main['peak_bytes'] / 2**30:.2f} (predicted: {PREDICTED_10A})")
+    log(f"{label}: chunk seconds {res.chunk_seconds}; steady s/iteration {steady:.4f}; peak "
+        f"memory { {k: round(v / 2**30, 2) for k, v in peaks.items()} } GiB")
     log(f"{label}: launches {counts} (expected {want}); upsample_bwd by kernel {kinds}; the "
         f"{len(seen_up)} upsample shapes' kernels {ups}; {len(seen)} distinct wgrad shapes "
-        f"({sum(seen.values()) // 9} launches an iteration)")
-    if not (len(loss) == 9 and np.all(np.isfinite(loss))):
-        fail(f"{label}: the sharded flagship's loss is not finite for 9 iterations")
+        f"({sum(seen.values()) // iters} launches an iteration)")
+    if not (len(loss) == iters and np.all(np.isfinite(loss))):
+        fail(f"{label}: the sharded flagship's loss is not finite for {iters} iterations")
     if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
         fail(f"{label}: out_best has shape {res.out_best.shape} or is not finite")
     if counts != want:
         fail(f"{label}: the sharded path's launch counts are {counts}, not {want}")
-    want_wg = {key: 9 * k for key, k in spatial_wgrad_shapes(n).items()}
+    want_wg = {key: iters * k for key, k in spatial_wgrad_shapes(n).items()}
     if dict(seen) != want_wg:
         fail(f"{label}: the sharded path's wgrad shapes are {dict(seen)}, not {want_wg}")
-    want_up = {key: 9 * k for key, k in spatial_upsample_shapes(n).items()}
+    want_up = {key: iters * k for key, k in spatial_upsample_shapes(n).items()}
     if dict(seen_up) != want_up:
         fail(f"{label}: the sharded path's upsample shapes are {dict(seen_up)}, not {want_up}")
+    if kinds != {"tma": want["upsample_bwd"], "direct": 0}:
+        fail(f"{label}: the upsample backward ran {kinds}, not all on the TMA kernel")
+    del solver
+    return res, {"shards": n, "devices": [str(d) for d in mesh], "launches": counts,
+                 "upsample_kernels": kinds, "upsample_shape_kernels": ups,
+                 "losses": loss.tolist(), "s_per_iter": steady,
+                 "chunk_seconds": res.chunk_seconds, "peak_bytes": peaks,
+                 "wgrad_shapes": [[ci, co, list(sp), c // iters]
+                                  for (ci, co, sp), c in sorted(seen.items())]}
+
+
+def spatial_solve(dev, mesh, label: str, main: dict) -> dict:
+    """The flagship through ``DIPSolver.solve(spatial_mesh=mesh)``, 9
+    iterations in chunks of 3, traced as phase 4 (``sharded_flagship``); the
+    first loss against phase 4's (same seed: same parameters, canvas and
+    noise), the s/iteration and each device's peak beside phase 4's."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    _, out = sharded_flagship(mesh, flagship_config(), img, mask, label)
+    loss = out["losses"]
+    rel = abs(loss[0] - main["loss0"]) / abs(main["loss0"])
+    log(f"{label}: first 3 losses {loss[:3]} against phase 4's {main['losses'][:3]}; "
+        f"iteration-0 rel err {rel:.3e} (tol {LOSS0_TOL_BF16:g}, bf16 sums in another order)")
+    log(f"{label}: steady s/iteration {out['s_per_iter']:.4f} against phase 4's "
+        f"{main['s_per_iter']:.4f}; peak against phase 4's {main['peak_bytes'] / 2**30:.2f} "
+        f"GiB (predicted: {PREDICTED_10A})")
     if not rel <= LOSS0_TOL_BF16:
         fail(f"{label}: the iteration-0 loss differs from phase 4's")
-    del solver
-    return {"shards": n, "devices": [str(d) for d in mesh], "launches": counts,
-            "upsample_kernels": kinds, "upsample_shape_kernels": ups,
-            "losses": loss.tolist(), "loss0_rel_err": rel, "s_per_iter": steady,
-            "chunk_seconds": res.chunk_seconds, "peak_bytes": peaks,
-            "wgrad_shapes": [[ci, co, list(sp), c // 9]
-                             for (ci, co, sp), c in sorted(seen.items())]}
+    out["loss0_rel_err"] = rel
+    return out
 
 
 def spatial_flagship(dev, main: dict) -> dict:
@@ -2465,15 +2501,21 @@ def spatial_kernels(dev) -> dict:
                 got = U.upsample_bwd(go, 3)
                 equal = torch.equal(got, U.upsample_bwd_plain(go, 3))
                 kernel = U.plan(c, sp[0], hs + 2, sp[2], True, 2).kernel
-                row = {"channels": c, "shards": n, "input": [sp[0], hs + 2, sp[2]],
+                sizes = [1, c, sp[0], hs + 2, sp[2]]
+                row = {"channels": c, "shards": n, "input": sizes[2:],
                        "kernel": kernel, "bit_equal_to_plain": equal,
-                       "ms": time_ms(lambda: U.upsample_bwd(go, 3))}
+                       "ms": time_ms(lambda: U.upsample_bwd(go, 3)),
+                       "plain_ms": time_ms(lambda: U.upsample_bwd_plain(go, 3)),
+                       "library_ms": time_ms(
+                           lambda: torch.ops.aten.upsample_trilinear3d_backward(
+                               go, list(go.shape[2:]), sizes, False, 2.0, 2.0, 2.0))}
                 n_in = c * sp[0] * (hs + 2) * sp[2]
                 row["bound_ms"], row["bound_by"] = bound_ms(9 * n_in * 2, 49.0 * n_in,
                                                             torch.float32)
                 log(f"10c upsample_bwd {c} x {tuple(row['input'])} ({n} shards, {kernel}): "
                     f"bit-equal to the plain version {equal}; ms {row['ms']:.4f} bound "
-                    f"{row['bound_ms']:.4f}")
+                    f"{row['bound_ms']:.4f} plain {row['plain_ms']:.4f} atomic "
+                    f"upsample_trilinear3d_backward {row['library_ms']:.4f}")
                 if not equal:
                     fail(f"10c: upsample_bwd at the shard shape {c} x {row['input']} is not "
                          f"bit-equal to the plain version")
@@ -2492,6 +2534,135 @@ def spatial_multicard(dev, main: dict) -> dict:
         log("10d: skipped, one card (a 2-card mesh needs two)")
         return {"skipped": "one card"}
     return spatial_solve(dev, make_spatial_mesh(2), "10d cuda:0 + cuda:1", main)
+
+
+# ----------------------------------------------------------------------
+# phase 11: the solver's options over spatial shards
+# ----------------------------------------------------------------------
+
+# 11a's options, each drawing from a generator of the step (the virtual
+# canvas from the canvas's); the low-pass canvas runs in 11b, as a shaped
+# canvas turns the virtual one off (StepSettings.from_config, as in the JAX
+# package)
+OPTIONS_11A = dict(param_noise=True, dropout=0.1, virtual_input=True, remat=True)
+OPTIONS_11B = dict(dtype="float32", data_forgetting_factor=5, pocs=True, lowpass_fs=250.0,
+                   lowpass_fc=40.0)
+LOSS0_TOL_11 = 1e-4
+# what was predicted before the first card run of phase 11 (PERF.md)
+PREDICTED_11 = ("11a s/iteration 0.30-0.45 at N = 2, 0.50-0.75 at N = 4 (10a's plus remat's "
+                "second forward and the canvas drawn again); peak 6-9 GiB at both; 11b peak "
+                "17-21 GiB without remat, 7-10 with it")
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def spatial_options(dev, phase10: dict) -> dict:
+    """11a: the flagship with parameter noise, dropout 0.1, the virtual
+    canvas and remat over [cuda:0] * 2 and * 4, 6 iterations each, traced
+    as 10a (launches 32 N / N / N / 4 N an iteration, the shard shapes, all
+    upsamples on TMA); the iteration-0 loss against the unsharded solve
+    with the same options and seed (rel 1e-4); s/iteration and peak beside
+    10a's."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    img, mask = flagship_problem(256, 128, 128)
+    set_kernels(True)
+    ref = DIPSolver(flagship_config(epochs=1, scan_chunk=1, **OPTIONS_11A), outchannel=1,
+                    device=dev).solve(img, mask, seed=0).history.loss[0]
+    out = {"unsharded_loss0": ref}
+    for n in SPATIAL_SHARDS:
+        label = f"11a {n} shards"
+        _, r = sharded_flagship(make_spatial_mesh(n, [dev] * n),
+                                flagship_config(epochs=6, **OPTIONS_11A), img, mask, label)
+        r["loss0_rel_err"] = rel = _rel(r["losses"][0], ref)
+        ten = phase10[str(n)]
+        log(f"{label}: iteration-0 loss {r['losses'][0]:.7g} against the unsharded solve's "
+            f"{ref:.7g}, rel err {rel:.3e} (tol {LOSS0_TOL_11:g}); s/iteration "
+            f"{r['s_per_iter']:.4f} against 10a's {ten['s_per_iter']:.4f}; peak "
+            f"{max(r['peak_bytes'].values()) / 2**30:.2f} GiB against 10a's "
+            f"{max(ten['peak_bytes'].values()) / 2**30:.2f} (predicted: {PREDICTED_11})")
+        if not rel <= LOSS0_TOL_11:
+            fail(f"{label}: the iteration-0 loss differs from the unsharded solve's")
+        out[str(n)] = r
+    return out
+
+
+def spatial_float32(dev) -> dict:
+    """11b: the flagship in float32 (TF32 off) with data forgetting, POCS
+    (adaptive eps) and the low-pass canvas over [cuda:0] * 2, 4 iterations
+    without and with remat: the iteration-0 loss, df, reg and eps against
+    the unsharded solve's (rel 1e-4), launches and shapes as 10a, and the
+    peak memory of each."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    img, mask = flagship_problem(256, 128, 128)
+    set_kernels(True)
+    ref = DIPSolver(flagship_config(epochs=1, scan_chunk=1, **OPTIONS_11B), outchannel=1,
+                    device=dev).solve(img, mask, seed=0).history
+    out = {}
+    for remat in (False, True):
+        label = f"11b float32 2 shards{' + remat' if remat else ''}"
+        res, r = sharded_flagship(make_spatial_mesh(2, [dev] * 2),
+                                  flagship_config(epochs=4, scan_chunk=2, remat=remat,
+                                                  **OPTIONS_11B), img, mask, label)
+        errs = {f: _rel(getattr(res.history, f)[0], getattr(ref, f)[0])
+                for f in ("loss", "df", "reg", "eps")}
+        log(f"{label}: iteration 0 against the unsharded solve, rel err {errs} (tol "
+            f"{LOSS0_TOL_11:g}); df {res.history.df[0]:.7g} reg {res.history.reg[0]:.7g} "
+            f"eps {res.history.eps[0]:.7g}")
+        if not all(e <= LOSS0_TOL_11 for e in errs.values()):
+            fail(f"{label}: iteration 0 differs from the unsharded solve's")
+        if res.pocs is None or not np.all(np.isfinite(res.pocs)):
+            fail(f"{label}: the final projection is missing or not finite")
+        out["remat" if remat else "plain"] = dict(r, iteration0_rel_err=errs)
+        del res
+        torch.cuda.empty_cache()
+    log(f"11b: peak {max(out['plain']['peak_bytes'].values()) / 2**30:.2f} GiB without remat, "
+        f"{max(out['remat']['peak_bytes'].values()) / 2**30:.2f} with it (predicted: "
+        f"{PREDICTED_11})")
+    return out
+
+
+def spatial_options_exactness(dev, tmp: str) -> dict:
+    """11c: phase 3's small float32 solve with dropout, parameter noise and
+    remat over 4 shards of the card: two solves, and a resume from a
+    3-iteration checkpoint, bit-equal (each with a checkpoint path, so
+    deterministic cuDNN)."""
+    import dataclasses
+
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    cfg, img, mask, noise, init, _ = small_problem()
+    cfg = dataclasses.replace(cfg, dropout=0.1, param_noise=True, remat=True, scan_chunk=3)
+    set_kernels(True)
+    mesh = make_spatial_mesh(4, [dev] * 4)
+
+    def run(name, epochs):
+        return DIPSolver(dataclasses.replace(cfg, epochs=epochs), device=dev).solve(
+            img, mask, seed=0, init_params=init, noise=noise, spatial_mesh=mesh,
+            spatial_axis=SPATIAL_AXIS, checkpoint_path=os.path.join(tmp, name),
+            checkpoint_every=1)
+    first, second = run("options_a.npz", 6), run("options_b.npz", 6)
+    run("options_c.npz", 3)
+    resumed = run("options_c.npz", 6)
+    twice = (np.array_equal(first.history.loss, second.history.loss)
+             and np.array_equal(first.out_best, second.out_best))
+    resume = (resumed.iters_run == 6 and np.array_equal(first.history.loss, resumed.history.loss)
+              and np.array_equal(first.out_best, resumed.out_best))
+    log(f"11c: two sharded solves with dropout, parameter noise and remat bit-equal {twice}; a "
+        f"resume from 3 iterations bit-equal to the straight solve {resume} "
+        f"({resumed.history.loss})")
+    if not (twice and resume):
+        fail("11c: sharded solves with the options, or their resume, are not bit-equal")
+    return {"two_runs_bit_equal": twice, "resume_bit_equal": resume,
+            "losses": list(first.history.loss)}
 
 
 # kernel families of the profile, by the first pattern a kernel name holds
@@ -2541,7 +2712,7 @@ def profile_flagship(dev, out_dir: str, **kw) -> None:
 CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
-              "tests/test_torch_cuda_spatial.py"]
+              "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py"]
 
 
 # the one skip reason the CUDA tests may give, and only on a one-card machine
@@ -2654,6 +2825,14 @@ def main() -> None:
                                           main)}
         seconds["10_total"] = time.time() - t10
         log(f"phase 10: {seconds['10_total']:.1f} s")
+        t11 = time.time()
+        phase11 = {"11a_options": phase("11a_spatial_options", spatial_options, dev,
+                                        phase10["10a_flagship"]),
+                   "11b_float32": phase("11b_spatial_float32", spatial_float32, dev),
+                   "11c_exactness": phase("11c_spatial_exactness", spatial_options_exactness,
+                                          dev, tmp)}
+        seconds["11_total"] = time.time() - t11
+        log(f"phase 11: {seconds['11_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -2684,12 +2863,17 @@ def main() -> None:
     fused_grad["phase_launches"] = phase7["7a_flagship"]["launches"]["fused_loss_grad"]
     phase10["seconds"] = {k: v for k, v in seconds.items() if k.startswith("10")}
     log(json.dumps({"phase10": phase10}))
+    phase11["seconds"] = {k: v for k, v in seconds.items() if k.startswith("11")}
+    log(json.dumps({"phase11": phase11}))
     # each kernel's launches on 10a's sharded paths, by shard count, and its
     # rows at the shard shapes (10c)
     for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
                        (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
         entry["spatial_launches"] = {n: r["launches"][key]
                                      for n, r in phase10["10a_flagship"].items()}
+        entry["spatial_options_launches"] = {
+            "11a": {n: phase11["11a_options"][str(n)]["launches"][key] for n in SPATIAL_SHARDS},
+            "11b": {k: r["launches"][key] for k, r in phase11["11b_float32"].items()}}
     fused["spatial_shapes"] = phase10["10c_kernels"]["fused"]
     wgrad["spatial_shapes"] = phase10["10c_kernels"]["wgrad"]
     upsample["spatial_shapes"] = phase10["10c_kernels"]["upsample"]

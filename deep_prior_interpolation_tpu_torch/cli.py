@@ -13,7 +13,8 @@ switches on the DIP+POCS loss. A run:
   through ``load_checked``) or start from the previous patch's
   (``--start_from_prev``), solve, and write ``<name>_run.npz``, the
   snapshots ``<name>_output<it>.npy`` (``--save_every``) and, with
-  ``--savemodel``, ``<name>_model.pt``.
+  ``--savemodel``, ``<name>_model.msgpack`` (the JAX package's weights
+  file, which its ``--net load --netdir`` reads).
 
 It runs on ``cuda:{gpu}`` (``cuda`` without ``--gpu``; an index past the
 cards warns and takes ``cuda:0``). Only ``run(..., device="cpu")`` runs it on
@@ -29,8 +30,8 @@ group (an all-corrupted one too) and takes no ``--netdir``; with
 ``--batch_patches`` says. ``--spatial_shards N`` (N > 1) splits each
 patch's volume along ``--spatial_axis`` over N shards
 (``parallel.make_spatial_mesh``: the first N cards, or N shards on the CPU
-for ``device="cpu"``). ``--netdir`` takes the port's ``<name>_model.pt`` or
-a JAX run's ``<name>_model.msgpack``.
+for ``device="cpu"``). ``--netdir`` takes a ``<name>_model.msgpack`` of
+either package, or a ``.pt`` state dict.
 """
 from __future__ import annotations
 
@@ -144,7 +145,7 @@ def run(cfg: Config, results_root: str = "./results",
             np.save(os.path.join(
                 outpath, f"{name}_output{str(it).zfill(res.history.zfill)}.npy"), snap)
         if cfg.savemodel:
-            save_params(os.path.join(outpath, f"{name}_model.pt"), res.params)
+            save_params(os.path.join(outpath, f"{name}_model.msgpack"), res.params)
         _log(f"Finished patch {name}")
 
     _log(f"Interpolation done! Saved to {outpath}")
@@ -169,7 +170,7 @@ def _run_batched(cfg: Config, solver: DIPSolver, patches: List[dict], outpath: s
                 np.save(os.path.join(
                     outpath, f"{name}_output{str(it).zfill(res.history.zfill)}.npy"), snap)
             if cfg.savemodel:
-                save_params(os.path.join(outpath, f"{name}_model.pt"), res.params)
+                save_params(os.path.join(outpath, f"{name}_model.msgpack"), res.params)
             _log(f"Finished patch {name}")
 
 

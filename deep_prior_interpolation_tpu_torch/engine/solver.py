@@ -55,7 +55,9 @@ and every tracker is a (B,) tensor. Lane i computes what a solve with seed
 ``cfg.seed + i`` computes, but for the rounding of the batched ops. And it
 serves one patch split along a spatial axis over several shards
 (``spatial_mesh``, ``parallel/spatial.py``): the net walked over the
-shards, the canvas, data and outputs split, everything else whole.
+shards, the canvas, data and outputs split, everything else whole, each
+draw made whole and split, and the POCS term taken on the gathered
+output.
 
 Where the JAX package refuses a configuration the port raises the same
 error class: under ``dtype="bfloat16"`` input optimisation, and a net output
@@ -322,6 +324,19 @@ def pocs_term(out: torch.Tensor, main: torch.Tensor, data, hyper,
     else:
         eps = hyper["pocs_weight"].to(main.dtype)
     return main + eps * reg, reg, eps, th
+
+
+def _with_pocs(out: torch.Tensor, main: torch.Tensor, ys: Dict[str, torch.Tensor], data,
+               hyper, s: StepSettings) -> torch.Tensor:
+    """The step's loss: ``main``, or with POCS ``main + eps * reg``
+    (``pocs_term`` of the whole cropped output ``out``), whose terms (df,
+    reg, eps, th) go into ``ys``."""
+    if not s.pocs:
+        return main
+    loss, reg, eps, th = pocs_term(out, main, data, hyper, s)
+    ys.update({"df": main.detach(), "reg": reg.detach(), "eps": eps.detach().float(),
+               "th": th.float()})
+    return loss
 
 
 class _FlatParams:
@@ -631,12 +646,7 @@ class DIPSolver:
             main = L.masked_fit([out], [img], [mask], s.loss)
             with torch.no_grad():
                 ys = L.snr_pcorr([out.detach().float()], [img])
-        loss = main
-        if s.pocs:
-            loss, reg, eps, th = pocs_term(out, main, data, hyper, s)
-            ys.update({"df": main.detach(), "reg": reg.detach(),
-                       "eps": eps.detach().float(), "th": th.float()})
-        return out, loss, ys
+        return out, _with_pocs(out, main, ys, data, hyper, s), ys
 
     def _lane_forward(self, inp: torch.Tensor, st: Dict[str, Any], data, hyper,
                       s: StepSettings):
@@ -664,7 +674,7 @@ class DIPSolver:
         lanes = isinstance(gens, list)
         sharded = st.get("spatial")
         if sharded is not None:
-            inp = sharded.net_input(data, s, gens)
+            inp = sharded.net_input(it, data, s, gens, regenerate)
         else:
             inp = self._net_input(it, st, data, s, gens, regenerate)
         frozen = None
@@ -674,8 +684,10 @@ class DIPSolver:
             out, loss, ys = self._lane_forward(inp, st, data, hyper, s)
             grads = torch.autograd.grad(loss.sum(), flat.leaves())
         elif sharded is not None:
-            out, loss, ys = sharded.loss_terms(sharded(inp), data, s, st["out_best"][0].dtype,
+            out, main, ys = sharded.loss_terms(sharded(inp), data, s, st["out_best"][0].dtype,
                                                flat.flat.device)
+            whole = sharded.layout.gather(out, main.device) if s.pocs else None
+            loss = _with_pocs(whole, main, ys, data, hyper, s)
             grads = torch.autograd.grad(loss, flat.leaves())
         else:
             net_out = (self.model(inp, data["net_mask"]) if s.takes_mask
@@ -937,15 +949,15 @@ class DIPSolver:
                 stopped = iters_run < cfg.epochs
                 break
         elapsed = time.time() - start
-        if layout is not None:
+        if layout is not None and not s.virtual_input:
             data = dict(data, base_input=layout.gather(data["base_input"]))
 
         pocs = None
         if s.pocs:
             with torch.no_grad():
                 pocs = _to_channels_last(fk_projection(
-                    st["out_best"].float(), data["pocs_wdata"], data["pocs_wmask"],
-                    hyper["pocs_thresh"]))
+                    _whole(st, st["out_best"]).float(), data["pocs_wdata"],
+                    data["pocs_wmask"], hyper["pocs_thresh"]))
         return SolveResult(
             out_best=_to_channels_last(_whole(st, st["out_best"])), history=hist,
             params={k: v.detach().cpu().clone()

@@ -2,12 +2,14 @@
 
 Two formats:
 
-* the net's weights: ``torch.save`` of its state dict, ``<name>_model.pt``
-  (the format of the reference code the JAX package was ported from), or,
-  read only, the JAX package's ``<name>_model.msgpack`` (flax's msgpack,
-  through ``io/msgpack.py`` and ``io/bridge.py``). ``load_checked`` first
-  reads the saved run's ``args.txt`` and refuses a net whose configuration
-  differs (``net_args_are_same``).
+* the net's weights: the JAX package's ``<name>_model.msgpack`` (flax's
+  msgpack of its parameter tree, through ``io/msgpack.py`` and
+  ``io/bridge.py``), which the CLI's ``--savemodel`` writes and either
+  package reads; or ``torch.save`` of the state dict (``.pt``, the format
+  of the reference code the JAX package was ported from), which
+  ``save_params`` writes for any other suffix and ``load_params`` reads.
+  ``load_checked`` first reads the saved run's ``args.txt`` and refuses a
+  net whose configuration differs (``net_args_are_same``).
 * the solver's whole state for an exact resume, one ``.npz``: the flat
   parameter buffer, Adam's ``mu``, ``nu`` and ``count``, an optimised
   canvas with its moments, the states of the step's generators (input
@@ -25,8 +27,8 @@ import numpy as np
 import torch
 
 from ..config import Config, net_args_are_same, read_args
-from .bridge import jax_params_to_state_dict
-from .msgpack import read_msgpack
+from .bridge import jax_params_to_state_dict, state_dict_to_jax_params
+from .msgpack import read_msgpack, write_msgpack
 
 
 def npz_path(path: str) -> str:
@@ -36,9 +38,14 @@ def npz_path(path: str) -> str:
 
 
 def save_params(path: str, params: Mapping[str, torch.Tensor]) -> None:
-    """``torch.save`` of a state dict, as CPU tensors."""
+    """Write a state dict: for a ``.msgpack`` path the JAX package's file
+    (flax's msgpack of the parameter tree, float32), which its
+    ``load_params`` reads; else ``torch.save`` of the CPU tensors."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
+    if path.endswith(".msgpack"):
+        write_msgpack(path, state_dict_to_jax_params(params))
+    else:
+        torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
 
 
 def _check_like(state: Mapping[str, torch.Tensor],

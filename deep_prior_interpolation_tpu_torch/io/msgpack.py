@@ -1,5 +1,5 @@
-"""A decoder of the msgpack that flax writes: the JAX package's ``.msgpack``
-weights, read without the ``msgpack`` or ``flax`` packages.
+"""The msgpack that flax writes, read and written without the ``msgpack`` or
+``flax`` packages: the JAX package's ``.msgpack`` weights.
 
 ``flax.serialization.to_bytes`` packs a tree of dicts whose leaves are
 arrays. What this module reads:
@@ -16,19 +16,28 @@ Arrays come back as numpy arrays, except ``bfloat16``, which numpy lacks: a
 else (ext 2, flax's complex scalar; an unknown ext code; a byte that is no
 msgpack type; a truncated buffer; bytes after the value) raises
 ``ValueError`` naming the offset.
+
+What this module writes (``packb``, ``write_msgpack``) is the subset flax
+writes for a parameter tree, byte for byte as ``flax.serialization.to_bytes``
+packs it: maps with str keys in their order, and numpy arrays as ext 1 of
+a msgpack ``(shape, dtype name, C-order bytes)``; the ints, strs, bins and
+arrays inside it in msgpack's shortest forms. Any other leaf, a key that is
+not a str, or an array past flax's 1 GiB chunk size (which flax would write
+chunked) raises ``TypeError`` or ``ValueError``.
 """
 from __future__ import annotations
 
 import struct
-from typing import Any
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["read_msgpack", "unpackb"]
+__all__ = ["packb", "read_msgpack", "unpackb", "write_msgpack"]
 
 _NDARRAY, _NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_CHUNK = 2 ** 30   # flax's MAX_CHUNK_SIZE: a larger array is written in chunks
 
 
 class _Reader:
@@ -158,3 +167,82 @@ def read_msgpack(path: str) -> Any:
     """The tree of a ``.msgpack`` file written by flax."""
     with open(path, "rb") as fh:
         return unpackb(fh.read())
+
+
+def _head(n: int, fix: int, fix_max: int, codes: Tuple[Optional[int], ...]) -> bytes:
+    """The header of a str, bin, array or map of ``n``: the fix form below
+    ``fix_max`` (``fix`` | n), else the 8 / 16 / 32-bit length form."""
+    if n < fix_max:
+        return bytes([fix | n])
+    for code, width in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * width):
+            return bytes([code]) + n.to_bytes(width, "big")
+    raise ValueError(f"msgpack: a length of {n} does not fit 32 bits")
+
+
+def _int(v: int) -> bytes:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        return v.to_bytes(1, "big", signed=True)
+    widths = (1, 2, 4, 8)
+    if v >= 0:
+        for i, w in enumerate(widths):
+            if v < 1 << (8 * w):
+                return bytes([0xcc + i]) + v.to_bytes(w, "big")
+    else:
+        for i, w in enumerate(widths):
+            if v >= -(1 << (8 * w - 1)):
+                return bytes([0xd0 + i]) + v.to_bytes(w, "big", signed=True)
+    raise ValueError(f"msgpack: the int {v} does not fit 64 bits")
+
+
+def _ext(code: int, data: bytes) -> bytes:
+    n = len(data)
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    head = bytes([fixed[n]]) if n in fixed else _head(n, 0, 0, (0xc7, 0xc8, 0xc9))
+    return head + code.to_bytes(1, "big", signed=True) + data
+
+
+def _pack(v: Any, out: List[bytes]) -> None:
+    if isinstance(v, dict):
+        out.append(_head(len(v), 0x80, 16, (None, 0xde, 0xdf)))
+        for k, x in v.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack: a map key {k!r} is not a str (flax writes str keys)")
+            _pack(k, out)
+            _pack(x, out)
+    elif isinstance(v, np.ndarray):
+        if v.dtype.hasobject or v.dtype.isalignedstruct:
+            raise TypeError(f"msgpack: an array of dtype {v.dtype} is not written")
+        if v.nbytes > _MAX_CHUNK:
+            raise ValueError(f"msgpack: an array of {v.nbytes} bytes is past flax's chunk "
+                             f"size ({_MAX_CHUNK}), which it writes in chunks")
+        out.append(_ext(_NDARRAY, packb((v.shape, v.dtype.name, v.tobytes("C")))))
+    elif isinstance(v, (list, tuple)):
+        out.append(_head(len(v), 0x90, 16, (None, 0xdc, 0xdd)))
+        for x in v:
+            _pack(x, out)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        out.append(_head(len(b), 0xa0, 32, (0xd9, 0xda, 0xdb)) + b)
+    elif isinstance(v, (bytes, bytearray)):
+        out.append(_head(len(v), 0, 0, (0xc4, 0xc5, 0xc6)) + bytes(v))
+    elif isinstance(v, int) and not isinstance(v, bool):
+        out.append(_int(v))
+    else:
+        raise TypeError(f"msgpack: a {type(v).__name__} is not written here (maps with str "
+                        f"keys, numpy arrays, lists, strs, bytes and ints are)")
+
+
+def packb(tree: Any) -> bytes:
+    """The bytes ``flax.serialization.to_bytes`` writes for ``tree``, a
+    nested dict of numpy arrays (``io.bridge.state_dict_to_jax_params``)."""
+    out: List[bytes] = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def write_msgpack(path: str, tree: Any) -> None:
+    """Write ``tree`` (see :func:`packb`) to ``path`` as flax would."""
+    data = packb(tree)
+    with open(path, "wb") as fh:
+        fh.write(data)

@@ -324,14 +324,22 @@ class Dropout(nn.Module):
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
+        if self.generator is None or isinstance(self.generator, torch.Generator):
+            return self.keep(x, self.draw(x.shape, x.device))
+        return self.keep(x, _LaneUniform.apply(x, tuple(self.generator)) < 1.0 - self.rate)
+
+    def draw(self, shape: Sequence[int], device=None) -> torch.Tensor:
+        """One keep mask of ``shape`` on ``device`` (the generator's by
+        default): a uniform float32 draw from ``generator`` below 1 - rate."""
         if self.generator is None:
             raise RuntimeError("dropout > 0 draws from an explicit generator: "
                                "call set_dropout_generator(model, generator) first")
+        return torch.rand(tuple(shape), generator=self.generator,
+                          device=device or self.generator.device) < 1.0 - self.rate
+
+    def keep(self, x: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+        """``x / (1 - rate)`` where ``kept``, zeros elsewhere."""
         keep = 1.0 - self.rate
-        if isinstance(self.generator, torch.Generator):
-            kept = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
-        else:
-            kept = _LaneUniform.apply(x, tuple(self.generator)) < keep
         return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

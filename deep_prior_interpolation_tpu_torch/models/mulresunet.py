@@ -27,7 +27,7 @@ upsample straight into phase layout (``upsample_into_phase``) above one.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -162,17 +162,27 @@ def checkpointed(module: nn.Module, x: torch.Tensor,
     masks, and leaves the generator where the step has moved it. Under
     ``torch.func.vmap`` (``generator`` one a lane, or None) the lanes' block
     is checkpointed as a whole (:class:`_LaneCheckpoint`)."""
-    mode = current_conv_impl()
     if torch._C._functorch.is_batchedtensor(x):
         names = tuple(n for n, _ in module.named_parameters())
         params = [p for _, p in module.named_parameters()]
-        return _LaneCheckpoint.apply(x, module, names, tuple(generator or ()), mode, *params)
+        return _LaneCheckpoint.apply(x, module, names, tuple(generator or ()),
+                                     current_conv_impl(), *params)
+    return recomputed(module, (x,), generator)
 
-    def forward(h: torch.Tensor) -> torch.Tensor:
+
+def recomputed(fn: Callable, args: Sequence[torch.Tensor],
+               generator: Optional[torch.Generator]):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward runs ``fn`` again, under the forward's conv formulation and
+    with ``generator`` replayed from the state the forward started from
+    (``_replayed``), so the recompute draws the same dropout masks."""
+    mode = current_conv_impl()
+
+    def forward(*a):
         with conv_impl(mode):
-            return module(h)
+            return fn(*a)
     run = _replayed(forward, [generator] if generator is not None else [])
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class _LaneCheckpoint(torch.autograd.Function):
@@ -307,11 +317,15 @@ class MulResUnet(nn.Module):
             return 0
         return 2 if res < self.phase_deep_levels else 1
 
+    def remats(self, level: int) -> bool:
+        """Does remat checkpoint the MultiResBlocks and ResPaths of ``level``?"""
+        return self.remat and (self.remat_levels is None or level < self.remat_levels)
+
     def _block(self, name: str, level: int, x: torch.Tensor) -> torch.Tensor:
         """A MultiResBlock or ResPath of ``level``, checkpointed where remat
         covers the level."""
         m = self.get_submodule(name)
-        if not self.remat or (self.remat_levels is not None and level >= self.remat_levels):
+        if not self.remats(level):
             return m(x)
         return checkpointed(m, x, self.drop.generator if self.drop.rate > 0 else None)
 

@@ -31,16 +31,26 @@ list of shards itself, from one process, as JAX's single controller does:
     activations, adds and casts are local. The crop to the unpadded volume
     maps onto the shards (only the first and last lose planes) and the
     loss is the shards' sums all-reduced (one fused-loss launch a shard).
+    Each Dropout draws one mask at the volume's shape of its level, and
+    splits it; remat checkpoints a walked block over its list of shards,
+    collectives included, so the recompute exchanges the halos again.
 
 The parameters, Adam's moments and the scalar trackers stay on the solver's
 device; the canvas, the data and the best and last outputs are split
-(``shard_solver_state``). The input noise is drawn whole on the solver's
-device, as an unsharded solve draws it, and split, so a sharded solve
-follows the unsharded one with the same seed up to the order of its sums.
+(``shard_solver_state``). Every random draw is made whole on the solver's
+device, from the unsharded step's generator at its point in the step (the
+input noise, a virtual canvas, each dropout mask; the parameter noise
+perturbs the parameters before they are replicated), and split, so a
+sharded solve follows the unsharded one with the same seed up to the
+order of its sums. POCS gathers the cropped output to the solver's device
+(``SpatialLayout.gather``, whose backward splits the gradient) and
+projects the whole volume there, where its weights stay whole.
 
 A sharded solve covers the plain MulResUnet, 2D and 3D, nearest and linear
-upsampling, bfloat16 and float32, the fused and the plain loss, snapshots
-and checkpoints; ``check_supported`` refuses the rest (ROADMAP A.13c).
+upsampling, bfloat16 and float32, the fused and the plain loss, snapshots,
+checkpoints, POCS, remat, dropout, parameter noise, data forgetting, a
+shaped or a virtual canvas; ``check_supported`` refuses the rest (ROADMAP
+A.13c: input optimisation, phase space, tapmm and the zoo nets).
 """
 from __future__ import annotations
 
@@ -49,8 +59,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..config import Config
-from ..models.blocks import Conv, Norm, _bcast, upsample
-from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath
+from ..models.blocks import Conv, Dropout, Norm, _bcast, upsample
+from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath, recomputed
 from ..ops import losses as L
 from ..ops.conv_vjp import conv_halo, conv_same
 from ..ops.fused_loss import fused_loss_sums, metrics_from_sums
@@ -60,9 +70,10 @@ from .mesh import Mesh, make_mesh
 __all__ = ["ShardedStep", "SpatialLayout", "check_supported", "make_spatial_mesh",
            "shard_bounds", "shard_solver_state"]
 
-# data entries shaped as the padded canvas, and as the unpadded volume
+# data entries shaped as the padded canvas, and as the unpadded volume; the
+# POCS weights stay whole, beside the whole-volume projection
 _PADDED_KEYS = frozenset({"base_input", "forget_data", "net_mask"})
-_CROPPED_KEYS = frozenset({"img", "mask", "pocs_wdata", "pocs_wmask"})
+_CROPPED_KEYS = frozenset({"img", "mask"})
 # state entries shaped as the unpadded volume; the rest stays whole
 _CARRY_KEYS = frozenset({"out_best", "out_last"})
 
@@ -132,9 +143,11 @@ class SpatialLayout:
         lives on another device."""
         return [t.narrow(self.dim, a, b - a).to(d) for (a, b), d in zip(self.bounds, self.mesh)]
 
-    def gather(self, ts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The shards as one tensor on the mesh's first device."""
-        return torch.cat([t.to(self.mesh[0]) for t in ts], dim=self.dim)
+    def gather(self, ts: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+        """The shards as one tensor on ``device`` (the mesh's first device
+        by default), differentiable: the gradient goes back split into the
+        shards."""
+        return _Gather.apply(self.dim, torch.device(device or self.mesh[0]), *ts)
 
     def crop(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The net's output shards cropped to the unpadded volume: each
@@ -164,12 +177,12 @@ def shard_solver_state(mesh: Sequence[torch.device], spatial_axis: int,
     """Split a solve's volume entries over ``mesh`` along ``spatial_axis``:
     the canvas-shaped data entries (``base_input``, ``forget_data``,
     ``net_mask``) at boundaries on multiples of ``block`` planes (2^L for a
-    net of L downsamplings), the volume-shaped ones (``img``, ``mask``, the
-    POCS weights) and the state's ``out_best``/``out_last`` at the same
-    boundaries cropped to the unpadded volume. Each shard is a contiguous
-    tensor on its device; the rest (parameters, Adam, trackers) stays
-    whole. Returns ``(data, state)``; raises ``ValueError`` for an axis that
-    is not spatial or too short for the mesh."""
+    net of L downsamplings), the volume-shaped ones (``img``, ``mask``) and
+    the state's ``out_best``/``out_last`` at the same boundaries cropped to
+    the unpadded volume. Each shard is a contiguous tensor on its device;
+    the rest (parameters, Adam, trackers, the POCS weights) stays whole.
+    Returns ``(data, state)``; raises ``ValueError`` for an axis that is not
+    spatial or too short for the mesh."""
     spatial = tuple(data["img"].shape[2:])
     padded = next((tuple(data[k].shape[2:]) for k in sorted(_PADDED_KEYS)
                    if data.get(k) is not None), spatial)
@@ -276,6 +289,23 @@ def halo_exchange(xs: Sequence[torch.Tensor], axis: int, lo: int, hi: int,
     return list(_HaloExchange.apply(axis, lo, hi, edge, *xs))
 
 
+class _Gather(torch.autograd.Function):
+    """N shards in, their concatenation along ``dim`` on ``device`` out; the
+    backward splits the gradient into the shards' pieces, each moved to its
+    shard's device."""
+
+    @staticmethod
+    def forward(ctx, dim: int, device: torch.device, *xs):
+        ctx.dim, ctx.devices = dim, [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        return torch.cat([x.to(device) for x in xs], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *(p.to(d) for p, d in zip(g.split(ctx.sizes, ctx.dim),
+                                                      ctx.devices)))
+
+
 class _Replicate(torch.autograd.Function):
     """P parameters in, a copy of each on each of N devices out (shard-major:
     shard i's copy of parameter j at i * P + j; on the parameter's own
@@ -298,16 +328,8 @@ def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A.13c for what a sharded
     solve does not cover yet, in that item's order."""
     refused = [
-        (cfg.pocs, "POCS (an f-k transform of the whole volume every step)"),
         ("input" in cfg.opt_over.split(","), "opt_over with 'input' (the canvas would be "
                                              "a sharded parameter)"),
-        (cfg.virtual_input, "virtual_input"),
-        (cfg.filter_noise_with_wavelet or bool(cfg.lowpass_fs and cfg.lowpass_fc),
-         "canvas shaping"),
-        (cfg.data_forgetting_factor > 0, "data forgetting"),
-        (cfg.param_noise, "param_noise"),
-        (cfg.dropout > 0, "dropout > 0"),
-        (cfg.remat, "remat"),
         (cfg.phase_space and cfg.phase_levels != 0, "phase space"),
         (cfg.vmap_conv_mode == "tapmm", "conv_impl('tapmm')"),
         (cfg.net not in ("multiunet", "load"), f"--net {cfg.net}"),
@@ -330,16 +352,22 @@ class ShardedStep:
 
     # -- the step -----------------------------------------------------------
 
-    def net_input(self, data, s, gens) -> List[torch.Tensor]:
-        """The canvas shards plus this step's noise, drawn whole on the
-        generator's device as the unsharded step draws it, then split: each
+    def net_input(self, it: int, data, s, gens, regenerate) -> List[torch.Tensor]:
+        """The canvas shards plus iteration ``it``'s perturbations, as
+        ``DIPSolver._net_input`` makes them: the noise (and a virtual
+        canvas, ``regenerate``) drawn whole on the generator's device and
+        split, the forgetting term from the split forgetting data. Each
         shard's sum is the unsharded one's, element for element."""
-        base = data["base_input"]
-        if s.reg_noise_std <= 0:
-            return list(base)
-        extra = s.reg_noise_std * get_noise(gens["noise"], s.input_shape, "n", base[0].dtype,
-                                            gens["noise"].device)
-        return [b + e for b, e in zip(base, self.layout.views(extra))]
+        base = self.layout.views(regenerate()) if s.virtual_input else data["base_input"]
+        extra = None
+        if s.reg_noise_std > 0:
+            extra = self.layout.views(s.reg_noise_std * get_noise(
+                gens["noise"], s.input_shape, "n", base[0].dtype, gens["noise"].device))
+        if s.forget_factor > 0:
+            w = data["forget_w"][min(it, s.forget_factor)]
+            fe = [w.to(f.device) * f for f in data["forget_data"]]
+            extra = fe if extra is None else [e + f for e, f in zip(extra, fe)]
+        return list(base) if extra is None else [b + e for b, e in zip(base, extra)]
 
     def loss_terms(self, outs: List[torch.Tensor], data, s, out_dtype: torch.dtype,
                    device: torch.device):
@@ -376,7 +404,7 @@ class ShardedStep:
             in_dtype = xs[0].dtype
             if m.dtype is not None:
                 xs = [x.to(m.dtype) for x in xs]
-            x = self._multires(m.get_submodule(m.block0), xs)
+            x = self._block(m.get_submodule(m.block0), 0, xs)
             x = self._level(1, x)
             x = self._conv(m.get_submodule(m.head), x)
             return [m.last_act(t).to(in_dtype) for t in x]
@@ -385,6 +413,37 @@ class ShardedStep:
 
     def _rep(self, p: torch.Tensor) -> List[torch.Tensor]:
         return self._reps[id(p)]
+
+    def _block(self, m, level: int, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """A walked MultiResBlock or ResPath of ``level``; where remat covers
+        the level, checkpointed over its list of shards, so the backward
+        walks it again (halo exchanges and all-reduces included) with this
+        call's replicated parameters and dropout masks."""
+        walk = self._respath if isinstance(m, ResPath) else self._multires
+        net = self.model
+        if not net.remats(level):
+            return walk(m, xs)
+        reps = self._reps
+
+        def run(*shards):
+            outer, self._reps = self._reps, reps
+            try:
+                return walk(m, list(shards))
+            finally:
+                self._reps = outer
+        return recomputed(run, xs, net.drop.generator if net.drop.rate > 0 else None)
+
+    def _drop(self, m: Dropout, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``blocks.Dropout`` over the shards: one keep mask at the volume's
+        shape at this level, drawn on the generator's device where the
+        unsharded step draws it, split as the shards lie."""
+        if m.rate <= 0.0 or m.rate >= 1.0:
+            return [m(x) for x in xs]
+        dim = self.layout.dim
+        shape = list(xs[0].shape)
+        shape[dim] = sum(x.shape[dim] for x in xs)
+        kept = m.draw(shape).split([x.shape[dim] for x in xs], dim)
+        return [m.keep(x, k.to(x.device)) for x, k in zip(xs, kept)]
 
     def _conv(self, m: Conv, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         """``blocks.Conv`` on the shards: a same-pad conv over a zero halo of
@@ -452,28 +511,32 @@ class ShardedStep:
         out = [torch.cat(t, dim=1) for t in zip(out1, out2, out3)]
         if m.extra_norm:
             out = self._norm(m.Norm_0, out)
+        out = self._drop(m.drop, out)
         out = [m.act(a + b) for a, b in zip(self._cna(m.ConvNormAct_3, xs), out)]
         if m.extra_norm:
             out = self._norm(m.Norm_1, out)
-        return out
+        return self._drop(m.drop, out)
 
     def _respath(self, m: ResPath, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         for i in range(m.length):
             a = self._cna(getattr(m, f"ConvNormAct_{2 * i}"), xs)
             b = self._cna(getattr(m, f"ConvNormAct_{2 * i + 1}"), xs)
-            xs = self._norm(getattr(m, f"Norm_{i}"), [m.act(u + v) for u, v in zip(a, b)])
+            y, norm = [m.act(u + v) for u, v in zip(a, b)], getattr(m, f"Norm_{i}")
+            xs = (self._norm(norm, self._drop(m.drop, y)) if m.norm_last
+                  else self._drop(m.drop, self._norm(norm, y)))
         return xs
 
     def _level(self, i: int, hs: List[torch.Tensor]) -> List[torch.Tensor]:
         m = self.model
         names = m.levels[i]
-        s = self._respath(m.get_submodule(names["path"]), hs) if names["path"] else None
+        s = self._block(m.get_submodule(names["path"]), i, hs) if names["path"] else None
         d = self._conv(m.get_submodule(names["down"]), hs)
         if names["norm"]:
             d = self._norm(m.get_submodule(names["norm"]), d)
-        d = self._multires(m.get_submodule(names["enc"]), [m.act(t) for t in d])
+        d = self._block(m.get_submodule(names["enc"]), i,
+                        self._drop(m.drop, [m.act(t) for t in d]))
         if i < len(m.filters) - 1:
             d = self._level(i + 1, d)
         d = self._upsample(d)
         y = [torch.cat([a, b], dim=1) for a, b in zip(s, d)] if s is not None else d
-        return self._multires(m.get_submodule(names["dec"]), y)
+        return self._block(m.get_submodule(names["dec"]), i, y)

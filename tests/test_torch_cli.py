@@ -20,7 +20,7 @@ from deep_prior_interpolation_tpu_torch import cli
 from deep_prior_interpolation_tpu_torch.config import parse_arguments, read_args
 from deep_prior_interpolation_tpu_torch.data import dataset_path, reconstruct_patches
 from deep_prior_interpolation_tpu_torch.engine import DIPSolver
-from deep_prior_interpolation_tpu_torch.io import completed_patches, load_run
+from deep_prior_interpolation_tpu_torch.io import completed_patches, load_params, load_run
 
 torch.set_num_threads(1)
 SUBNORMAL = dict(rtol=0, atol=float(np.finfo(np.float32).tiny))
@@ -50,7 +50,7 @@ def test_run_writes_bundles_snapshots_and_weights(pocs_run):
     assert names == ["0", "1"]
     files = set(os.listdir(out))
     for n in names:
-        assert {f"{n}_run.npz", f"{n}_output2.npy", f"{n}_model.pt"} <= files
+        assert {f"{n}_run.npz", f"{n}_output2.npy", f"{n}_model.msgpack"} <= files
         b = load_run(os.path.join(out, f"{n}_run.npz"))
         assert b["device"] == "cpu" and b["output"].shape == (170, 50, 1)
         assert set(b["history"]) == set(JaxHistoryPOCS.FIELDS)
@@ -119,12 +119,12 @@ def test_netdir_and_start_from_prev_load_the_weights(pocs_run, tmp_path):
     mp = pytest.MonkeyPatch()
     mp.setattr(DIPSolver, "solve", spy)
     try:
-        cli.run(_cfg("tl", "--pocs", "--net", "load", "--netdir", "pocs/0_model.pt"), root,
-                device="cpu")
+        cli.run(_cfg("tl", "--pocs", "--net", "load", "--netdir", "pocs/0_model.msgpack"),
+                root, device="cpu")
         cli.run(_cfg("prev", "--start_from_prev"), str(tmp_path), device="cpu")
     finally:
         mp.undo()
-    saved = torch.load(os.path.join(root, "pocs", "0_model.pt"))
+    saved = load_params(os.path.join(root, "pocs", "0_model.msgpack"))
     assert all(torch.equal(seen[0][k], v) for k, v in saved.items())
     assert seen[2] is None and seen[3] is not None  # patch 1 starts from patch 0
 

@@ -52,7 +52,7 @@ def test_batched_run_writes_the_jax_runs_bundles(runs, which):
         assert got[n]["output"].shape == want[n]["output"].shape == (170, 50, 1)
         assert np.all(np.isfinite(got[n]["output"]))
     files = set(os.listdir(port))
-    assert {"0_output2.npy", "1_output2.npy", "0_model.pt", "1_model.pt"} <= files
+    assert {"0_output2.npy", "1_output2.npy", "0_model.msgpack", "1_model.msgpack"} <= files
 
 
 def test_lanes_over_cpu_shards_solve_as_one_device(runs):

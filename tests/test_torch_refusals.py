@@ -22,7 +22,7 @@ def tiny_cfg(**kw):
     return Config(**base)
 
 
-@pytest.mark.parametrize("kw", [dict(spatial_shards=2, pocs=True)])
+@pytest.mark.parametrize("kw", [dict(spatial_shards=2, phase_space=True, phase_levels=1)])
 def test_unported_features_raise(kw, tmp_path):
     """Spatial shards are the CLI's (a library solve ignores the field, as
     the JAX one does); ``cli.run`` refuses a sharded run of what the shards
@@ -33,17 +33,18 @@ def test_unported_features_raise(kw, tmp_path):
 
 
 def test_cli_and_weights_refusals(tmp_path):
-    """A sharded run with remat, through the CLI, and a solve given a
-    spatial mesh with dropout are refused naming ROADMAP A.13c; a mesh
-    longer than the sharded axis's blocks is a ValueError; a weights file
-    that is not msgpack is refused with its offset."""
-    with pytest.raises(NotImplementedError, match="remat: ROADMAP A.13c"):
-        cli.run(tiny_cfg(spatial_shards=2, batch_patches=0, remat=True), str(tmp_path),
-                device="cpu")
+    """A sharded run with tapmm, through the CLI, and a solve given a
+    spatial mesh with an optimised canvas are refused naming ROADMAP A.13c;
+    a mesh longer than the sharded axis's blocks is a ValueError; a weights
+    file that is not msgpack is refused with its offset."""
+    with pytest.raises(NotImplementedError, match=r"conv_impl\('tapmm'\): ROADMAP A.13c"):
+        cli.run(tiny_cfg(spatial_shards=2, batch_patches=0, vmap_conv_mode="tapmm"),
+                str(tmp_path), device="cpu")
     img = np.zeros((16, 8, 1), np.float32)
     mesh = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match="dropout > 0: ROADMAP A.13c"):
-        DIPSolver(tiny_cfg(dropout=0.1), device="cpu").solve(img, img, spatial_mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"opt_over with 'input'.*: ROADMAP A.13c"):
+        DIPSolver(tiny_cfg(opt_over="net,input"), device="cpu").solve(img, img,
+                                                                      spatial_mesh=mesh)
     with pytest.raises(ValueError, match="at most 4 shards"):
         DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=mesh * 4)
     bad = tmp_path / "weights.msgpack"

@@ -166,18 +166,18 @@ def test_a_halo_conv_and_the_linear_upsample_on_shards_are_the_whole_ones():
                                rtol=1e-12, atol=1e-12)
 
 
+# what a sharded solve still refuses: ROADMAP A.13c items 8-11
 REFUSED = [
-    ({"pocs": True}, "POCS"),
     ({"opt_over": "net,input"}, "opt_over"),
-    ({"virtual_input": True}, "virtual_input"),
-    ({"lowpass_fs": 250.0, "lowpass_fc": 40.0}, "canvas shaping"),
-    ({"data_forgetting_factor": 3}, "data forgetting"),
-    ({"param_noise": True}, "param_noise"),
-    ({"dropout": 0.1}, "dropout"),
-    ({"remat": True}, "remat"),
+    ({"opt_over": "input", "pocs": True}, "opt_over"),
     ({"phase_space": True, "phase_levels": 1}, "phase space"),
+    ({"phase_space": True, "phase_levels": -1}, "phase space"),
     ({"vmap_conv_mode": "tapmm"}, "tapmm"),
+    ({"vmap_conv_mode": "tapmm", "remat": True}, "tapmm"),
     ({"net": "skip"}, "--net skip"),
+    ({"net": "unet", "filters": [4, 8, 8, 8, 8], "skip": [4, 4, 4, 4]}, "--net unet"),
+    ({"net": "part"}, "--net part"),
+    ({"net": "attmultiunet"}, "--net attmultiunet"),
 ]
 
 
@@ -188,7 +188,8 @@ def test_each_a13c_item_is_refused_when_the_solve_starts(monkeypatch):
     monkeypatch.setattr(S.SpatialLayout, "__init__",
                         lambda self, *a, **k: drawn.append(1) or real(self, *a, **k))
     for kw, what in REFUSED:
-        cfg = Config(datadim="2d", epochs=2, inputdepth=4, filters=[4, 8], skip=[4], **kw)
+        cfg = Config(**{**dict(datadim="2d", epochs=2, inputdepth=4, filters=[4, 8], skip=[4]),
+                        **kw})
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A.13c"):
             DIPSolver(cfg, device="cpu").solve(img, img, spatial_mesh=[CPU] * 2)
     assert not drawn
