@@ -197,12 +197,33 @@ Phases, each of which ends the run with a non-zero exit code on failure:
     c. phase 3's small float32 solve with dropout, parameter noise and
        remat over 4 shards: two solves and a resume bit-equal.
 
+12. phase space, the optimised canvas and tapmm over spatial shards, each
+    sharded solve traced as 10a:
+    a. the phase flagship of 7a over [cuda:0] x 2 and x 4, 9 iterations:
+       launches 30 N / N / N / 2 N an iteration (wgrad at the phase path's
+       shard shapes: its 9 phase convs on their phase grids and its plain
+       levels 2-4, each shard's planes with a halo plane on each side;
+       every upsample backward on the TMA kernel), the iteration-0 loss
+       against 7a's (rel 1e-3, bf16), s/iteration and peak beside 7a's;
+    b. the flagship in float32 (TF32 off) with ``opt_over="net,input"``
+       and remat over [cuda:0] x 2: one step's gradient by the canvas
+       against the unsharded one, no further than TF32's own error (as
+       10a holds the parameters'); 4 iterations against the unsharded
+       solve: the iteration-0 loss (rel 1e-4), the peak of each, and how
+       far the gathered canvas lies from the unsharded one;
+    c. phase 3's small float32 solve in phase space with tapmm and the
+       optimised canvas over 4 shards: two solves and a resume bit-equal;
+    d. the wgrad kernel at 12a's new shard shapes against its plain
+       version, timed beside its bound, the plain version and
+       ``conv3d_weight``, and the phase path's wgrad ms an iteration.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 11; every one must pass.
+   after phase 12; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a and 11b), the ``{"phase11": ...}``, ``{"phase10": ...}``,
+11a, 11b, 12a and 12b; wgrad with its rows at 10a's and 12a's shard
+shapes), the ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
 ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
 and ``{"main_path": ...}`` lines before it, the last line ``{"ok": true,
 "device": {...}}``.
@@ -2079,11 +2100,13 @@ PREDICTED_10A = ("N = 2: 0.25-0.35 s/iteration, N = 4: 0.45-0.65 (host-bound: ab
                  "at N = 2, 17-22 at N = 4 (halo-extended copies kept for the backward)")
 
 
-def spatial_counts(n: int, iters: int) -> dict:
-    """The launches of ``iters`` flagship iterations over ``n`` shards: each
-    kernel once a shard where the unsharded step launches it once."""
-    return {"fused_loss": n * iters, "fused_loss_grad": n * iters, "wgrad3d": 32 * n * iters,
-            "upsample_bwd": 4 * n * iters}
+def spatial_counts(n: int, iters: int, phase: bool = False) -> dict:
+    """The launches of ``iters`` flagship iterations over ``n`` shards (of
+    the phase flagship, ``PHASE7``, with ``phase``): each kernel once a
+    shard where the unsharded step launches it once."""
+    wgrad, ups = (30, 2) if phase else (32, 4)   # an iteration, unsharded (PHASE_COUNTS)
+    return {"fused_loss": n * iters, "fused_loss_grad": n * iters,
+            "wgrad3d": wgrad * n * iters, "upsample_bwd": ups * n * iters}
 
 
 def _shard_planes(extent: int, n: int) -> list:
@@ -2094,37 +2117,41 @@ def _shard_planes(extent: int, n: int) -> list:
     return [(a // scale, b // scale) for a, b in shard_bounds(128, n, 16)]
 
 
-def spatial_wgrad_shapes(n: int) -> collections.Counter:
+def spatial_wgrad_shapes(n: int, phase: bool = False) -> collections.Counter:
     """The wgrad shapes of one flagship iteration over ``n`` shards along H
-    and their launches: each of ``WGRAD_SHAPES`` on each shard, x holding
-    the shard's planes and a halo plane on each side."""
+    and their launches: each of ``WGRAD_SHAPES`` (``PHASE_WGRAD_SHAPES``
+    with ``phase``, a phase conv's on its phase grid) on each shard, x
+    holding the shard's planes and a halo plane on each side."""
     want = collections.Counter()
-    for ci, co, sp, k in WGRAD_SHAPES:
+    for ci, co, sp, k in PHASE_WGRAD_SHAPES if phase else WGRAD_SHAPES:
         for a, b in _shard_planes(sp[1], n):
             want[(ci, co, (sp[0], b - a + 2, sp[2]))] += k
     return want
 
 
-def spatial_upsample_shapes(n: int) -> collections.Counter:
+def spatial_upsample_shapes(n: int, phase: bool = False) -> collections.Counter:
     """The upsample backward's input shapes of one flagship iteration over
-    ``n`` shards: each shard's planes with a halo plane on each side."""
-    return collections.Counter((c, (sp[0], b - a + 2, sp[2])) for c, sp in UPSAMPLE_SHAPES
+    ``n`` shards (of the phase flagship's plain levels with ``phase``): each
+    shard's planes with a halo plane on each side."""
+    return collections.Counter((c, (sp[0], b - a + 2, sp[2]))
+                               for c, sp in (PHASE_UPSAMPLE_SHAPES if phase else UPSAMPLE_SHAPES)
                                for a, b in _shard_planes(sp[1], n))
 
 
 def sharded_flagship(mesh, cfg, img, mask, label: str) -> tuple:
-    """The flagship (``cfg``) through ``DIPSolver.solve(spatial_mesh=mesh)``
-    along H, traced as phase 4; fails unless every loss and ``out_best`` is
-    finite, the launches are ``spatial_counts``, the wgrad and upsample
-    hooks see ``spatial_wgrad_shapes``/``spatial_upsample_shapes`` as often
-    as ``cfg.epochs`` iterations give them, and every upsample backward runs
+    """The flagship (``cfg``; the phase flagship where it is in phase
+    space) through ``DIPSolver.solve(spatial_mesh=mesh)`` along H, traced as
+    phase 4; fails unless every loss and ``out_best`` is finite, the
+    launches are ``spatial_counts``, the wgrad and upsample hooks see
+    ``spatial_wgrad_shapes``/``spatial_upsample_shapes`` as often as
+    ``cfg.epochs`` iterations give them, and every upsample backward runs
     on the TMA kernel. Returns the result and its summary: launches,
     losses, s/iteration (the median of chunks 2..), each device's peak."""
     from deep_prior_interpolation_tpu_torch import DIPSolver
     from deep_prior_interpolation_tpu_torch.ops import upsample as U
 
     set_kernels(True)
-    n, iters = len(mesh), cfg.epochs
+    n, iters, phase = len(mesh), cfg.epochs, cfg.phase_space
     devices = sorted({d.index for d in mesh})
     solver = DIPSolver(cfg, outchannel=1, device=mesh[0])
     for d in devices:
@@ -2135,7 +2162,7 @@ def sharded_flagship(mesh, cfg, img, mask, label: str) -> tuple:
     peaks = {f"cuda:{d}": torch.cuda.max_memory_allocated(d) for d in devices}
     kinds = read_upsample_kernels()
     loss = np.asarray(res.history.loss)
-    want = spatial_counts(n, iters)
+    want = spatial_counts(n, iters, phase)
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
     ups = {f"{c} x {sp}": U.plan(c, *sp, True, 2).kernel for c, sp in sorted(seen_up)}
     log(f"{label}: chunk seconds {res.chunk_seconds}; steady s/iteration {steady:.4f}; peak "
@@ -2149,10 +2176,10 @@ def sharded_flagship(mesh, cfg, img, mask, label: str) -> tuple:
         fail(f"{label}: out_best has shape {res.out_best.shape} or is not finite")
     if counts != want:
         fail(f"{label}: the sharded path's launch counts are {counts}, not {want}")
-    want_wg = {key: iters * k for key, k in spatial_wgrad_shapes(n).items()}
+    want_wg = {key: iters * k for key, k in spatial_wgrad_shapes(n, phase).items()}
     if dict(seen) != want_wg:
         fail(f"{label}: the sharded path's wgrad shapes are {dict(seen)}, not {want_wg}")
-    want_up = {key: iters * k for key, k in spatial_upsample_shapes(n).items()}
+    want_up = {key: iters * k for key, k in spatial_upsample_shapes(n, phase).items()}
     if dict(seen_up) != want_up:
         fail(f"{label}: the sharded path's upsample shapes are {dict(seen_up)}, not {want_up}")
     if kinds != {"tma": want["upsample_bwd"], "direct": 0}:
@@ -2368,8 +2395,8 @@ def spatial_exactness(dev, tmp: str) -> dict:
 
 
 def spatial_wgrad_row(dev, ci: int, co: int, sp, hs: int, n: int, k: int, g,
-                      time_plain: bool) -> dict:
-    """10c: the wgrad kernel on one shard's (x with its two halo planes,
+                      time_plain: bool, label: str = "10c") -> dict:
+    """10c, 12d: the wgrad kernel on one shard's (x with its two halo planes,
     dy padded with zero planes) along H, against its plain version (1e-4 of
     max |dW| + 1e-4), timed beside its bound, the plain version (where
     ``time_plain``) and ``conv3d_weight`` of the shard's conv (unpadded
@@ -2398,13 +2425,14 @@ def spatial_wgrad_row(dev, ci: int, co: int, sp, hs: int, n: int, k: int, g,
     n_flops = 2.0 * ci * co * 3 * hs * _valid_products((d, 1, w), 3)
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops, torch.bfloat16)
     plain = "not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.4f}"
-    log(f"10c wgrad {ci}->{co} {tuple(sp)}, shard of {hs} of {h} planes (x {tuple(x.shape[2:])}, "
+    log(f"{label} wgrad {ci}->{co} {tuple(sp)}, shard of {hs} of {h} planes "
+        f"(x {tuple(x.shape[2:])}, "
         f"padded dy), {n} shards: max abs err {err:.3e} (tol {lim:.3e}); ms {row['ms']:.4f} "
         f"plain {plain} conv3d_weight {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
         f"({row['bound_by']}), {n * k} launches/iteration")
     if not err <= lim:
-        fail(f"10c: wgrad on the shard of {ci}->{co} {tuple(sp)} ({n} shards) disagrees with "
-             f"the plain one")
+        fail(f"{label}: wgrad on the shard of {ci}->{co} {tuple(sp)} ({n} shards) disagrees "
+             f"with the plain one")
     return row
 
 
@@ -2665,6 +2693,240 @@ def spatial_options_exactness(dev, tmp: str) -> dict:
             "losses": list(first.history.loss)}
 
 
+# ----------------------------------------------------------------------
+# phase 12: phase space, the optimised canvas and tapmm over spatial shards
+# ----------------------------------------------------------------------
+
+# 12b: the float32 flagship with its canvas optimised, and remat
+OPTIONS_12B = dict(dtype="float32", opt_over="net,input", remat=True)
+# the share of the max by which a canvas entry counts as apart (reported)
+CANVAS_TOL_12 = 1e-5
+# what was predicted before the first card run of phase 12 (PERF.md)
+PREDICTED_12 = ("12a s/iteration 0.26-0.36 at N = 2, 0.42-0.60 at N = 4 (10a's plus a "
+                "weight transform a phase conv a shard); peak 15.5-18 GiB at both; 12b "
+                "peak 12-15 GiB at N = 2")
+
+
+def spatial_phase(dev, phase7: dict) -> dict:
+    """12a: the phase flagship (``PHASE7``) over [cuda:0] * 2 and * 4 along
+    H, 9 iterations in chunks of 3, traced as 10a (launches 30 N / N / N /
+    2 N an iteration, the hooks' wgrad and upsample shapes the phase
+    path's shard shapes, every upsample backward on the TMA kernel); the
+    iteration-0 loss against 7a's unsharded phase solve (rel 1e-3, bf16
+    sums in another order); s/iteration and peak beside 7a's."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    img, mask = flagship_problem(256, 128, 128)
+    ref = phase7["7a_flagship"]
+    out = {}
+    for n in SPATIAL_SHARDS:
+        label = f"12a phase flagship {n} shards"
+        _, r = sharded_flagship(make_spatial_mesh(n, [dev] * n), flagship_config(**PHASE7),
+                                img, mask, label)
+        r["loss0_rel_err"] = rel = _rel(r["losses"][0], ref["loss0"])
+        log(f"{label}: iteration-0 loss {r['losses'][0]:.7g} against 7a's {ref['loss0']:.7g}, "
+            f"rel err {rel:.3e} (tol {LOSS0_TOL_BF16:g}); s/iteration {r['s_per_iter']:.4f} "
+            f"against 7a's {ref['s_per_iter']:.4f}; peak "
+            f"{max(r['peak_bytes'].values()) / 2**30:.2f} GiB against 7a's "
+            f"{ref['peak_bytes'] / 2**30:.2f} (predicted: {PREDICTED_12})")
+        if not rel <= LOSS0_TOL_BF16:
+            fail(f"{label}: the iteration-0 loss differs from 7a's")
+        out[str(n)] = r
+    return out
+
+
+def _canvas_errors(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """max |got - ref| over max |ref|, the error in norm, and the H plane of
+    the largest error."""
+    diff = (got - ref).abs()
+    plane = int(diff.flatten().argmax()) // (diff.shape[-1]) % diff.shape[-2]
+    return {"max_rel_err": float(diff.max()) / float(ref.abs().max()),
+            "norm_rel_err": float((got - ref).norm()) / float(ref.norm()), "worst_h": plane}
+
+
+def spatial_canvas(dev) -> dict:
+    """12b: the flagship in float32 (TF32 off) with its canvas optimised
+    (``opt_over="net,input"``) and remat over [cuda:0] * 2. First one
+    step's gradient by the canvas (the net, the fused loss; phase 4's
+    parameters, a random canvas), sharded against unsharded, held as 10a
+    holds the parameters' gradients: no further than TF32 moves the
+    unsharded one. Then the solve, 4 iterations in chunks of 2, traced as
+    10a, against the unsharded solve of the same configuration: the
+    iteration-0 loss (rel 1e-4), each peak, and how far the gathered
+    canvas lies from the unsharded one after 4 updates (reported: Adam's
+    first step moves each canvas entry by lr times the sign of its
+    gradient, so an entry whose gradient is at rounding level can part by
+    2 lr)."""
+    from types import SimpleNamespace
+
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.models import get_net, init_weights
+    from deep_prior_interpolation_tpu_torch.ops.fused_loss import fused_loss_metrics
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import ShardedStep, SpatialLayout
+
+    img_np, mask_np = flagship_problem(256, 128, 128)
+    img = torch.from_numpy(img_np[..., 0])[None, None].to(dev)
+    mask = torch.from_numpy(mask_np[..., 0])[None, None].to(dev)
+    set_kernels(True)
+    net = get_net(flagship_config(dtype="float32"))
+    init_weights(net, torch.Generator().manual_seed(0))
+    net = net.to(dev)
+    x = 0.1 * torch.randn((1, 64) + _L[0], generator=torch.Generator(device=dev).manual_seed(14),
+                          device=dev)
+    settings = SimpleNamespace(fused_loss=True, loss="mae")
+
+    def canvas_grad(n):
+        xg = x.clone().requires_grad_()
+        if n == 1:
+            loss = fused_loss_metrics(net(xg), img, mask)[0]
+        else:
+            layout = SpatialLayout([dev] * n, SPATIAL_AXIS, _L[0], _L[0], 16)
+            step = ShardedStep(net, layout)
+            data = {"img": layout.split(img, True), "mask": layout.split(mask, True)}
+            loss = step.loss_terms(step(layout.split(xg)), data, settings, torch.float32, dev)[1]
+        g = torch.autograd.grad(loss, xg)[0]
+        torch.cuda.empty_cache()
+        return g
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        on = canvas_grad(1)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        ref = canvas_grad(1)
+        own = _canvas_errors(on, ref)
+        del on
+        sharded = canvas_grad(2)
+        got = _canvas_errors(sharded, ref)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    # Adam's first step from each gradient, g / (|g| + eps) an entry times
+    # lr: how far apart one update puts the two canvases
+    apart = (sharded / (sharded.abs() + 1e-8) - ref / (ref.abs() + 1e-8)).abs()
+    lr = FLAGSHIP["lr"]
+    got["first_step_max_rel"] = lr * float(apart.max()) / float(x.abs().max())
+    got["first_step_share_apart"] = float((lr * apart > CANVAS_TOL_12 * x.abs().max()).float()
+                                          .mean())
+    del net, ref, sharded, apart, x
+    torch.cuda.empty_cache()
+    log(f"12b canvas gradient, float32 (TF32 off), 2 shards against unsharded: max "
+        f"{got['max_rel_err']:.3e} of the max (at H plane {got['worst_h']}; shards meet at "
+        f"64), {got['norm_rel_err']:.3e} in norm (bound, TF32's own error: "
+        f"{own['max_rel_err']:.3e} and {own['norm_rel_err']:.3e}); Adam's first step from "
+        f"each puts the canvases {got['first_step_max_rel']:.3e} of the canvas max apart, "
+        f"{got['first_step_share_apart']:.3e} of the entries further than "
+        f"{CANVAS_TOL_12:g}")
+    if not (got["max_rel_err"] <= own["max_rel_err"]
+            and got["norm_rel_err"] <= own["norm_rel_err"]):
+        fail("12b: the sharded canvas gradient is further from the unsharded one than "
+             "TF32's own error")
+
+    cfg = flagship_config(epochs=4, scan_chunk=2, **OPTIONS_12B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = DIPSolver(cfg, outchannel=1, device=dev).solve(img_np, mask_np, seed=0)
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    label = "12b float32 canvas + remat, 2 shards"
+    res, out = sharded_flagship(make_spatial_mesh(2, [dev] * 2), cfg, img_np, mask_np, label)
+    rel = _rel(res.history.loss[0], ref.history.loss[0])
+    diff = np.abs(res.noise - ref.noise)
+    scale = float(np.abs(ref.noise).max())
+    apart = float((diff > CANVAS_TOL_12 * scale).mean())
+    out.update({"unsharded_peak_bytes": ref_peak, "unsharded_losses": list(ref.history.loss),
+                "loss0_rel_err": rel, "canvas_gradient": got, "canvas_gradient_bound": own,
+                "canvas_rel_err": float(diff.max()) / scale, "canvas_share_apart": apart})
+    log(f"{label}: losses {list(res.history.loss)} against unsharded {list(ref.history.loss)}; "
+        f"iteration-0 rel err {rel:.3e} (tol {LOSS0_TOL_11:g}); after 4 updates the canvas "
+        f"lies {out['canvas_rel_err']:.3e} of its max from the unsharded one, {apart:.3e} of "
+        f"its entries further than {CANVAS_TOL_12:g} (Adam's sign-like steps; lr "
+        f"{cfg.lr:g} is {cfg.lr / scale:.3e} of the max)")
+    log(f"12b: peak {max(out['peak_bytes'].values()) / 2**30:.2f} GiB over 2 shards, "
+        f"{ref_peak / 2**30:.2f} unsharded; s/iteration {out['s_per_iter']:.4f} (predicted: "
+        f"{PREDICTED_12})")
+    if not rel <= LOSS0_TOL_11:
+        fail(f"{label}: the iteration-0 loss differs from the unsharded solve's")
+    return out
+
+
+def spatial_phase_exactness(dev, tmp: str) -> dict:
+    """12c: phase 3's small float32 solve in phase space (levels 2) with
+    tapmm and the optimised canvas over 4 shards of the card: two solves,
+    and a resume from a 3-iteration checkpoint, bit-equal (history,
+    ``out_best`` and the optimised canvas; each with a checkpoint path, so
+    deterministic cuDNN)."""
+    import dataclasses
+
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    cfg, img, mask, noise, init, _ = small_problem()
+    cfg = dataclasses.replace(cfg, phase_space=True, phase_levels=2, vmap_conv_mode="tapmm",
+                              opt_over="net,input", scan_chunk=3)
+    set_kernels(True)
+    mesh = make_spatial_mesh(4, [dev] * 4)
+
+    def run(name, epochs):
+        return DIPSolver(dataclasses.replace(cfg, epochs=epochs), device=dev).solve(
+            img, mask, seed=0, init_params=init, noise=noise, spatial_mesh=mesh,
+            spatial_axis=SPATIAL_AXIS, checkpoint_path=os.path.join(tmp, name),
+            checkpoint_every=1)
+    reset_counts()
+    first = run("phase_shards_a.npz", 6)
+    counts = read_counts()
+    second = run("phase_shards_b.npz", 6)
+    run("phase_shards_c.npz", 3)
+    resumed = run("phase_shards_c.npz", 6)
+
+    def same(a, b):
+        return (np.array_equal(a.history.loss, b.history.loss)
+                and np.array_equal(a.out_best, b.out_best) and np.array_equal(a.noise, b.noise))
+    twice = same(first, second)
+    resume = resumed.iters_run == 6 and same(first, resumed)
+    moved = not np.array_equal(first.noise, noise)
+    log(f"12c: phase space + tapmm + optimised canvas over 4 shards: losses "
+        f"{first.history.loss}; launches {counts}; the canvas moved {moved}; two solves "
+        f"bit-equal {twice}; a resume from 3 iterations bit-equal to the straight solve {resume}")
+    if counts["fused_loss"] != 4 * 6 or counts["wgrad3d"] == 0:
+        fail(f"12c: the sharded phase solve did not launch the kernels on every shard: {counts}")
+    if not (moved and twice and resume):
+        fail("12c: sharded phase solves with tapmm and the optimised canvas, or their resume, "
+             "are not bit-equal")
+    return {"two_runs_bit_equal": twice, "resume_bit_equal": resume, "launches": counts,
+            "losses": list(first.history.loss)}
+
+
+def spatial_phase_kernels(dev, phase10: dict) -> dict:
+    """12d: the wgrad kernel at 12a's new shard shapes (the 9 phase convs on
+    their phase grids, each shard's planes with a halo plane on each side,
+    dy padded by zero planes) against its plain version, timed beside its
+    bound, the plain version and ``conv3d_weight`` of the shard conv, as
+    10c; and the phase path's wgrad ms an iteration over N shards, with
+    10c's rows for its plain levels 2-4."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for n in SPATIAL_SHARDS:
+        for ci, co, sp, k in PHASE_WGRAD_NEW:
+            for hs in sorted({b - a for a, b in _shard_planes(sp[1], n)}):
+                rows.append(spatial_wgrad_row(dev, ci, co, sp, hs, n, k, g, True, "12d"))
+    want = {key + (n,) for n in SPATIAL_SHARDS for key in spatial_wgrad_shapes(n, True)}
+    got = {(r["ci"], r["co"], tuple(r["x_shape"]), r["shards"])
+           for r in rows + phase10["10c_kernels"]["wgrad"]}
+    if not want <= got:
+        fail(f"12d: no wgrad row at the phase path's shard shapes {sorted(want - got)}")
+    per_iter = {}
+    for n in SPATIAL_SHARDS:
+        plain = [r for r in phase10["10c_kernels"]["wgrad"]
+                 if r["shards"] == n and tuple(r["spatial"]) in _L[2:]]
+        per_iter[str(n)] = sum(r["ms"] * r["launches_per_iteration"]
+                               for r in plain + [r for r in rows if r["shards"] == n])
+        log(f"12d wgrad ms/iteration on the phase path over {n} shards: sum of launches x ms "
+            f"over its shard shapes = {per_iter[str(n)]:.4f}")
+    return {"wgrad": rows, "ms_per_iteration": per_iter}
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -2712,7 +2974,8 @@ def profile_flagship(dev, out_dir: str, **kw) -> None:
 CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
-              "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py"]
+              "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py",
+              "tests/test_torch_cuda_spatial_phase.py"]
 
 
 # the one skip reason the CUDA tests may give, and only on a one-card machine
@@ -2833,6 +3096,15 @@ def main() -> None:
                                           dev, tmp)}
         seconds["11_total"] = time.time() - t11
         log(f"phase 11: {seconds['11_total']:.1f} s")
+        t12 = time.time()
+        phase12 = {"12a_phase": phase("12a_spatial_phase", spatial_phase, dev, phase7),
+                   "12b_canvas": phase("12b_spatial_canvas", spatial_canvas, dev),
+                   "12c_exactness": phase("12c_spatial_phase_exactness",
+                                          spatial_phase_exactness, dev, tmp),
+                   "12d_kernels": phase("12d_spatial_phase_kernels", spatial_phase_kernels,
+                                        dev, phase10)}
+        seconds["12_total"] = time.time() - t12
+        log(f"phase 12: {seconds['12_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -2865,6 +3137,8 @@ def main() -> None:
     log(json.dumps({"phase10": phase10}))
     phase11["seconds"] = {k: v for k, v in seconds.items() if k.startswith("11")}
     log(json.dumps({"phase11": phase11}))
+    phase12["seconds"] = {k: v for k, v in seconds.items() if k.startswith("12")}
+    log(json.dumps({"phase12": {k: v for k, v in phase12.items() if k != "12d_kernels"}}))
     # each kernel's launches on 10a's sharded paths, by shard count, and its
     # rows at the shard shapes (10c)
     for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
@@ -2874,8 +3148,13 @@ def main() -> None:
         entry["spatial_options_launches"] = {
             "11a": {n: phase11["11a_options"][str(n)]["launches"][key] for n in SPATIAL_SHARDS},
             "11b": {k: r["launches"][key] for k, r in phase11["11b_float32"].items()}}
+        entry["spatial_phase_launches"] = {
+            "12a": {n: phase12["12a_phase"][str(n)]["launches"][key] for n in SPATIAL_SHARDS},
+            "12b": {2: phase12["12b_canvas"]["launches"][key]}}
     fused["spatial_shapes"] = phase10["10c_kernels"]["fused"]
-    wgrad["spatial_shapes"] = phase10["10c_kernels"]["wgrad"]
+    # 10a's shard shapes (10c), then the phase path's new ones (12d)
+    wgrad["spatial_shapes"] = phase10["10c_kernels"]["wgrad"] + phase12["12d_kernels"]["wgrad"]
+    wgrad["spatial_phase_ms_per_iteration"] = phase12["12d_kernels"]["ms_per_iteration"]
     upsample["spatial_shapes"] = phase10["10c_kernels"]["upsample"]
     log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]
                     + lane_entries(survey8, kernels8)}))

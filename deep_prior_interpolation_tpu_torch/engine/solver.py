@@ -164,10 +164,17 @@ def build_hyper(cfg: Config, device: torch.device) -> Dict[str, Any]:
 
 def pad_multiple_for(cfg: Config) -> int:
     """What the padded spatial dims are multiples of: ``pad_multiple``, or
-    what the net's levels need, with phase space what its phased levels
-    need (resolution r at depth q: 2^(r+q))."""
+    what the net's levels need (``net_multiple``)."""
     if cfg.pad_multiple and cfg.pad_multiple > 0:
         return cfg.pad_multiple
+    return net_multiple(cfg)
+
+
+def net_multiple(cfg: Config) -> int:
+    """What the net's levels need its spatial dims to be multiples of: 2^L
+    for L downsamplings, with phase space what its phased levels need
+    (resolution r at depth q: 2^(r+q)). A spatial shard holds a whole
+    number of such blocks."""
     mult = 2 ** (len(cfg.filters) - 1)
     if cfg.phase_space:
         levels = len(cfg.filters) if cfg.phase_levels < 0 else cfg.phase_levels
@@ -279,7 +286,8 @@ def extract_noise_canvas(s: StepSettings, st: Dict[str, Any], data,
     the optimised one under input optimisation, drawn again under
     ``virtual_input``, else the stored one."""
     if s.opt_input:
-        canvas = st["flat"].canvas
+        with torch.no_grad():
+            canvas = _whole(st, st["flat"].canvas)
     elif s.virtual_input:
         canvas = regenerate()
     else:
@@ -339,12 +347,18 @@ def _with_pocs(out: torch.Tensor, main: torch.Tensor, ys: Dict[str, torch.Tensor
     return loss
 
 
+def _parts(t) -> List[torch.Tensor]:
+    """A tensor, or a list of shards, as a list."""
+    return t if isinstance(t, list) else [] if t is None else [t]
+
+
 class _FlatParams:
     """The net's parameters as views into one float32 buffer, with Adam's
     moments beside it, so the update is a handful of large tensor ops. An
     optimised canvas is a leaf of its own beside it (its dtype, its own
     moments), sharing Adam's count, as ``optax.scale_by_adam`` keeps one
-    count for its whole tree.
+    count for its whole tree; a spatially sharded canvas (a list of shards)
+    is one leaf a shard, each with its moments on its shard's device.
 
     With ``rows`` (B flat parameter vectors, one a lane) the buffer is
     (B, P) and the parameters are (B, *shape) leaves viewing it, by the
@@ -376,11 +390,14 @@ class _FlatParams:
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
         self.count = torch.zeros(self.lead, dtype=torch.int32, device=self.flat.device)
-        self.canvas = None
+        self.canvas = self.canvas_mu = self.canvas_nu = None
         if canvas is not None:
-            self.canvas = canvas.detach().clone().requires_grad_(True)
-            self.canvas_mu = torch.zeros_like(self.canvas, requires_grad=False)
-            self.canvas_nu = torch.zeros_like(self.canvas, requires_grad=False)
+            leaves = [c.detach().clone().requires_grad_(True) for c in _parts(canvas)]
+            mus = [torch.zeros_like(c, requires_grad=False) for c in leaves]
+            nus = [torch.zeros_like(c, requires_grad=False) for c in leaves]
+            if not isinstance(canvas, list):
+                leaves, mus, nus = leaves[0], mus[0], nus[0]
+            self.canvas, self.canvas_mu, self.canvas_nu = leaves, mus, nus
         # the conv kernels (rank >= 4) that parameter noise perturbs: their
         # leaves, their flat positions and each leaf's size, made at the
         # first perturbation (the positions take 8 bytes a parameter)
@@ -389,8 +406,8 @@ class _FlatParams:
 
     def leaves(self) -> List[torch.Tensor]:
         """What the loss is differentiated by: the net's parameters, then
-        the canvas when it is optimised."""
-        return self.params + ([self.canvas] if self.canvas is not None else [])
+        the canvas (or its shards) when it is optimised."""
+        return self.params + _parts(self.canvas)
 
     @torch.no_grad()
     def perturb(self, generator: Union[torch.Generator, List[torch.Generator]]) -> torch.Tensor:
@@ -447,13 +464,13 @@ class _FlatParams:
         self.flat.copy_(torch.where(_lane(done, f), keep, f - _lane(lr, f) * d))
         self.mu.copy_(torch.where(_lane(done, f), self.mu, mu))
         self.nu.copy_(torch.where(_lane(done, f), self.nu, nu))
-        if self.canvas is not None:
-            c = self.canvas
-            mu, nu, d = self._adam(grads[n_net], self.canvas_mu, self.canvas_nu,
-                                   _lane(bc1, c), _lane(bc2, c))
-            self.canvas.copy_(torch.where(_lane(done, c), c, c - _lane(lr, c) * d))
-            self.canvas_mu.copy_(torch.where(_lane(done, c), self.canvas_mu, mu))
-            self.canvas_nu.copy_(torch.where(_lane(done, c), self.canvas_nu, nu))
+        for c, c_mu, c_nu, g in zip(_parts(self.canvas), _parts(self.canvas_mu),
+                                    _parts(self.canvas_nu), grads[n_net:]):
+            dn, lr_c, bc1_c, bc2_c = (_lane(t.to(c.device), c) for t in (done, lr, bc1, bc2))
+            mu, nu, d = self._adam(g, c_mu, c_nu, bc1_c, bc2_c)
+            c.copy_(torch.where(dn, c, c - lr_c * d))
+            c_mu.copy_(torch.where(dn, c_mu, mu))
+            c_nu.copy_(torch.where(dn, c_nu, nu))
         self.count.copy_(torch.where(done, self.count, count_inc))
 
 
@@ -532,8 +549,9 @@ def _solver_state(st: Dict[str, Any], gens: Mapping[str, torch.Generator]
     flat = st["flat"]
     state = {"params": flat.flat, "mu": flat.mu, "nu": flat.nu, "count": flat.count}
     if flat.canvas is not None:
-        state.update({"canvas": flat.canvas.detach(), "canvas_mu": flat.canvas_mu,
-                      "canvas_nu": flat.canvas_nu})
+        with torch.no_grad():   # a sharded canvas and its moments whole
+            state.update({k: _whole(st, getattr(flat, k))
+                          for k in ("canvas", "canvas_mu", "canvas_nu")})
     state.update({f"rng_{k}": gens[k].get_state() for k in _STEP_GENERATORS})
     state.update({k: _whole(st, st[k]) for k in _TRACKERS if k in st})
     return state
@@ -549,9 +567,13 @@ def _restore_state(st: Dict[str, Any], gens: Mapping[str, torch.Generator],
                         ("count", flat.count)):
             t.copy_(saved[name])
         if flat.canvas is not None:
-            for name, t in (("canvas", flat.canvas), ("canvas_mu", flat.canvas_mu),
-                            ("canvas_nu", flat.canvas_nu)):
-                t.copy_(saved[name])
+            for name in ("canvas", "canvas_mu", "canvas_nu"):
+                mine = getattr(flat, name)
+                if isinstance(mine, list):   # a sharded canvas: split again
+                    for t, part in zip(mine, st["spatial"].layout.split(saved[name])):
+                        t.copy_(part)
+                else:
+                    mine.copy_(saved[name])
     for k in _STEP_GENERATORS:
         gens[k].set_state(saved[f"rng_{k}"])
     for k in _TRACKERS:
@@ -674,7 +696,7 @@ class DIPSolver:
         lanes = isinstance(gens, list)
         sharded = st.get("spatial")
         if sharded is not None:
-            inp = sharded.net_input(it, data, s, gens, regenerate)
+            inp = sharded.net_input(it, st, data, s, gens, regenerate)
         else:
             inp = self._net_input(it, st, data, s, gens, regenerate)
         frozen = None
@@ -843,7 +865,7 @@ class DIPSolver:
             from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported
             check_supported(cfg)
             layout = SpatialLayout(spatial_mesh, spatial_axis, padded, spatial,
-                                   2 ** (len(cfg.filters) - 1))
+                                   net_multiple(cfg))
 
         gens = _generators(seed, dev)
         canvas_start = gens["canvas"].get_state()
@@ -876,8 +898,11 @@ class DIPSolver:
         i32 = dict(dtype=torch.int32, device=dev)
         out_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         out_shape = (1, self.outchannel) + spatial
+        canvas = None
+        if s.opt_input:   # an optimised canvas: one leaf, or one a shard
+            canvas = base_input if layout is None else layout.split(base_input)
         st: Dict[str, Any] = {
-            "flat": _FlatParams(self.model, base_input if s.opt_input else None),
+            "flat": _FlatParams(self.model, canvas),
             "lr": torch.tensor(cfg.lr, **f32),
             "loss_min": torch.tensor(math.inf, **f32),
             "out_best": torch.zeros(out_shape, dtype=out_dtype, device=dev),
@@ -949,7 +974,7 @@ class DIPSolver:
                 stopped = iters_run < cfg.epochs
                 break
         elapsed = time.time() - start
-        if layout is not None and not s.virtual_input:
+        if layout is not None and data["base_input"] is not None:
             data = dict(data, base_input=layout.gather(data["base_input"]))
 
         pocs = None

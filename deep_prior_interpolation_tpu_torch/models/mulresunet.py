@@ -356,14 +356,19 @@ class MulResUnet(nn.Module):
         y = concat_crop([s, d]) if s is not None else d
         return self._block(names["dec"], i, y)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        in_dtype = x.dtype
+    def check_phase_dims(self, spatial: Sequence[int]) -> None:
+        """Raise ``ValueError`` unless the phased levels can block an input
+        of ``spatial`` dims."""
         for r in range(len(self.filters)):
             m = 2 ** (r + self.pdepth(r))
-            if self.phased(r) and any(dim % m for dim in x.shape[2:]):
+            if self.phased(r) and any(dim % m for dim in spatial):
                 raise ValueError(f"phase level {r} needs spatial dims divisible by {m}, got "
-                                 f"{tuple(x.shape[2:])}: raise pad_multiple or lower "
+                                 f"{tuple(spatial)}: raise pad_multiple or lower "
                                  f"phase_levels")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        in_dtype = x.dtype
+        self.check_phase_dims(x.shape[2:])
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = self._block(self.block0, 0, x)

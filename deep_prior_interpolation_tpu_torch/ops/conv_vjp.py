@@ -29,6 +29,12 @@ at the end. A conv records the formulation it ran under and its backward
 takes the same one, also when autograd runs it on another thread (as it
 does for CUDA tensors) or a remat recomputes it.
 
+On the CPU a bfloat16 or float16 conv (forward, dx and the library dW)
+runs in float32 and rounds once to its dtype (``_library``): oneDNN's
+bfloat16 stride-2 conv3d returns wrong values at some shapes (up to 1e37
+at (1, 16, 4, 8, 2)), and a float32 sum rounded once is what cuDNN's
+float32 accumulation gives on the card, where the calls are unchanged.
+
 Under ``torch.func.vmap`` (a batch of patches, each with its own weights:
 ``parallel/mesh.py``) the conv's vmap rule runs B lanes at once, as the JAX
 package's ``vmap`` does: x (B, N, C, *sp) and w (B, O, I, *k). "conv" is a
@@ -82,6 +88,20 @@ def conv_impl(mode: str) -> Iterator[None]:
         yield
     finally:
         _IMPL_TLS.mode = prev
+
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _library(fn, out_dtype: torch.dtype, *args, **kw) -> torch.Tensor:
+    """``fn(*args, **kw)``, a library conv, forward or gradient; on the CPU
+    with a bfloat16 or float16 result, its tensor arguments in float32 and
+    the result rounded once to ``out_dtype``."""
+    t = next(a for a in args if isinstance(a, torch.Tensor))
+    if t.device.type != "cpu" or out_dtype not in _LOW:
+        return fn(*args, **kw)
+    args = tuple(a.float() if isinstance(a, torch.Tensor) else a for a in args)
+    return fn(*args, **kw).to(out_dtype)
 
 
 def _pairs(padding: Padding, nd: int) -> Pads:
@@ -269,8 +289,9 @@ class _ConvSame(torch.autograd.Function):
             return _tap_conv(x, w, stride, pads)
         conv = _FWD[w.ndim - 2]
         if _symmetric(pads):
-            return conv(x, w, stride=stride, padding=tuple(lo for lo, _ in pads))
-        return conv(F.pad(x, _flat(pads)), w, stride=stride)
+            return _library(conv, x.dtype, x, w, stride=stride,
+                            padding=tuple(lo for lo, _ in pads))
+        return _library(conv, x.dtype, F.pad(x, _flat(pads)), w, stride=stride)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -302,11 +323,11 @@ def _conv_grads(ctx, dy: torch.Tensor, halo: Optional[int] = None):
         if tap:
             dx = _tap_conv_input(dy, w, x.shape, stride, pads).to(x.dtype)
         elif sym:
-            dx = _DX[nd](x.shape, w, dy, stride=stride, padding=padding)
+            dx = _library(_DX[nd], x.dtype, x.shape, w, dy, stride=stride, padding=padding)
         else:
             xp_shape = x.shape[:2] + tuple(x.shape[2 + i] + lo + hi
                                            for i, (lo, hi) in enumerate(pads))
-            dxp = _DX[nd](xp_shape, w, dy, stride=stride)
+            dxp = _library(_DX[nd], x.dtype, xp_shape, w, dy, stride=stride)
             dx = dxp[(slice(None), slice(None)) + tuple(
                 slice(lo, lo + x.shape[2 + i]) for i, (lo, _) in enumerate(pads))]
     if ctx.needs_input_grad[1]:
@@ -325,9 +346,9 @@ def _conv_grads(ctx, dy: torch.Tensor, halo: Optional[int] = None):
         elif tap:
             dw = _tap_conv_weight(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
         elif sym:
-            dw = _DW[nd](x, w.shape, dy, stride=stride, padding=padding)
+            dw = _library(_DW[nd], w.dtype, x, w.shape, dy, stride=stride, padding=padding)
         else:
-            dw = _DW[nd](F.pad(x, _flat(pads)), w.shape, dy, stride=stride)
+            dw = _library(_DW[nd], w.dtype, F.pad(x, _flat(pads)), w.shape, dy, stride=stride)
     return dx, dw
 
 
@@ -434,9 +455,10 @@ class _ConvSameLanes(torch.autograd.Function):
         conv = _FWD[w.ndim - 3]
         xg, wg = _grouped(x), w.reshape((-1,) + tuple(w.shape[2:]))
         if _symmetric(pads):
-            y = conv(xg, wg, stride=stride, padding=tuple(lo for lo, _ in pads), groups=b)
+            y = _library(conv, x.dtype, xg, wg, stride=stride,
+                         padding=tuple(lo for lo, _ in pads), groups=b)
         else:
-            y = conv(F.pad(xg, _flat(pads)), wg, stride=stride, groups=b)
+            y = _library(conv, x.dtype, F.pad(xg, _flat(pads)), wg, stride=stride, groups=b)
         return _ungrouped(y, b)
 
     @staticmethod
@@ -454,12 +476,12 @@ class _ConvSameLanes(torch.autograd.Function):
             if tap:
                 dx = _tap_conv_input_lanes(dy, w, x.shape, stride, pads).to(x.dtype)
             elif sym:
-                dx = _ungrouped(_DX[nd](xg.shape, wg, dyg, stride=stride, padding=padding,
-                                        groups=b), b)
+                dx = _ungrouped(_library(_DX[nd], x.dtype, xg.shape, wg, dyg, stride=stride,
+                                         padding=padding, groups=b), b)
             else:
                 xp_shape = xg.shape[:2] + tuple(xg.shape[2 + i] + lo + hi
                                                 for i, (lo, hi) in enumerate(pads))
-                dxp = _DX[nd](xp_shape, wg, dyg, stride=stride, groups=b)
+                dxp = _library(_DX[nd], x.dtype, xp_shape, wg, dyg, stride=stride, groups=b)
                 dx = _ungrouped(dxp[(slice(None), slice(None)) + tuple(
                     slice(lo, lo + xg.shape[2 + i]) for i, (lo, _) in enumerate(pads))], b)
         if ctx.needs_input_grad[1]:
@@ -473,8 +495,8 @@ class _ConvSameLanes(torch.autograd.Function):
                 dw = _tap_conv_weight_lanes(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
             else:
                 xin = xg if sym else F.pad(xg, _flat(pads))
-                dw = _DW[nd](xin, wg.shape, dyg, stride=stride,
-                             padding=padding if sym else 0, groups=b).reshape(w.shape)
+                dw = _library(_DW[nd], w.dtype, xin, wg.shape, dyg, stride=stride,
+                              padding=padding if sym else 0, groups=b).reshape(w.shape)
         return dx, dw, None, None, None
 
 

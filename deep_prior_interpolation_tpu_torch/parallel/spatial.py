@@ -8,9 +8,11 @@ list of shards itself, from one process, as JAX's single controller does:
 
   * a mesh is a list of devices, repeats allowed: ``[cpu] * 8`` stands for
     JAX's 8 virtual CPU devices, ``[cuda:0] * N`` runs N shards on one card;
-  * the shard boundaries lie on multiples of 2^L planes of the padded
-    volume (L downsamplings), so each shard halves exactly at every level
-    and every halo is (k - 1) / 2 planes of its own level;
+  * the shard boundaries lie on multiples of the net's block of the padded
+    volume (``engine.solver.net_multiple``: 2^L planes for L downsamplings,
+    2^(r + q) for a phase level r at depth q), so each shard halves exactly
+    at every level, blocks exactly at every phase depth, and every halo is
+    a few planes of its own level;
   * three collectives, autograd Functions whose sums run on one device in
     shard order, so a sharded step repeats bit for bit: ``_AllReduce`` (N
     tensors in, N copies of their sum out; its backward the same),
@@ -28,29 +30,44 @@ list of shards itself, from one process, as JAX's single controller does:
     and divides by the volume's voxel count; the linear x2 upsample takes a
     one-plane halo that copies the edge plane at the volume's ends (the
     resize's clamp) and crops two output planes on each side; concats,
-    activations, adds and casts are local. The crop to the unpadded volume
-    maps onto the shards (only the first and last lose planes) and the
-    loss is the shards' sums all-reduced (one fused-loss launch a shard).
-    Each Dropout draws one mask at the volume's shape of its level, and
-    splits it; remat checkpoints a walked block over its list of shards,
-    collectives included, so the recompute exchanges the halos again.
+    activations, adds and casts are local;
+  * a phase net (``ops/phase_space.py``) is walked piece by piece on its
+    phase tensors, whose phase grid splits as the plain grid does: the
+    entry conv (plain -> phase: stride 2, kernel k + 1) over a zero halo of
+    (k - 1) / 2 plain planes on each side, the folded phase -> phase conv
+    through ``conv_halo`` as a plain conv, the exit conv (phase -> plain at
+    half resolution: kernel 2, padding (1, 0)) over one phase plane on the
+    left only, ``upsample_into_phase``'s linear stencil over the resize's
+    one-plane clamped halo (one output plane cropped on each side), and a
+    phase ``Norm`` pools each channel's lanes after its all-reduce; each
+    weight transform is made on each shard from its replicated weight, and
+    the layout changes (``space_to_depth``, ``depth_to_space``) are local.
+    The crop to the unpadded volume maps onto the shards (only the first
+    and last lose planes) and the loss is the shards' sums all-reduced
+    (one fused-loss launch a shard). Each Dropout draws one mask at the
+    volume's shape of its level, and splits it; remat checkpoints a walked
+    block over its list of shards, collectives included, so the recompute
+    exchanges the halos again.
 
 The parameters, Adam's moments and the scalar trackers stay on the solver's
 device; the canvas, the data and the best and last outputs are split
-(``shard_solver_state``). Every random draw is made whole on the solver's
-device, from the unsharded step's generator at its point in the step (the
-input noise, a virtual canvas, each dropout mask; the parameter noise
-perturbs the parameters before they are replicated), and split, so a
-sharded solve follows the unsharded one with the same seed up to the
-order of its sums. POCS gathers the cropped output to the solver's device
+(``shard_solver_state``); an optimised canvas is one Adam leaf a shard,
+each with its moments on its shard's device, gathered whole for the
+result and the checkpoint, which a resume splits again. Every random draw
+is made whole on the solver's device, from the unsharded step's generator
+at its point in the step (the input noise, a virtual canvas, each dropout
+mask; the parameter noise perturbs the parameters before they are
+replicated), and split, so a sharded solve follows the unsharded one with
+the same seed up to the order of its sums. POCS gathers the cropped output to the solver's device
 (``SpatialLayout.gather``, whose backward splits the gradient) and
 projects the whole volume there, where its weights stay whole.
 
-A sharded solve covers the plain MulResUnet, 2D and 3D, nearest and linear
-upsampling, bfloat16 and float32, the fused and the plain loss, snapshots,
+A sharded solve covers the MulResUnet, plain or in phase space, 2D and 3D,
+nearest and linear upsampling, bfloat16 and float32, both conv
+formulations (cuDNN and tapmm), the fused and the plain loss, snapshots,
 checkpoints, POCS, remat, dropout, parameter noise, data forgetting, a
-shaped or a virtual canvas; ``check_supported`` refuses the rest (ROADMAP
-A.13c: input optimisation, phase space, tapmm and the zoo nets).
+shaped, a virtual or an optimised canvas; ``check_supported`` refuses the
+zoo nets (ROADMAP A.13c item 11).
 """
 from __future__ import annotations
 
@@ -59,12 +76,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..config import Config
-from ..models.blocks import Conv, Dropout, Norm, _bcast, upsample
+from ..models.blocks import Conv, Dropout, Norm, _bcast, _lanes, upsample
 from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath, recomputed
 from ..ops import losses as L
 from ..ops.conv_vjp import conv_halo, conv_same
 from ..ops.fused_loss import fused_loss_sums, metrics_from_sums
 from ..ops.noise import get_noise
+from ..ops.phase_space import (depth_to_space, entry_kernel, phase_kernel, phase_paddings,
+                               space_to_depth, upsample_into_phase)
 from .mesh import Mesh, make_mesh
 
 __all__ = ["ShardedStep", "SpatialLayout", "check_supported", "make_spatial_mesh",
@@ -93,7 +112,7 @@ def shard_bounds(extent: int, n: int, block: int) -> List[Tuple[int, int]]:
     blocks allow (the first shards take one block more)."""
     if extent % block:
         raise ValueError(f"a sharded axis of {extent} planes is not a whole number of "
-                         f"{block}-plane blocks (the net's 2^levels)")
+                         f"{block}-plane blocks (the net's levels and phase depths)")
     blocks = extent // block
     if blocks < n:
         raise ValueError(f"a sharded axis of {extent} planes holds {blocks} blocks of {block} "
@@ -176,10 +195,11 @@ def shard_solver_state(mesh: Sequence[torch.device], spatial_axis: int,
                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Split a solve's volume entries over ``mesh`` along ``spatial_axis``:
     the canvas-shaped data entries (``base_input``, ``forget_data``,
-    ``net_mask``) at boundaries on multiples of ``block`` planes (2^L for a
-    net of L downsamplings), the volume-shaped ones (``img``, ``mask``) and
-    the state's ``out_best``/``out_last`` at the same boundaries cropped to
-    the unpadded volume. Each shard is a contiguous tensor on its device;
+    ``net_mask``) at boundaries on multiples of ``block`` planes (the net's
+    block, ``engine.solver.net_multiple``), the volume-shaped ones (``img``,
+    ``mask``) and the state's ``out_best``/``out_last`` at the same
+    boundaries cropped to the unpadded volume. Each shard is a contiguous
+    tensor on its device;
     the rest (parameters, Adam, trackers, the POCS weights) stays whole.
     Returns ``(data, state)``; raises ``ValueError`` for an axis that is not
     spatial or too short for the mesh."""
@@ -326,24 +346,24 @@ class _Replicate(torch.autograd.Function):
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A.13c for what a sharded
-    solve does not cover yet, in that item's order."""
-    refused = [
-        ("input" in cfg.opt_over.split(","), "opt_over with 'input' (the canvas would be "
-                                             "a sharded parameter)"),
-        (cfg.phase_space and cfg.phase_levels != 0, "phase space"),
-        (cfg.vmap_conv_mode == "tapmm", "conv_impl('tapmm')"),
-        (cfg.net not in ("multiunet", "load"), f"--net {cfg.net}"),
-    ]
-    for refuse, what in refused:
-        if refuse:
-            raise NotImplementedError(f"a spatially sharded solve with {what}: ROADMAP A.13c")
+    solve does not cover yet: the zoo nets (its item 11)."""
+    if cfg.net not in ("multiunet", "load"):
+        raise NotImplementedError(f"a spatially sharded solve with --net {cfg.net}: "
+                                  f"ROADMAP A.13c")
+
+
+def _each(fn, xs: List[torch.Tensor], times: int = 1) -> List[torch.Tensor]:
+    """``fn`` applied ``times`` times to each shard (a local layout change)."""
+    for _ in range(times):
+        xs = [fn(x) for x in xs]
+    return xs
 
 
 class ShardedStep:
-    """The sharded pieces of the solver's step for ``model`` (a plain
-    MulResUnet) over ``layout``: the net input, the net's forward walked
-    over the shards (mirroring ``MulResUnet.forward``, ``MultiResBlock`` and
-    ``ResPath``) and the loss terms."""
+    """The sharded pieces of the solver's step for ``model`` (a MulResUnet,
+    plain or in phase space) over ``layout``: the net input, the net's
+    forward walked over the shards (mirroring ``MulResUnet.forward``,
+    ``MultiResBlock`` and ``ResPath``) and the loss terms."""
 
     def __init__(self, model: MulResUnet, layout: SpatialLayout):
         self.model, self.layout = model, layout
@@ -352,13 +372,19 @@ class ShardedStep:
 
     # -- the step -----------------------------------------------------------
 
-    def net_input(self, it: int, data, s, gens, regenerate) -> List[torch.Tensor]:
-        """The canvas shards plus iteration ``it``'s perturbations, as
+    def net_input(self, it: int, st, data, s, gens, regenerate) -> List[torch.Tensor]:
+        """The canvas shards (the optimised canvas's shard leaves under
+        input optimisation) plus iteration ``it``'s perturbations, as
         ``DIPSolver._net_input`` makes them: the noise (and a virtual
         canvas, ``regenerate``) drawn whole on the generator's device and
         split, the forgetting term from the split forgetting data. Each
         shard's sum is the unsharded one's, element for element."""
-        base = self.layout.views(regenerate()) if s.virtual_input else data["base_input"]
+        if s.opt_input:
+            base = st["flat"].canvas
+        elif s.virtual_input:
+            base = self.layout.views(regenerate())
+        else:
+            base = data["base_input"]
         extra = None
         if s.reg_noise_std > 0:
             extra = self.layout.views(s.reg_noise_std * get_noise(
@@ -397,6 +423,7 @@ class ShardedStep:
         """The net's output shards for the input shards ``xs``. Each call
         replicates the parameters once; their gradients come back summed."""
         m = self.model
+        m.check_phase_dims(self.layout.padded)
         reps = _Replicate.apply(tuple(self.layout.mesh), *self._params)
         n_p = len(self._params)
         self._reps = {id(p): list(reps[j::n_p]) for j, p in enumerate(self._params)}
@@ -406,7 +433,7 @@ class ShardedStep:
                 xs = [x.to(m.dtype) for x in xs]
             x = self._block(m.get_submodule(m.block0), 0, xs)
             x = self._level(1, x)
-            x = self._conv(m.get_submodule(m.head), x)
+            x = _each(depth_to_space, self._conv(m.get_submodule(m.head), x), m.pdepth(0))
             return [m.last_act(t).to(in_dtype) for t in x]
         finally:
             self._reps = {}
@@ -446,63 +473,99 @@ class ShardedStep:
         return [m.keep(x, k.to(x.device)) for x, k in zip(xs, kept)]
 
     def _conv(self, m: Conv, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """``blocks.Conv`` on the shards: a same-pad conv over a zero halo of
-        (k - 1) / 2 planes; the stride-2 conv (k = 3) over a left halo of one
-        plane, as each shard starts on an even plane and its last output
-        reads no plane past its end."""
+        """``blocks.Conv`` on the shards, with ``ops/phase_space.py``'s convs
+        of a phase conv, each weight transform made on each shard from its
+        replicated weight: a stride-1 conv (the plain one, or a phase ->
+        phase conv with the folded kernel) over a zero halo of (k - 1) / 2
+        planes, unpadded along the axis (``conv_halo``); the stride-2 down
+        conv (k = 3) over a left halo of one plane, as each shard starts on
+        an even plane and its last output reads no plane past its end; the
+        phase entry (stride 2, kernel k + 1) over p planes on each side; the
+        phase exit (kernel 2, padding (1, 0)) over one plane on the left."""
         dt = m.dtype if m.dtype is not None else xs[0].dtype
-        p, ax = (m.kernel_size - 1) // 2, self.layout.axis
+        k = m.kernel_size
         xs = [x.to(dt) for x in xs]
         ws = [w.to(dt) for w in self._rep(m.kernel)]
-        if m.stride == 1 and p:
-            xs = halo_exchange(xs, ax, p, p, "zero")
-            ys = [conv_halo(x, w, ax, p) for x, w in zip(xs, ws)]
+        if m.phase_out and not m.phase_in:      # plain -> phase
+            p = (k - 1) // 2
+            ys = _each(space_to_depth, self._halo_conv(
+                xs, [entry_kernel(w) for w in ws], 2, (p, p), (p, p)), m.phase_depth - 1)
+        elif m.phase_in and not m.phase_out:    # phase -> plain at half resolution
+            pads = phase_paddings(k, 2)
+            ys = self._halo_conv(_each(depth_to_space, xs, m.phase_depth - 1),
+                                 [phase_kernel(w, 2) for w in ws], 1, pads, pads)
         elif m.stride == 1:
-            ys = [conv_same(x, w, 1, 0) for x, w in zip(xs, ws)]
+            for _ in range(m.phase_depth if m.phase_in else 0):   # phase -> phase
+                ws = [phase_kernel(w, 1) for w in ws]
+            p, ax = (ws[0].shape[2] - 1) // 2, self.layout.axis
+            if p:
+                ys = [conv_halo(x, w, ax, p)
+                      for x, w in zip(halo_exchange(xs, ax, p, p, "zero"), ws)]
+            else:
+                ys = [conv_same(x, w, 1, 0) for x, w in zip(xs, ws)]
         else:   # the MulResUnet's stride-2 down conv, k = 3
-            xs = halo_exchange(xs, ax, 1, 0, "zero")
-            pads = [(1, 1)] * (xs[0].dim() - 2)
-            pads[ax] = (0, 0)
-            ys = [conv_same(x, w, 2, pads) for x, w in zip(xs, ws)]
+            ys = self._halo_conv(xs, ws, 2, (1, 1), (1, 0))
         if m.bias is not None:
-            ys = [y + _bcast(b.to(dt), y.ndim) for y, b in zip(ys, self._rep(m.bias))]
+            lanes = 2 ** ((ys[0].ndim - 2) * m.phase_depth) if m.phase_out else 1
+            ys = [y + _bcast(_lanes(b.to(dt), lanes), y.ndim)
+                  for y, b in zip(ys, self._rep(m.bias))]
         return ys
+
+    def _halo_conv(self, xs: List[torch.Tensor], ws: List[torch.Tensor], stride: int,
+                   pad: Tuple[int, int], halo: Tuple[int, int]) -> List[torch.Tensor]:
+        """``conv_same`` of each shard over a zero halo of ``halo`` (lo, hi)
+        planes along the axis, unpadded there, ``pad`` on the other axes."""
+        ax = self.layout.axis
+        if any(halo):
+            xs = halo_exchange(xs, ax, *halo, "zero")
+        pads = [pad] * (xs[0].dim() - 2)
+        pads[ax] = (0, 0)
+        return [conv_same(x, w, stride, pads) for x, w in zip(xs, ws)]
 
     def _norm(self, m: Norm, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         """``blocks.Norm`` of the whole volume: the shards' float32 sums
         (float64 for float64 shards) all-reduced, over the volume's voxel
-        count."""
+        count; of a phase tensor, each channel's ``m.phase`` lanes pooled
+        after the all-reduce."""
         axes = [0] + list(range(2, xs[0].ndim))
         parts = []
         for x in xs:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             parts.append(torch.stack([torch.sum(xf, dim=axes), torch.sum(xf * xf, dim=axes)]))
-        count = float(sum(x.numel() // x.shape[1] for x in xs))
+        count = float(sum(x.numel() // x.shape[1] for x in xs)) * m.phase
         outs = []
         for x, s, scale, bias in zip(xs, all_reduce(parts), self._rep(m.scale),
                                      self._rep(m.bias)):
+            if m.phase > 1:
+                s = s.view(2, -1, m.phase).sum(-1)
             mean = s[0] / count
             var = torch.clamp(s[1] / count - mean * mean, min=0.0)
             g = scale * torch.rsqrt(var + m.eps)
             b = bias - mean * g
+            if m.phase > 1:
+                g, b = _lanes(g, m.phase), _lanes(b, m.phase)
             outs.append(x * _bcast(g.to(x.dtype), x.ndim) + _bcast(b.to(x.dtype), x.ndim))
         return outs
 
     def _cna(self, m, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         return [m.act(y) for y in self._norm(m.Norm_0, self._conv(m.Conv_0, xs))]
 
-    def _upsample(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The x2 upsample: 'nearest' is local; the linear one upsamples each
-        shard with one plane of each neighbour (a copy of its own edge plane
-        at the volume's ends, as the resize clamps there) and crops the two
-        output planes on each side those planes alone decide."""
+    def _upsample(self, xs: List[torch.Tensor], into_phase: bool = False
+                  ) -> List[torch.Tensor]:
+        """The x2 upsample, or with ``into_phase`` ``upsample_into_phase``:
+        'nearest' is local; the linear one upsamples each shard with one
+        plane of each neighbour (a copy of its own edge plane at the
+        volume's ends, as the resize clamps there) and crops the output
+        planes on each side those planes alone decide (two of the resize,
+        one of the phase stencil, whose output grid is its input's)."""
         mode = self.model.upsample_mode
         if mode == "nearest":
-            return [upsample(x, 2, mode) for x in xs]
-        dim = self.layout.dim
-        ys = [upsample(e, 2, mode) for e in halo_exchange(xs, self.layout.axis, 1, 1,
-                                                          "replicate")]
-        return [y.narrow(dim, 2, y.shape[dim] - 4) for y in ys]
+            return [upsample_into_phase(x, mode) if into_phase else upsample(x, 2, mode)
+                    for x in xs]
+        dim, crop = self.layout.dim, 1 if into_phase else 2
+        ys = [upsample_into_phase(e, "linear") if into_phase else upsample(e, 2, mode)
+              for e in halo_exchange(xs, self.layout.axis, 1, 1, "replicate")]
+        return [y.narrow(dim, crop, y.shape[dim] - 2 * crop) for y in ys]
 
     def _multires(self, m: MultiResBlock, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         out1 = self._cna(m.ConvNormAct_0, xs)
@@ -537,6 +600,10 @@ class ShardedStep:
                         self._drop(m.drop, [m.act(t) for t in d]))
         if i < len(m.filters) - 1:
             d = self._level(i + 1, d)
-        d = self._upsample(d)
+        d = _each(depth_to_space, d, m.pdepth(i))
+        if m.phased(i - 1):   # the x2 upsample lands in phase layout
+            d = _each(space_to_depth, self._upsample(d, into_phase=True), m.pdepth(i - 1) - 1)
+        else:
+            d = self._upsample(d)
         y = [torch.cat([a, b], dim=1) for a, b in zip(s, d)] if s is not None else d
         return self._block(m.get_submodule(names["dec"]), i, y)

@@ -2,7 +2,11 @@
 card, with the kernels: each option's sharded solve over ``[cuda:0] * 2``
 against the unsharded card solve at a small size (float32, TF32 off, the
 fused loss, ``DPI_PALLAS_WGRAD=1``, trilinear upsampling), first 3 losses
-rtol 1e-4 as the CPU tests hold them; every shard launches each kernel;
+rtol 1e-4 as the CPU tests hold them, every run with one summation
+order (deterministic cuDNN, the wgrad kernel's first candidate grid: its
+tuner keeps the fastest grid, which varies from run to run, and over two
+updates Adam can turn that rounding into a 1e-4 to 4e-3 change of the
+POCS term); every shard launches each kernel;
 remat over the shards is bit-equal to the same solve without it and
 launches the same kernels as often (it recomputes forwards only).
 
@@ -25,11 +29,22 @@ from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
 torch.set_num_threads(1)
 
 
+def first_grid(x, dy, k):
+    """The wgrad planner's first candidate grid for this shape, in place of
+    the tuner's fastest: one summation order in every run."""
+    pl = WG._plans(x.shape[1], dy.shape[1], *x.shape[2:], k, x.dtype == torch.bfloat16,
+                   x.shape[0])[0]
+    return pl, WG._args(pl, WG._aligned(x, dy), x.shape[0])
+
+
 @pytest.fixture
 def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     monkeypatch.setenv("DPI_PALLAS_WGRAD", "1")
+    monkeypatch.setattr(WG, "_tune", first_grid)
+    monkeypatch.setattr(WG, "_tuned", {})
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     yield torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

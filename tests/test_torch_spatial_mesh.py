@@ -166,18 +166,20 @@ def test_a_halo_conv_and_the_linear_upsample_on_shards_are_the_whole_ones():
                                rtol=1e-12, atol=1e-12)
 
 
-# what a sharded solve still refuses: ROADMAP A.13c items 8-11
+# what a sharded solve still refuses: ROADMAP A.13c item 11, the zoo nets,
+# alone and with options the shards serve for the MulResUnet
 REFUSED = [
-    ({"opt_over": "net,input"}, "opt_over"),
-    ({"opt_over": "input", "pocs": True}, "opt_over"),
-    ({"phase_space": True, "phase_levels": 1}, "phase space"),
-    ({"phase_space": True, "phase_levels": -1}, "phase space"),
-    ({"vmap_conv_mode": "tapmm"}, "tapmm"),
-    ({"vmap_conv_mode": "tapmm", "remat": True}, "tapmm"),
     ({"net": "skip"}, "--net skip"),
+    ({"net": "skip", "opt_over": "net,input"}, "--net skip"),
+    ({"net": "skip", "vmap_conv_mode": "tapmm", "remat": True}, "--net skip"),
     ({"net": "unet", "filters": [4, 8, 8, 8, 8], "skip": [4, 4, 4, 4]}, "--net unet"),
+    ({"net": "unet", "filters": [4, 8, 8, 8, 8], "skip": [4, 4, 4, 4],
+      "opt_over": "input", "pocs": True}, "--net unet"),
     ({"net": "part"}, "--net part"),
+    ({"net": "part", "vmap_conv_mode": "tapmm"}, "--net part"),
     ({"net": "attmultiunet"}, "--net attmultiunet"),
+    ({"net": "attmultiunet", "phase_space": True, "phase_levels": 1}, "--net attmultiunet"),
+    ({"net": "attmultiunet", "dropout": 0.1}, "--net attmultiunet"),
 ]
 
 
