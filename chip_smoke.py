@@ -217,13 +217,44 @@ Phases, each of which ends the run with a non-zero exit code on failure:
        version, timed beside its bound, the plain version and
        ``conv3d_weight``, and the phase path's wgrad ms an iteration.
 
+13. the zoo nets over spatial shards (``parallel/spatial_zoo.py``), each
+    sharded solve traced as 10a (launch counters set to 0 just before and
+    read just after):
+    a. ``--net skip`` and ``--net unet`` (bf16) at 6e's configuration (the
+       flagship volume and flags) over [cuda:0] x 2 and x 4 along H, 6
+       iterations in chunks of 3: launches fused N / N, wgrad N x 6e's
+       admitted convs and ``upsample_bwd`` N x the net's linear upsamples
+       (5, 4) an iteration, the wgrad hook's shapes 6e's split over the
+       shards (each shard's planes with a halo plane on each side), the
+       kernel each upsample shape takes; s/iteration, peak and the
+       iteration-0 loss beside 6e's (rel 1e-3, bf16);
+    b. ``--net part`` in float32 (TF32 off) over x 2 and x 4, 4 iterations
+       in chunks of 2, traced as 13a (wgrad at the decoder's convs only: the
+       partial convs' own convs go to cuDNN), the iteration-0 loss to rel
+       1e-5 of 6e's; one iteration's parameter gradients over 2 shards held
+       to TF32's own error, as 10a holds the flagship's;
+    c. the README's 2D command with ``--net attmultiunet`` (its patch, seed
+       and flags) through ``DIPSolver.solve`` over 2 shards of the card along
+       axis 1 (``--spatial_shards`` takes one card a shard): launches 18 /
+       18 / 0 / 72 (the four gates' one-channel bilinear upsamples on each
+       shard), the kernel each shape takes, the iteration-0 loss to rel
+       1e-5 of 6f's;
+    d. phase 3's small float32 problem with ``--net skip`` over 2 shards:
+       two solves and a resume bit-equal;
+    e. the kernels at the zoo's new shard shapes: wgrad (bf16 and part's
+       float32 decoder) against its plain version, timed beside its bound
+       and ``conv3d_weight``; ``upsample_bwd`` (3D and the gates' 2D)
+       bit-equal, timed beside the plain version and the atomic backward;
+       the fused loss on float32 and 2D shard outputs.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 12; every one must pass.
+   after phase 13; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a, 11b, 12a and 12b; wgrad with its rows at 10a's and 12a's shard
-shapes), the ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
+11a, 11b, 12a, 12b, 13a-13c; each kernel with its rows at 10a's, 12a's
+and the zoo's shard shapes), the ``{"phase13": ...}``,
+``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
 ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
 and ``{"main_path": ...}`` lines before it, the last line ``{"ok": true,
 "device": {...}}``.
@@ -839,33 +870,46 @@ def check_small_solve(dev) -> np.ndarray:
     return a
 
 
+class hooked:
+    """Within the block, hooks on the conv's weight gradient and the
+    upsample's backward record the shapes they are asked for (at their
+    callers: a wrapper counts its launches on its own name): ``wgrad``
+    (Ci, Co, x's spatial) and ``upsample`` (C, the input's spatial)."""
+
+    def __enter__(self):
+        from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+        from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+        self.wgrad, self.upsample = collections.Counter(), collections.Counter()
+        self._real = conv_vjp.wgrad3d, U._LinearUpsample2x.backward
+        real, real_up = self._real
+
+        def hook(x, dy, k):
+            self.wgrad[(x.shape[1], dy.shape[1], tuple(x.shape[2:]))] += 1
+            return real(x, dy, k)
+
+        def hook_up(ctx, g):
+            self.upsample[(g.shape[1], tuple(s // 2 for s in g.shape[2:]))] += 1
+            return real_up(ctx, g)
+        conv_vjp.wgrad3d, U._LinearUpsample2x.backward = hook, staticmethod(hook_up)
+        return self
+
+    def __exit__(self, *exc):
+        from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+        from deep_prior_interpolation_tpu_torch.ops import upsample as U
+        conv_vjp.wgrad3d, U._LinearUpsample2x.backward = self._real[0], \
+            staticmethod(self._real[1])
+
+
 def traced_solve(solver, img, mask, **kw):
     """``solver.solve(img, mask, seed=0, **kw)`` with the launch counters set to 0
-    just before and read just after, and hooks on the conv's weight gradient
-    and the upsample's backward that record the shapes they are asked for
-    (at their callers: a wrapper counts its launches on its own name).
+    just before and read just after, and the shapes ``hooked`` records.
     Returns (result, launches, wgrad shapes, upsample shapes)."""
-    from deep_prior_interpolation_tpu_torch.ops import conv_vjp
-    from deep_prior_interpolation_tpu_torch.ops import upsample as U
-
-    seen, real = collections.Counter(), conv_vjp.wgrad3d
-    seen_up, real_up = collections.Counter(), U._LinearUpsample2x.backward
-
-    def hook(x, dy, k):
-        seen[(x.shape[1], dy.shape[1], tuple(x.shape[2:]))] += 1
-        return real(x, dy, k)
-
-    def hook_up(ctx, g):
-        seen_up[(g.shape[1], tuple(s // 2 for s in g.shape[2:]))] += 1
-        return real_up(ctx, g)
-
-    conv_vjp.wgrad3d, U._LinearUpsample2x.backward = hook, staticmethod(hook_up)
-    reset_counts()
-    try:
+    with hooked() as seen:
+        reset_counts()
         res = solver.solve(img, mask, seed=0, **kw)
-    finally:
-        conv_vjp.wgrad3d, U._LinearUpsample2x.backward = real, staticmethod(real_up)
-    return res, read_counts(), seen, seen_up
+        counts = read_counts()
+    return res, counts, seen.wgrad, seen.upsample
 
 
 def main_path(dev) -> dict:
@@ -1046,21 +1090,28 @@ def cli_survey(dev, tmp: str) -> dict:
             "fk_projection_ms": fk_ms}
 
 
+def lines_config(outdir: str, *extra):
+    """The README's command on the bundled lines data, with POCS and the
+    ``extra`` flags."""
+    from deep_prior_interpolation_tpu_torch.config import parse_arguments
+    from deep_prior_interpolation_tpu_torch.data import dataset_path
+
+    return parse_arguments([
+        "--imgdir", os.path.dirname(dataset_path("lines/original.npy")),
+        "--imgname", "original.npy", "--maskname", "random66.npy", "--datadim", "2d",
+        "--outdir", outdir, "--pocs", "--pocs_alpha", "0.1", "--pocs_thresh", "5",
+        "--fused_loss", "--epochs", "9", "--gain", "1", *extra])
+
+
 def cli_lines(tmp: str, extra=(), outdir: str = "lines", ups: int = 0) -> dict:
     """The README's command on the bundled lines data, with POCS (and the
     ``extra`` flags, such as another ``--net``, whose forward has ``ups``
     linear upsamples)."""
     from deep_prior_interpolation_tpu_torch import cli
-    from deep_prior_interpolation_tpu_torch.config import parse_arguments
-    from deep_prior_interpolation_tpu_torch.data import dataset_path
     from deep_prior_interpolation_tpu_torch.engine import HistoryPOCS
     from deep_prior_interpolation_tpu_torch.io import load_run
 
-    cfg = parse_arguments([
-        "--imgdir", os.path.dirname(dataset_path("lines/original.npy")),
-        "--imgname", "original.npy", "--maskname", "random66.npy", "--datadim", "2d",
-        "--outdir", outdir, "--pocs", "--pocs_alpha", "0.1", "--pocs_thresh", "5",
-        "--fused_loss", "--epochs", "9", "--gain", "1", *extra])
+    cfg = lines_config(outdir, *extra)
     reset_counts()
     out = cli.run(cfg, results_root=tmp)
     counts = read_counts()
@@ -1323,7 +1374,9 @@ def check_zoo(dev) -> dict:
         per_iter = sum(row["ms"] * row["launches_per_iteration"] for row in rows)
         log(f"6e --net {net}: {len(rows)} new wgrad shapes, their ms/iteration {per_iter:.4f}")
         out[net] = dict(r, dtype=dtype, wgrad_launches_per_iteration=admitted // 6,
-                        turned_away=[list(map(str, a)) for a in away], wgrad_shapes=rows)
+                        turned_away=[list(map(str, a)) for a in away], wgrad_shapes=rows,
+                        wgrad_calls=[[ci, co, list(sp), dt, n // 6]
+                                     for (ci, co, sp, dt), n in sorted(seen.items())])
         torch.cuda.empty_cache()
     return out
 
@@ -2395,17 +2448,18 @@ def spatial_exactness(dev, tmp: str) -> dict:
 
 
 def spatial_wgrad_row(dev, ci: int, co: int, sp, hs: int, n: int, k: int, g,
-                      time_plain: bool, label: str = "10c") -> dict:
-    """10c, 12d: the wgrad kernel on one shard's (x with its two halo planes,
-    dy padded with zero planes) along H, against its plain version (1e-4 of
-    max |dW| + 1e-4), timed beside its bound, the plain version (where
-    ``time_plain``) and ``conv3d_weight`` of the shard's conv (unpadded
-    along H); ``k`` launches a shard an iteration."""
+                      time_plain: bool, label: str = "10c", dt=torch.bfloat16) -> dict:
+    """10c, 12d, 13e: the wgrad kernel on one shard's (x with its two halo
+    planes, dy padded with zero planes) along H, against its plain version
+    (1e-4 of max |dW| + 1e-4), timed beside its bound, the plain version
+    (where ``time_plain``) and ``conv3d_weight`` of the shard's conv
+    (unpadded along H; TF32 off for float32); ``k`` launches a shard an
+    iteration."""
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
 
     d, h, w = sp
-    x = torch.randn((1, ci, d, hs + 2, w), generator=g, device=dev).to(torch.bfloat16)
-    dy = torch.randn((1, co, d, hs, w), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((1, ci, d, hs + 2, w), generator=g, device=dev).to(dt)
+    dy = torch.randn((1, co, d, hs, w), generator=g, device=dev).to(dt)
     dyp = torch.nn.functional.pad(dy, (0, 0, 1, 1))
     got = WG.wgrad3d(x, dyp, 3)
     torch.cuda.synchronize()
@@ -2414,18 +2468,25 @@ def spatial_wgrad_row(dev, ci: int, co: int, sp, hs: int, n: int, k: int, g,
     lim = 1e-4 * float(ref.abs().max()) + 1e-4
     del got, ref
     row = {"ci": ci, "co": co, "spatial": list(sp), "shards": n, "x_shape": list(x.shape[2:]),
-           "dy_shape": list(dyp.shape[2:]), "launches_per_iteration": n * k,
-           "max_abs_err": err, "tol": lim, "ms": time_ms(lambda: WG.wgrad3d(x, dyp, 3)),
-           "plain_ms": time_ms(lambda: WG.wgrad3d_plain(x, dyp, 3)) if time_plain else None,
-           "library_ms": time_ms(lambda: torch.nn.grad.conv3d_weight(
-               x, (co, ci, 3, 3, 3), dy, stride=1, padding=(1, 0, 1)))}
+           "dy_shape": list(dyp.shape[2:]), "dtype": str(dt).split(".")[-1],
+           "launches_per_iteration": n * k, "max_abs_err": err, "tol": lim,
+           "ms": time_ms(lambda: WG.wgrad3d(x, dyp, 3)),
+           "plain_ms": time_ms(lambda: WG.wgrad3d_plain(x, dyp, 3)) if time_plain else None}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        row["library_ms"] = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x, (co, ci, 3, 3, 3), dy, stride=1, padding=(1, 0, 1)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     # x and dy read once, dW written once; the products of the shard's own
     # (valid along H) conv
-    n_bytes = (ci * x[0, 0].numel() + co * dy[0, 0].numel()) * 2 + co * ci * 27 * 4
+    n_bytes = (ci * x[0, 0].numel() + co * dy[0, 0].numel()) * x.element_size() \
+        + co * ci * 27 * 4
     n_flops = 2.0 * ci * co * 3 * hs * _valid_products((d, 1, w), 3)
-    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops, torch.bfloat16)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_flops, dt)
     plain = "not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.4f}"
-    log(f"{label} wgrad {ci}->{co} {tuple(sp)}, shard of {hs} of {h} planes "
+    log(f"{label} wgrad {ci}->{co} {tuple(sp)} {row['dtype']}, shard of {hs} of {h} planes "
         f"(x {tuple(x.shape[2:])}, "
         f"padded dy), {n} shards: max abs err {err:.3e} (tol {lim:.3e}); ms {row['ms']:.4f} "
         f"plain {plain} conv3d_weight {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
@@ -2445,7 +2506,6 @@ def spatial_kernels(dev) -> dict:
     128) bf16 output, forward and backward, and the shards' sums against
     the whole volume's; the upsample's backward at every shard shape of 10a
     (bit-equal)."""
-    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
     from deep_prior_interpolation_tpu_torch.ops import upsample as U
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
 
@@ -2486,38 +2546,8 @@ def spatial_kernels(dev) -> dict:
     out["wgrad_shard_sums"] = sums
     del x, dy, xp, whole
     # the fused loss at the shards' shapes
-    rows = []
-    for n in SPATIAL_SHARDS:
-        shape = (1, 1, 256, 128 // n, 128)
-        img = torch.randn(shape, generator=g, device=dev)
-        o = (img + torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
-        mask = (torch.rand(shape, generator=g, device=dev) > 0.66).float()
-        gin = torch.randn(8, generator=g, device=dev)
-        sk, sp_ = FL.fused_sums(o, img, mask), FL.fused_sums_plain(o, img, mask)
-        rel = float(((sk - sp_).abs() / sp_.abs().clamp_min(1e-30)).max())
-        gk, gp = FL.loss_sums_grad(o, img, mask, gin).float(), \
-            FL.loss_sums_grad_plain(o, img, mask, gin).float()
-        gerr = float((gk - gp).abs().max())
-        glim = 2.0 ** -7 * float(gp.abs().max())
-        (fb, fby), (bb, bby) = _loss_bounds(o.numel(), torch.bfloat16)
-        copies = [(o.clone(), img.clone(), mask.clone()) for _ in range(3)]
-        row = {"shards": n, "shape": list(shape), "max_rel_err": rel,
-               "max_abs_err": float((sk - sp_).abs().max()), "grad_max_abs_err": gerr,
-               "fwd": {"ms": graph_ms(cycling(FL.fused_sums, copies)),
-                       "plain_ms": graph_ms(cycling(FL.fused_sums_plain, copies)),
-                       "bound_ms": fb, "bound_by": fby},
-               "bwd": {"ms": graph_ms(cycling(FL.loss_sums_grad, [c + (gin,) for c in copies])),
-                       "plain_ms": graph_ms(cycling(FL.loss_sums_grad_plain,
-                                                    [c + (gin,) for c in copies])),
-                       "bound_ms": bb, "bound_by": bby}}
-        log(f"10c fused loss on a shard {tuple(shape)} bf16: sums rel err {rel:.3e} (tol 1e-4), "
-            f"grad max abs err {gerr:.3e} (tol {glim:.3e}); forward {row['fwd']['ms']:.4f} ms "
-            f"(bound {fb:.4f}), backward {row['bwd']['ms']:.4f} ms (bound {bb:.4f})")
-        if not (rel <= 1e-4 and gerr <= glim):
-            fail(f"10c: the fused loss on the shard {shape} disagrees with the plain version")
-        rows.append(row)
-        del copies
-    out["fused"] = rows
+    out["fused"] = [fused_shard_row(dev, (1, 1, 256, 128 // n, 128), torch.bfloat16, g, "10c", n)
+                    for n in SPATIAL_SHARDS]
     # the upsample's backward at every shard shape of 10a: a shard's input
     # planes with a halo plane on each side, along H
     ups = []
@@ -2927,6 +2957,378 @@ def spatial_phase_kernels(dev, phase10: dict) -> dict:
     return {"wgrad": rows, "ms_per_iteration": per_iter}
 
 
+# ----------------------------------------------------------------------
+# phase 13: the zoo nets over spatial shards (parallel/spatial_zoo.py)
+# ----------------------------------------------------------------------
+
+# 13a, 13b: the 3D zoo nets at 6e's configuration, and each forward's
+# linear upsamples (6e counts them)
+ZOO_3D = (("skip", "bfloat16", 5), ("unet", "bfloat16", 4), ("part", "float32", 0))
+# 13c: the lines command's attention net, its four gates' bilinear upsamples
+ZOO_2D_SHARDS = 2
+# float32 iteration-0 loss of a sharded zoo solve against 6e's / 6f's
+LOSS0_TOL_13 = 1e-5
+# what was predicted before the first card run of phase 13 (PERF.md)
+PREDICTED_13 = ("13a s/iteration skip 0.09-0.16 / 0.15-0.30, unet 0.08-0.14 / 0.13-0.26 at "
+                "N = 2 / 4 (6e 0.058 / 0.045: the launches grow N times); peak within 1.5 "
+                "GiB of 6e's (6.04 / 4.47); 13b part 0.85-1.2 s at N = 2, 0.9-1.4 at N = 4, "
+                "peak 15-19 GiB (6e 0.81 s, 14.72 GiB)")
+
+
+def zoo_shard_shapes(zoo_net: dict, n: int) -> dict:
+    """6e's wgrad shapes of a zoo net (Ci, Co, spatial, launches an
+    iteration) on ``n`` shards along H: each shard's H / n planes with a
+    halo plane on each side, each shape ``n`` times as often (the nets'
+    levels split H evenly on whole blocks: 128 / 32 planes at most)."""
+    want = collections.Counter()
+    for ci, co, sp, _, k in zoo_net["wgrad_calls"]:
+        want[(ci, co, (sp[0], sp[1] // n + 2, sp[2]))] += n * k
+    return dict(want)
+
+
+def zoo_solve(mesh, cfg, img, mask, label: str, ref: dict, ups: int) -> dict:
+    """One zoo net (``cfg``) through ``DIPSolver.solve(spatial_mesh=mesh)``
+    along H, traced as 10a: launches fused N + N, wgrad N x 6e's admitted
+    convs and ``upsample_bwd`` N x the net's linear upsamples an iteration;
+    the wgrad hook's shard shapes those of 6e's shapes split
+    (``zoo_shard_shapes``); its s/iteration (median of chunks 2..), peak
+    and iteration-0 loss beside 6e's unsharded solve (``ref``)."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    set_kernels(True)
+    n, iters = len(mesh), cfg.epochs
+    solver = DIPSolver(cfg, outchannel=1, device=mesh[0])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, seen, seen_up = traced_solve(solver, img, mask, spatial_mesh=mesh,
+                                              spatial_axis=SPATIAL_AXIS)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = read_upsample_kernels()
+    loss = np.asarray(res.history.loss)
+    steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
+    want = {"fused_loss": n * iters, "fused_loss_grad": n * iters,
+            "wgrad3d": n * ref["wgrad_launches_per_iteration"] * iters,
+            "upsample_bwd": n * ups * iters}
+    ups_kernels = {f"{c} x {sp}": U.plan(c, *sp, True, 2 if cfg.dtype == "bfloat16" else 4)
+                   .kernel for c, sp in sorted(seen_up)}
+    rel = _rel(loss[0], ref["losses"][0])
+    log(f"{label}: chunk seconds {res.chunk_seconds}; steady s/iteration {steady:.4f} against "
+        f"6e's {ref['s_per_iter']:.4f}; peak {peak / 2**30:.2f} GiB against 6e's "
+        f"{ref['peak_bytes'] / 2**30:.2f} (predicted: {PREDICTED_13})")
+    log(f"{label}: launches {counts} (expected {want}); upsample_bwd by kernel {kinds}, the "
+        f"shapes' kernels {ups_kernels}; {len(seen)} distinct wgrad shapes; iteration-0 loss "
+        f"{loss[0]:.7g} against 6e's {ref['losses'][0]:.7g}, rel err {rel:.3e}")
+    if not (len(loss) == iters and np.all(np.isfinite(loss))):
+        fail(f"{label}: the loss is not finite for {iters} iterations")
+    if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+        fail(f"{label}: out_best has shape {res.out_best.shape} or is not finite")
+    if counts != want:
+        fail(f"{label}: launch counts {counts}, not {want}")
+    want_wg = {key: iters * k for key, k in zoo_shard_shapes(ref, n).items()}
+    if dict(seen) != want_wg:
+        fail(f"{label}: the wgrad shapes are {dict(seen)}, not 6e's split {want_wg}")
+    del solver
+    return {"shards": n, "launches": counts, "upsample_kernels": kinds,
+            "upsample_shape_kernels": ups_kernels, "losses": loss.tolist(),
+            "s_per_iter": steady, "chunk_seconds": res.chunk_seconds, "peak_bytes": peak,
+            "loss0_rel_err": rel,
+            "wgrad_shapes": [[ci, co, list(sp), c // iters] for (ci, co, sp), c
+                             in sorted(seen.items())],
+            "upsample_shapes": [[c, list(sp), k // iters] for (c, sp), k
+                                in sorted(seen_up.items())]}
+
+
+def zoo_sharded(dev, zoo: dict) -> dict:
+    """13a and 13b: ``--net skip``, ``unet`` (bf16) and ``part`` (float32,
+    TF32 off) at 6e's configuration (the flagship volume and flags) over
+    [cuda:0] x 2 and x 4 along H, 6 iterations in chunks of 3 (part: 4 in
+    chunks of 2), traced by ``zoo_solve``; the iteration-0 loss against
+    6e's (bf16 rel 1e-3, float32 rel 1e-5)."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    img, mask = flagship_problem(256, 128, 128)
+    out = {}
+    for net, dtype, ups in ZOO_3D:
+        depth = dict(epochs=4, scan_chunk=2) if net == "part" else dict(epochs=6, scan_chunk=3)
+        tol = LOSS0_TOL_13 if dtype == "float32" else LOSS0_TOL_BF16
+        for n in SPATIAL_SHARDS:
+            label = f"13{'b' if net == 'part' else 'a'} --net {net} ({dtype}) {n} shards"
+            r = zoo_solve(make_spatial_mesh(n, [dev] * n),
+                          flagship_config(net=net, dtype=dtype, **depth), img, mask, label,
+                          zoo[net], ups)
+            if not r["loss0_rel_err"] <= tol:
+                fail(f"{label}: the iteration-0 loss differs from 6e's by more than {tol:g}")
+            out[f"{net}_{n}"] = r
+            torch.cuda.empty_cache()
+    return out
+
+
+def zoo_partial_gradients(dev) -> dict:
+    """13b: one iteration's parameter gradients of ``--net part`` at the
+    flagship volume (the fused loss; 6e's parameters, a random canvas and
+    the flagship's mask as the net's), over 2 shards against unsharded,
+    held as 10a holds the flagship's: float32 with TF32 off no further than
+    TF32 moves the unsharded gradients."""
+    from types import SimpleNamespace
+
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.models import get_net, init_weights
+    from deep_prior_interpolation_tpu_torch.ops.fused_loss import fused_loss_metrics
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import ShardedStep, SpatialLayout
+
+    img_np, mask_np = flagship_problem(256, 128, 128)
+    img = torch.from_numpy(img_np[..., 0])[None, None].to(dev)
+    mask = torch.from_numpy(mask_np[..., 0])[None, None].to(dev)
+    nm = mask.expand(1, 64, *_L[0])
+    x = 0.1 * torch.randn((1, 64) + _L[0], generator=torch.Generator(device=dev).manual_seed(15),
+                          device=dev)
+    settings = SimpleNamespace(fused_loss=True, loss="mae")
+    set_kernels(True)
+    net = get_net(flagship_config(net="part", dtype="float32"))
+    init_weights(net, torch.Generator().manual_seed(0))
+    net = net.to(dev)
+
+    def grads(n):
+        params = list(net.parameters())
+        if n == 1:
+            loss = fused_loss_metrics(net(x, nm), img, mask)[0]
+        else:
+            layout = SpatialLayout([dev] * n, SPATIAL_AXIS, _L[0], _L[0], 32)
+            step = ShardedStep(net, layout)
+            data = {"img": layout.split(img, True), "mask": layout.split(mask, True)}
+            loss = step.loss_terms(step(layout.split(x), layout.split(nm)), data, settings,
+                                   torch.float32, dev)[1]
+        out = [t.detach() for t in torch.autograd.grad(loss, params)]
+        torch.cuda.empty_cache()
+        return out
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        on = grads(1)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        ref = grads(1)
+        own = _grad_errors(net, on, ref)
+        del on
+        got = _grad_errors(net, grads(2), ref)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del net, ref, x
+    torch.cuda.empty_cache()
+    log(f"13b gradients, float32 (TF32 off), 2 shards against unsharded: worst conv kernel "
+        f"{got['kernel_rel_err']:.3e} of its max ({got['worst_kernel']}), vector "
+        f"{got['norm_rel_err']:.3e} in norm (bound, TF32's own error: "
+        f"{own['kernel_rel_err']:.3e} and {own['norm_rel_err']:.3e})")
+    if not (got["kernel_rel_err"] <= own["kernel_rel_err"]
+            and got["norm_rel_err"] <= own["norm_rel_err"]):
+        fail("13b: the sharded partial-conv U-Net's gradients are further from the unsharded "
+             "ones than TF32's own error")
+    return {"sharded_2": got, "tf32_own": own}
+
+
+def zoo_lines(dev, zoo_2d: dict) -> dict:
+    """13c: the README's 2D command with ``--net attmultiunet`` (the patch
+    ``cli.run`` solves, its seed and flags) through ``DIPSolver.solve``
+    over [cuda:0] x 2 along axis 1 (the CLI's ``--spatial_shards`` takes
+    one card a shard; the padded (176, 112) holds 7 blocks of 16 along
+    axis 1), traced as 10a: launches 18 / 18 / 0 / 72 (the four gates'
+    bilinear upsamples on each shard), the kernel each one-channel shape
+    takes, finite POCS terms, the iteration-0 loss against 6f's unsharded
+    run (rel 1e-5)."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import extract_patches
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    set_kernels(True)
+    cfg = lines_config("unused", "--net", "attmultiunet")
+    patch = extract_patches(cfg)[0]
+    solver = DIPSolver(cfg, outchannel=patch["image"].shape[-1], device=dev)
+    n = ZOO_2D_SHARDS
+    res, counts, _, seen_up = traced_solve(solver, patch["image"], patch["mask"],
+                                           spatial_mesh=[dev] * n, spatial_axis=1)
+    kinds = read_upsample_kernels()
+    want = {"fused_loss": 9 * n, "fused_loss_grad": 9 * n, "wgrad3d": 0,
+            "upsample_bwd": 9 * 4 * n}
+    shapes = {f"{c} x {sp}": U.plan(c, 1, *sp, False, 4).kernel for c, sp in sorted(seen_up)}
+    loss = [float(v) for v in res.history.loss]
+    ref = float(zoo_2d["attmultiunet"]["loss"][0])
+    rel = _rel(loss[0], ref)
+    log(f"13c lines --net attmultiunet over {n} shards: losses {loss}; launches {counts} "
+        f"(expected {want}); upsample_bwd by kernel {kinds}, each shape's kernel {shapes}; "
+        f"iteration-0 loss against 6f's {ref:.7g}, rel err {rel:.3e} (tol {LOSS0_TOL_13:g})")
+    if counts != want:
+        fail(f"13c: launch counts {counts}, not {want}")
+    if not (len(loss) == 9 and all(np.all(np.isfinite(getattr(res.history, f)))
+                                   for f in ("loss", "df", "reg", "eps"))):
+        fail("13c: the sharded lines run is not 9 finite POCS iterations")
+    if not rel <= LOSS0_TOL_13:
+        fail("13c: the sharded lines run's iteration-0 loss differs from 6f's")
+    return {"launches": counts, "losses": loss, "upsample_kernels": kinds,
+            "upsample_shape_kernels": shapes, "loss0_rel_err": rel,
+            "upsample_shapes": [[c, list(sp), k // 9] for (c, sp), k in sorted(seen_up.items())]}
+
+
+def zoo_exactness(dev, tmp: str) -> dict:
+    """13d: phase 3's small float32 problem with ``--net skip`` (linear
+    upsampling) over 2 shards of the card: two 3-iteration solves from one
+    seed, each with a checkpoint path (so deterministic cuDNN), and a
+    resume from a 3-iteration checkpoint to 6, bit-equal to a straight
+    6-iteration solve (history and ``out_best``)."""
+    import dataclasses
+
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    cfg, img, mask, _, _, _ = small_problem()
+    cfg = dataclasses.replace(cfg, net="skip", scan_chunk=3)
+    set_kernels(True)
+    mesh = make_spatial_mesh(2, [dev] * 2)
+
+    def run(name, epochs):
+        return DIPSolver(dataclasses.replace(cfg, epochs=epochs), device=dev).solve(
+            img, mask, seed=0, spatial_mesh=mesh, spatial_axis=SPATIAL_AXIS,
+            checkpoint_path=os.path.join(tmp, name), checkpoint_every=1)
+    reset_counts()
+    first = run("zoo_a.npz", 6)
+    counts = read_counts()
+    second = run("zoo_b.npz", 6)
+    run("zoo_c.npz", 3)
+    resumed = run("zoo_c.npz", 6)
+
+    def same(a, b):
+        return (np.array_equal(a.history.loss, b.history.loss)
+                and np.array_equal(a.out_best, b.out_best))
+    twice = same(first, second)
+    resume = resumed.iters_run == 6 and same(first, resumed)
+    log(f"13d: --net skip over 2 shards: losses {first.history.loss}; launches {counts}; two "
+        f"solves bit-equal {twice}; a resume from 3 iterations bit-equal to the straight solve "
+        f"{resume}")
+    if counts["fused_loss"] != 2 * 6 or counts["wgrad3d"] == 0 or counts["upsample_bwd"] == 0:
+        fail(f"13d: the sharded skip solve did not launch the kernels on every shard: {counts}")
+    if not (twice and resume):
+        fail("13d: sharded skip solves from one seed, or their resume, are not bit-equal")
+    return {"two_runs_bit_equal": twice, "resume_bit_equal": resume, "launches": counts,
+            "losses": list(first.history.loss)}
+
+
+def fused_shard_row(dev, shape, out_dtype, g, label: str, shards: int) -> dict:
+    """The fused loss on one shard's cropped output of ``shape`` (``out``
+    in ``out_dtype``, float32 target and mask), forward and backward,
+    against the plain version: the sums to rel 1e-4, the gradient to one
+    rounding of ``out``'s dtype of its max; CUDA-graph times over three
+    input copies beside the bounds."""
+    from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+
+    img = torch.randn(shape, generator=g, device=dev)
+    o = (img + torch.randn(shape, generator=g, device=dev)).to(out_dtype)
+    mask = (torch.rand(shape, generator=g, device=dev) > 0.66).float()
+    gin = torch.randn(8, generator=g, device=dev)
+    sk, sp_ = FL.fused_sums(o, img, mask), FL.fused_sums_plain(o, img, mask)
+    rel = float(((sk - sp_).abs() / sp_.abs().clamp_min(1e-30)).max())
+    gk, gp = FL.loss_sums_grad(o, img, mask, gin).float(), \
+        FL.loss_sums_grad_plain(o, img, mask, gin).float()
+    gerr = float((gk - gp).abs().max())
+    glim = (2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5) * float(gp.abs().max())
+    (fb, fby), (bb, bby) = _loss_bounds(o.numel(), out_dtype)
+    copies = [(o.clone(), img.clone(), mask.clone()) for _ in range(3)]
+    row = {"shards": shards, "shape": list(shape), "dtype": str(out_dtype).split(".")[-1],
+           "max_rel_err": rel, "max_abs_err": float((sk - sp_).abs().max()),
+           "grad_max_abs_err": gerr,
+           "fwd": {"ms": graph_ms(cycling(FL.fused_sums, copies)),
+                   "plain_ms": graph_ms(cycling(FL.fused_sums_plain, copies)),
+                   "bound_ms": fb, "bound_by": fby},
+           "bwd": {"ms": graph_ms(cycling(FL.loss_sums_grad, [c + (gin,) for c in copies])),
+                   "plain_ms": graph_ms(cycling(FL.loss_sums_grad_plain,
+                                                [c + (gin,) for c in copies])),
+                   "bound_ms": bb, "bound_by": bby}}
+    log(f"{label} fused loss on a shard {tuple(shape)} {row['dtype']}: sums rel err {rel:.3e} "
+        f"(tol 1e-4), grad max abs err {gerr:.3e} (tol {glim:.3e}); forward "
+        f"{row['fwd']['ms']:.4f} ms (plain {row['fwd']['plain_ms']:.4f}, bound {fb:.4f}), "
+        f"backward {row['bwd']['ms']:.4f} ms (plain {row['bwd']['plain_ms']:.4f}, bound "
+        f"{bb:.4f})")
+    if not (rel <= 1e-4 and gerr <= glim):
+        fail(f"{label}: the fused loss on the shard {shape} disagrees with the plain version")
+    return row
+
+
+def zoo_kernels(dev, p13: dict, phase10: dict, phase12: dict) -> dict:
+    """13e: each kernel at the zoo's shard shapes that no earlier phase
+    held against its plain version: wgrad at every shard shape 13a and 13b
+    saw and 10c / 12d did not (bf16 for skip and unet, float32 for part's
+    decoder), timed beside its bound and ``conv3d_weight`` of the shard
+    conv; ``upsample_bwd`` at every shard shape of 13a and 13c, bit-equal
+    to the plain version, timed beside it and the atomic backward; the
+    fused loss on part's float32 shard outputs and on 13c's 2D shards."""
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    done = {(r["ci"], r["co"], tuple(r["x_shape"]))
+            for r in phase10["10c_kernels"]["wgrad"] + phase12["12d_kernels"]["wgrad"]}
+    rows, seen = [], set()
+    for net, dtype, _ in ZOO_3D:
+        for n in SPATIAL_SHARDS:
+            per_iter = 0.0
+            for ci, co, xs, k in p13["13ab"][f"{net}_{n}"]["wgrad_shapes"]:
+                key = (ci, co, tuple(xs))
+                if key in done or key in seen:
+                    continue
+                seen.add(key)
+                sp = (xs[0], (xs[1] - 2) * n, xs[2])
+                row = spatial_wgrad_row(dev, ci, co, sp, xs[1] - 2, n, k // n, g, False, "13e",
+                                        getattr(torch, dtype))
+                row["net"] = net
+                rows.append(row)
+                per_iter += row["ms"] * k
+            log(f"13e --net {net} {n} shards: wgrad ms/iteration over its new shard shapes "
+                f"{per_iter:.4f}")
+    ups, seen = [], set()
+    for ndim in (3, 2):
+        runs = ([p13["13ab"][f"{net}_{n}"] for net, _, u in ZOO_3D if u
+                 for n in SPATIAL_SHARDS] if ndim == 3 else [p13["13c"]])
+        for r in runs:
+            for c, sp, k in r["upsample_shapes"]:
+                if (c, tuple(sp)) in seen:   # the U-Net's shapes are the skip net's
+                    continue
+                seen.add((c, tuple(sp)))
+                dt = torch.bfloat16 if ndim == 3 else torch.float32
+                go = torch.randn((1, c, *[2 * v for v in sp]), generator=g, device=dev).to(dt)
+                got = U.upsample_bwd(go, ndim)
+                equal = torch.equal(got, U.upsample_bwd_plain(go, ndim))
+                kernel = U.plan(c, *(sp if ndim == 3 else (1, *sp)), ndim == 3,
+                                go.element_size()).kernel
+                size = [1, c, *sp]
+                if ndim == 3:
+                    lib = lambda: torch.ops.aten.upsample_trilinear3d_backward(  # noqa: E731
+                        go, list(go.shape[2:]), size, False, 2.0, 2.0, 2.0)
+                else:
+                    lib = lambda: torch.ops.aten.upsample_bilinear2d_backward(  # noqa: E731
+                        go, list(go.shape[2:]), size, False, 2.0, 2.0)
+                n_in = c * math.prod(sp)
+                b_ms, b_by = bound_ms((1 + 2 ** ndim) * n_in * go.element_size(),
+                                      (49.0 if ndim == 3 else 21.0) * n_in, torch.float32)
+                row = {"ndim": ndim, "channels": c, "input": list(sp), "dtype": str(dt)[6:],
+                       "kernel": kernel, "bit_equal_to_plain": equal,
+                       "launches_per_iteration": k,
+                       "ms": time_ms(lambda: U.upsample_bwd(go, ndim)),
+                       "plain_ms": time_ms(lambda: U.upsample_bwd_plain(go, ndim)),
+                       "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+                log(f"13e upsample_bwd {c} x {tuple(sp)} {row['dtype']} ({kernel}): bit-equal "
+                    f"to the plain version {equal}; ms {row['ms']:.4f} bound {b_ms:.4f} plain "
+                    f"{row['plain_ms']:.4f} atomic {row['library_ms']:.4f}")
+                if not equal:
+                    fail(f"13e: upsample_bwd at {c} x {sp} is not bit-equal to the plain version")
+                ups.append(row)
+                del go, got
+    fused = [fused_shard_row(dev, (1, 1, 256, 128 // n, 128), torch.float32, g, "13e", n)
+             for n in SPATIAL_SHARDS]
+    fused += [fused_shard_row(dev, (1, 1, 170, w), torch.float32, g, "13e", ZOO_2D_SHARDS)
+              for w in (58, 42)]
+    return {"wgrad": rows, "upsample": ups, "fused": fused}
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -2975,7 +3377,7 @@ CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
               "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py",
-              "tests/test_torch_cuda_spatial_phase.py"]
+              "tests/test_torch_cuda_spatial_phase.py", "tests/test_torch_cuda_spatial_zoo.py"]
 
 
 # the one skip reason the CUDA tests may give, and only on a one-card machine
@@ -3105,6 +3507,16 @@ def main() -> None:
                                         dev, phase10)}
         seconds["12_total"] = time.time() - t12
         log(f"phase 12: {seconds['12_total']:.1f} s")
+        t13 = time.time()
+        phase13 = {"13ab": phase("13ab_zoo_sharded", zoo_sharded, dev, zoo),
+                   "13b_gradients": phase("13b_zoo_partial_gradients", zoo_partial_gradients,
+                                          dev),
+                   "13c": phase("13c_zoo_lines", zoo_lines, dev, zoo_2d),
+                   "13d_exactness": phase("13d_zoo_exactness", zoo_exactness, dev, tmp)}
+        phase13["13e_kernels"] = phase("13e_zoo_kernels", zoo_kernels, dev, phase13, phase10,
+                                       phase12)
+        seconds["13_total"] = time.time() - t13
+        log(f"phase 13: {seconds['13_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -3139,6 +3551,8 @@ def main() -> None:
     log(json.dumps({"phase11": phase11}))
     phase12["seconds"] = {k: v for k, v in seconds.items() if k.startswith("12")}
     log(json.dumps({"phase12": {k: v for k, v in phase12.items() if k != "12d_kernels"}}))
+    phase13["seconds"] = {k: v for k, v in seconds.items() if k.startswith("13")}
+    log(json.dumps({"phase13": {k: v for k, v in phase13.items() if k != "13e_kernels"}}))
     # each kernel's launches on 10a's sharded paths, by shard count, and its
     # rows at the shard shapes (10c)
     for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
@@ -3151,11 +3565,17 @@ def main() -> None:
         entry["spatial_phase_launches"] = {
             "12a": {n: phase12["12a_phase"][str(n)]["launches"][key] for n in SPATIAL_SHARDS},
             "12b": {2: phase12["12b_canvas"]["launches"][key]}}
-    fused["spatial_shapes"] = phase10["10c_kernels"]["fused"]
-    # 10a's shard shapes (10c), then the phase path's new ones (12d)
-    wgrad["spatial_shapes"] = phase10["10c_kernels"]["wgrad"] + phase12["12d_kernels"]["wgrad"]
+        entry["spatial_zoo_launches"] = {
+            "13ab": {k: r["launches"][key] for k, r in phase13["13ab"].items()},
+            "13c": {ZOO_2D_SHARDS: phase13["13c"]["launches"][key]}}
+    # 10a's shard shapes (10c), then the phase path's new ones (12d) and the
+    # zoo's (13e)
+    zoo_rows = phase13["13e_kernels"]
+    fused["spatial_shapes"] = phase10["10c_kernels"]["fused"] + zoo_rows["fused"]
+    wgrad["spatial_shapes"] = (phase10["10c_kernels"]["wgrad"] + phase12["12d_kernels"]["wgrad"]
+                               + zoo_rows["wgrad"])
     wgrad["spatial_phase_ms_per_iteration"] = phase12["12d_kernels"]["ms_per_iteration"]
-    upsample["spatial_shapes"] = phase10["10c_kernels"]["upsample"]
+    upsample["spatial_shapes"] = phase10["10c_kernels"]["upsample"] + zoo_rows["upsample"]
     log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]
                     + lane_entries(survey8, kernels8)}))
     log(json.dumps({"ok": True, "device": {

@@ -76,9 +76,6 @@ def run(cfg: Config, results_root: str = "./results",
         device: Union[str, torch.device, None] = None) -> str:
     """Execute a full interpolation run; returns the output directory."""
     sharded = bool(cfg.spatial_shards and cfg.spatial_shards > 1)
-    if sharded:   # what the shards do not cover yet, before anything is written
-        from .parallel.spatial import check_supported
-        check_supported(cfg)
     dev = run_device(cfg, device)
     outpath = os.path.join(results_root,
                            cfg.outdir if cfg.outdir is not None else random_code())

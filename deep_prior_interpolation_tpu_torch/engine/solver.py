@@ -82,7 +82,8 @@ from torch.func import functional_call, vmap
 
 from ..config import Config
 from ..io import checkpoint as ckpt_io
-from ..models import get_net, init_weights, set_dropout_generator
+from ..models import (AttMulResUnet, PartialUNet, SkipNet, UNet, get_net, init_weights,
+                      set_dropout_generator)
 from ..ops import losses as L
 from ..ops import wgrad as wgrad_ops
 from ..ops.conv_vjp import conv_impl
@@ -183,6 +184,26 @@ def net_multiple(cfg: Config) -> int:
             deep = min(cfg.phase_deep_levels, levels, len(cfg.filters))
             mult = max(mult, 2 ** (deep + 1))
     return mult
+
+
+def shard_block(cfg: Config, model: torch.nn.Module) -> int:
+    """The planes a spatial shard of ``model``'s padded volume holds a
+    whole number of: 2^S for the net's S stride-2 steps (the skip net one a
+    filter, the U-Net 4 + ``more_layers``, the partial-conv U-Net 5, the
+    attention MultiRes U-Net one a filter but the first), so every level
+    halves each shard exactly; the MulResUnet's ``net_multiple``. It can be
+    wider than ``pad_multiple_for``'s (which mirrors the JAX package's
+    padding): a padded axis that is not a whole number of blocks is
+    refused (``parallel.spatial.shard_bounds``)."""
+    if isinstance(model, SkipNet):
+        return 2 ** len(model.filters)
+    if isinstance(model, UNet):
+        return 2 ** (4 + model.more_layers)
+    if isinstance(model, PartialUNet):
+        return 2 ** 5
+    if isinstance(model, AttMulResUnet):
+        return 2 ** (len(model.filters) - 1)
+    return net_multiple(cfg)
 
 
 def padded_spatial(spatial: Tuple[int, ...], mult: int) -> Tuple[int, ...]:
@@ -599,10 +620,15 @@ class DIPSolver:
 
         solver = DIPSolver(cfg, outchannel=1)      # on cuda (cuda:{cfg.gpu})
         result = solver.solve(img, mask, seed=0)   # img/mask (*spatial, C)
+
+    ``model`` is a net of the caller's (an ``nn.Module`` whose input has
+    ``cfg.inputdepth`` channels) in place of ``get_net(cfg, outchannel)``,
+    as the JAX solver takes one.
     """
 
     def __init__(self, cfg: Config, outchannel: int = 1,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 model: Optional[torch.nn.Module] = None):
         self.cfg = cfg
         self.outchannel = outchannel
         self.device = _resolve_device(cfg, device)
@@ -610,7 +636,8 @@ class DIPSolver:
             # float32 means float32: no TF32 in cuDNN convs or in matmuls
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.model = get_net(cfg, outchannel)
+        # a net of the caller's, drawn or loaded as the built one is
+        self.model = model if model is not None else get_net(cfg, outchannel)
 
     def _init_model(self, seed: int, init_params: Optional[Mapping[str, Any]]):
         model = self.model
@@ -706,7 +733,8 @@ class DIPSolver:
             out, loss, ys = self._lane_forward(inp, st, data, hyper, s)
             grads = torch.autograd.grad(loss.sum(), flat.leaves())
         elif sharded is not None:
-            out, main, ys = sharded.loss_terms(sharded(inp), data, s, st["out_best"][0].dtype,
+            net_out = sharded(inp, data["net_mask"] if s.takes_mask else None)
+            out, main, ys = sharded.loss_terms(net_out, data, s, st["out_best"][0].dtype,
                                                flat.flat.device)
             whole = sharded.layout.gather(out, main.device) if s.pocs else None
             loss = _with_pocs(whole, main, ys, data, hyper, s)
@@ -827,8 +855,9 @@ class DIPSolver:
         (0 = the first spatial dim) over its shards
         (``parallel/spatial.py``): the same solve up to the order of its
         sums; a checkpoint holds whole tensors and resumes on the same mesh.
-        What it does not cover yet raises ``NotImplementedError`` (ROADMAP
-        A.13c) before anything is drawn.
+        A net given as ``model`` that no sharded walk covers raises
+        ``NotImplementedError`` (ROADMAP A.13c item 12) before anything is
+        drawn.
         """
         args = (img, mask, seed, init_params, noise, verbose)
         if not checkpoint_path:
@@ -863,9 +892,9 @@ class DIPSolver:
         layout = None
         if spatial_mesh is not None:
             from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported
-            check_supported(cfg)
+            check_supported(self.model)
             layout = SpatialLayout(spatial_mesh, spatial_axis, padded, spatial,
-                                   net_multiple(cfg))
+                                   shard_block(cfg, self.model))
 
         gens = _generators(seed, dev)
         canvas_start = gens["canvas"].get_state()

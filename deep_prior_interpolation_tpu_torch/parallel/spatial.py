@@ -9,7 +9,7 @@ list of shards itself, from one process, as JAX's single controller does:
   * a mesh is a list of devices, repeats allowed: ``[cpu] * 8`` stands for
     JAX's 8 virtual CPU devices, ``[cuda:0] * N`` runs N shards on one card;
   * the shard boundaries lie on multiples of the net's block of the padded
-    volume (``engine.solver.net_multiple``: 2^L planes for L downsamplings,
+    volume (``engine.solver.shard_block``: 2^S planes for S stride-2 steps,
     2^(r + q) for a phase level r at depth q), so each shard halves exactly
     at every level, blocks exactly at every phase depth, and every halo is
     a few planes of its own level;
@@ -25,8 +25,8 @@ list of shards itself, from one process, as JAX's single controller does:
     shards (so parameters, checkpoints and weights files are the plain
     net's): a same-pad conv exchanges a zero halo and convolves unpadded
     along the axis (``conv_halo``, whose weight gradient runs on the wgrad
-    kernel); the stride-2 down conv takes a left halo of one plane (each
-    shard starts on an even plane); ``Norm`` all-reduces its float32 sums
+    kernel); a stride-2 down conv of k = 3 takes a left halo of one plane
+    (each shard starts on an even plane); ``Norm`` all-reduces its float32 sums
     and divides by the volume's voxel count; the linear x2 upsample takes a
     one-plane halo that copies the edge plane at the volume's ends (the
     resize's clamp) and crops two output planes on each side; concats,
@@ -62,12 +62,16 @@ the same seed up to the order of its sums. POCS gathers the cropped output to th
 (``SpatialLayout.gather``, whose backward splits the gradient) and
 projects the whole volume there, where its weights stay whole.
 
-A sharded solve covers the MulResUnet, plain or in phase space, 2D and 3D,
-nearest and linear upsampling, bfloat16 and float32, both conv
-formulations (cuDNN and tapmm), the fused and the plain loss, snapshots,
-checkpoints, POCS, remat, dropout, parameter noise, data forgetting, a
-shaped, a virtual or an optimised canvas; ``check_supported`` refuses the
-zoo nets (ROADMAP A.13c item 11).
+A sharded solve covers every net ``get_net`` builds: the MulResUnet, plain
+or in phase space, 2D and 3D, and the zoo nets (the skip net, the U-Net,
+the partial-conv U-Net and the attention MultiRes U-Net, walked in
+``parallel/spatial_zoo.py``); nearest and linear upsampling, bfloat16 and
+float32, both conv formulations (cuDNN and tapmm), the fused and the plain
+loss, snapshots, checkpoints, POCS, remat (the MulResUnet's; ``get_net``
+gives it to no other net), dropout, parameter noise, data forgetting, a
+shaped, a virtual or an optimised canvas. ``check_supported`` refuses a
+net given to the solver (``DIPSolver(model=...)``) whose class or
+constructor options no walk covers (ROADMAP A.13c item 12).
 """
 from __future__ import annotations
 
@@ -75,7 +79,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import Config
 from ..models.blocks import Conv, Dropout, Norm, _bcast, _lanes, upsample
 from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath, recomputed
 from ..ops import losses as L
@@ -344,12 +347,16 @@ class _Replicate(torch.autograd.Function):
         return (None, *(_sum_in_order(gs[j::n_p], ctx.devices[j]) for j in range(n_p)))
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A.13c for what a sharded
-    solve does not cover yet: the zoo nets (its item 11)."""
-    if cfg.net not in ("multiunet", "load"):
-        raise NotImplementedError(f"a spatially sharded solve with --net {cfg.net}: "
-                                  f"ROADMAP A.13c")
+def check_supported(model: torch.nn.Module) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A.13c item 12 for a net
+    whose class or constructor options no sharded walk covers
+    (``spatial_zoo.uncovered``): only a net given to the solver can be
+    such, as every net ``get_net`` builds from a ``Config`` is covered."""
+    from .spatial_zoo import uncovered
+    what = uncovered(model)
+    if what is not None:
+        raise NotImplementedError(f"a spatially sharded solve of {what}: ROADMAP A.13c "
+                                  f"item 12")
 
 
 def _each(fn, xs: List[torch.Tensor], times: int = 1) -> List[torch.Tensor]:
@@ -360,12 +367,13 @@ def _each(fn, xs: List[torch.Tensor], times: int = 1) -> List[torch.Tensor]:
 
 
 class ShardedStep:
-    """The sharded pieces of the solver's step for ``model`` (a MulResUnet,
-    plain or in phase space) over ``layout``: the net input, the net's
-    forward walked over the shards (mirroring ``MulResUnet.forward``,
-    ``MultiResBlock`` and ``ResPath``) and the loss terms."""
+    """The sharded pieces of the solver's step for ``model`` over
+    ``layout``: the net input, the net's forward walked over the shards
+    (mirroring ``MulResUnet.forward``, ``MultiResBlock`` and ``ResPath``,
+    plain or in phase space; a zoo net's in ``spatial_zoo.walk``) and the
+    loss terms."""
 
-    def __init__(self, model: MulResUnet, layout: SpatialLayout):
+    def __init__(self, model: torch.nn.Module, layout: SpatialLayout):
         self.model, self.layout = model, layout
         self._params = list(model.parameters())
         self._reps: Dict[int, List[torch.Tensor]] = {}
@@ -419,15 +427,22 @@ class ShardedStep:
 
     # -- the net ------------------------------------------------------------
 
-    def __call__(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The net's output shards for the input shards ``xs``. Each call
+    def __call__(self, xs: Sequence[torch.Tensor],
+                 masks: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+        """The net's output shards for the input shards ``xs`` (and, for a
+        net that takes the mask, its shards ``masks``). Each call
         replicates the parameters once; their gradients come back summed."""
         m = self.model
-        m.check_phase_dims(self.layout.padded)
+        zoo = not isinstance(m, MulResUnet)
+        if not zoo:
+            m.check_phase_dims(self.layout.padded)
         reps = _Replicate.apply(tuple(self.layout.mesh), *self._params)
         n_p = len(self._params)
         self._reps = {id(p): list(reps[j::n_p]) for j, p in enumerate(self._params)}
         try:
+            if zoo:
+                from .spatial_zoo import walk
+                return walk(self, list(xs), None if masks is None else list(masks))
             in_dtype = xs[0].dtype
             if m.dtype is not None:
                 xs = [x.to(m.dtype) for x in xs]
@@ -477,9 +492,10 @@ class ShardedStep:
         of a phase conv, each weight transform made on each shard from its
         replicated weight: a stride-1 conv (the plain one, or a phase ->
         phase conv with the folded kernel) over a zero halo of (k - 1) / 2
-        planes, unpadded along the axis (``conv_halo``); the stride-2 down
-        conv (k = 3) over a left halo of one plane, as each shard starts on
-        an even plane and its last output reads no plane past its end; the
+        planes, unpadded along the axis (``conv_halo``); a stride-2 down
+        conv (k odd, p = (k - 1) / 2) over p planes on the left and p - 1 on
+        the right (one on the left for k = 3), as each shard starts on an
+        even plane; the
         phase entry (stride 2, kernel k + 1) over p planes on each side; the
         phase exit (kernel 2, padding (1, 0)) over one plane on the left."""
         dt = m.dtype if m.dtype is not None else xs[0].dtype
@@ -503,8 +519,9 @@ class ShardedStep:
                       for x, w in zip(halo_exchange(xs, ax, p, p, "zero"), ws)]
             else:
                 ys = [conv_same(x, w, 1, 0) for x, w in zip(xs, ws)]
-        else:   # the MulResUnet's stride-2 down conv, k = 3
-            ys = self._halo_conv(xs, ws, 2, (1, 1), (1, 0))
+        else:   # a stride-2 down conv, k odd: each shard starts on an even plane
+            p = (k - 1) // 2
+            ys = self._halo_conv(xs, ws, 2, (p, p), (p, max(p - 1, 0)))
         if m.bias is not None:
             lanes = 2 ** ((ys[0].ndim - 2) * m.phase_depth) if m.phase_out else 1
             ys = [y + _bcast(_lanes(b.to(dt), lanes), y.ndim)
@@ -550,15 +567,16 @@ class ShardedStep:
     def _cna(self, m, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         return [m.act(y) for y in self._norm(m.Norm_0, self._conv(m.Conv_0, xs))]
 
-    def _upsample(self, xs: List[torch.Tensor], into_phase: bool = False
-                  ) -> List[torch.Tensor]:
-        """The x2 upsample, or with ``into_phase`` ``upsample_into_phase``:
-        'nearest' is local; the linear one upsamples each shard with one
+    def _upsample(self, xs: List[torch.Tensor], mode: Optional[str] = None,
+                  into_phase: bool = False) -> List[torch.Tensor]:
+        """The x2 upsample of ``mode`` (the model's ``upsample_mode`` by
+        default), or with ``into_phase`` ``upsample_into_phase``: 'nearest'
+        is local; a linear mode upsamples each shard with one
         plane of each neighbour (a copy of its own edge plane at the
         volume's ends, as the resize clamps there) and crops the output
         planes on each side those planes alone decide (two of the resize,
         one of the phase stencil, whose output grid is its input's)."""
-        mode = self.model.upsample_mode
+        mode = self.model.upsample_mode if mode is None else mode
         if mode == "nearest":
             return [upsample_into_phase(x, mode) if into_phase else upsample(x, 2, mode)
                     for x in xs]

@@ -1,8 +1,9 @@
-"""What the port refuses: every feature it does not serve yet (what a
-spatially sharded solve does not cover, ROADMAP A.13c: the zoo nets)
-raises NotImplementedError naming its ROADMAP item, and a canvas of the
-wrong shape is rejected; the solver options, nets and conv formulations it
-serves (phase space and tapmm among them) build."""
+"""What the port refuses: every feature it does not serve yet (a net given
+to a spatially sharded solve that no walk covers, ROADMAP A.13c item 12)
+raises NotImplementedError naming its ROADMAP item, a sharded axis that is
+not a whole number of the net's blocks and a canvas of the wrong shape are
+rejected; the solver options, nets and conv formulations it serves (phase
+space, tapmm and the zoo nets over shards among them) build and run."""
 import os
 
 import numpy as np
@@ -10,9 +11,12 @@ import pytest
 import torch
 
 from deep_prior_interpolation_tpu_torch import Config, DIPSolver, cli
-from deep_prior_interpolation_tpu_torch.io import load_params
+from deep_prior_interpolation_tpu_torch.data import dataset_path
+from deep_prior_interpolation_tpu_torch.io import completed_patches, load_params
+from deep_prior_interpolation_tpu_torch.models import AttentionUnet
 
 torch.set_num_threads(1)
+LINES = os.path.dirname(dataset_path("lines/original.npy"))
 
 
 def tiny_cfg(**kw):
@@ -22,30 +26,37 @@ def tiny_cfg(**kw):
     return Config(**base)
 
 
+def lines_cfg(**kw):
+    """``tiny_cfg`` on the bundled lines gather, (170, 100, 1) in one patch."""
+    return tiny_cfg(imgdir=LINES, imgname="original.npy", maskname="random66.npy", **kw)
+
+
 @pytest.mark.parametrize("kw", [dict(spatial_shards=2, net="skip")])
 def test_unported_features_raise(kw, tmp_path):
-    """Spatial shards are the CLI's (a library solve ignores the field, as
-    the JAX one does); ``cli.run`` refuses a sharded run of what the shards
-    do not cover yet before it solves a patch."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13c"):
-        cli.run(tiny_cfg(**kw), str(tmp_path), device="cpu")
-    assert not os.listdir(tmp_path)
+    """What a sharded CLI run refused before the zoo walks (ROADMAP A.13c
+    item 11) runs: ``cli.run`` of a sharded skip net on the lines gather
+    (100 planes along axis 1: 25 of its 4-plane blocks) writes its bundle."""
+    out = cli.run(lines_cfg(outdir="run", **kw), str(tmp_path), device="cpu")
+    assert completed_patches(out) == ["0"]
 
 
 def test_cli_and_weights_refusals(tmp_path):
-    """A sharded run of a zoo net, through the CLI (with tapmm, which the
-    shards serve), and a solve of another given a spatial mesh (with an
-    optimised canvas, which they serve) are refused naming ROADMAP A.13c;
-    a mesh longer than the sharded axis's blocks is a ValueError; a weights
-    file that is not msgpack is refused with its offset."""
-    with pytest.raises(NotImplementedError, match=r"--net part: ROADMAP A.13c"):
-        cli.run(tiny_cfg(spatial_shards=2, batch_patches=0, vmap_conv_mode="tapmm",
-                         net="part"), str(tmp_path), device="cpu")
+    """A sharded ``--net part`` run (with tapmm, which the shards serve) on
+    the lines gather, padded to the JAX package's multiple of 2, is refused
+    with ValueError: its 100 planes along axis 1 are not whole 32-plane
+    blocks of the net's five stride-2 steps; a net given to the solver that
+    no walk covers is refused naming ROADMAP A.13c item 12 (with an
+    optimised canvas, which the shards serve); a mesh longer than the
+    sharded axis's blocks is a ValueError; a weights file that is not
+    msgpack is refused with its offset."""
+    with pytest.raises(ValueError, match="not a whole number of 32-plane blocks"):
+        cli.run(lines_cfg(spatial_shards=2, batch_patches=0, vmap_conv_mode="tapmm",
+                          net="part"), str(tmp_path), device="cpu")
     img = np.zeros((16, 8, 1), np.float32)
     mesh = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match=r"--net attmultiunet: ROADMAP A.13c"):
-        DIPSolver(tiny_cfg(opt_over="net,input", net="attmultiunet"),
-                  device="cpu").solve(img, img, spatial_mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"AttentionUnet: ROADMAP A.13c item 12"):
+        DIPSolver(tiny_cfg(opt_over="net,input", net="attmultiunet"), device="cpu",
+                  model=AttentionUnet(4)).solve(img, img, spatial_mesh=mesh)
     with pytest.raises(ValueError, match="at most 4 shards"):
         DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=mesh * 4)
     bad = tmp_path / "weights.msgpack"

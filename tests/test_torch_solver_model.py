@@ -1,0 +1,104 @@
+"""``DIPSolver(cfg, outchannel, device, model=...)``: a net of the caller's
+in place of ``get_net(cfg, outchannel)``, as the JAX solver takes one. It
+is drawn by ``init_weights`` or loaded from ``init_params`` as the built
+net is, so a solve with ``model=get_net(cfg)`` is the solve without it.
+Over spatial shards a given net runs where a walk covers its class and
+options (the skip net's avg and max pool downsampling and per-scale mode
+lists among them) and is refused, naming ROADMAP A.13c item 12, before
+anything is drawn where none does; a sharded axis that is not a whole
+number of the net's blocks is a ``ValueError``."""
+import numpy as np
+import pytest
+import torch
+
+from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+from deep_prior_interpolation_tpu_torch.engine import solver as E
+from deep_prior_interpolation_tpu_torch.models import AttentionUnet, SkipNet, UNet, get_net
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+
+
+def patch(nt=24, nx=32):
+    rng = np.random.RandomState(0)
+    t = np.linspace(0, 1, nt)[:, None]
+    x = np.linspace(0, 1, nx)[None, :]
+    img = np.sin(2 * np.pi * (3 * t + 2 * x)).astype(np.float32)[..., None]
+    mask = np.repeat((rng.rand(1, nx) > 0.5).astype(np.float32), nt, 0)[..., None]
+    return img, mask
+
+
+def cfg(**kw):
+    return Config(**{**dict(datadim="2d", epochs=3, scan_chunk=3, inputdepth=4, gain=1.0,
+                            filters=[8, 16], skip=[4]), **kw})
+
+
+@pytest.mark.parametrize("net", ["multiunet", "part"])
+def test_a_given_model_solves_as_the_built_one(net):
+    c = cfg(net=net, dropout=0.1)
+    img, mask = patch(32, 32)
+    ref = DIPSolver(c, device="cpu").solve(img, mask, seed=0)
+    model = get_net(c, 1)
+    solver = DIPSolver(c, device="cpu", model=model)
+    assert solver.model is model
+    got = solver.solve(img, mask, seed=0)
+    np.testing.assert_array_equal(got.history.loss, ref.history.loss)
+    np.testing.assert_array_equal(got.out_best, ref.out_best)
+    for k, v in ref.params.items():
+        np.testing.assert_array_equal(got.params[k], v)
+
+
+def test_a_given_model_is_loaded_from_init_params():
+    c = cfg()
+    img, mask = patch()
+    first = DIPSolver(c, device="cpu").solve(img, mask, seed=0)
+    init = {k: v + 0.01 for k, v in first.params.items()}
+    ref = DIPSolver(c, device="cpu").solve(img, mask, seed=1, init_params=init)
+    got = DIPSolver(c, device="cpu", model=get_net(c, 1)).solve(img, mask, seed=1,
+                                                               init_params=init)
+    np.testing.assert_array_equal(got.history.loss, ref.history.loss)
+
+
+def test_a_given_skip_net_with_pool_downsampling_runs_over_shards():
+    """Options ``get_net`` never sets but a walk covers: the skip net's avg
+    and max pool downsampling by scale and a per-scale upsample list."""
+    c = cfg(net="skip")
+    img, mask = patch()
+
+    def model():
+        return SkipNet(4, 1, 2, filters=(8, 16), skip=(4,), downsample_mode=["avg", "max"],
+                       upsample_mode=["nearest", "bilinear"])
+    ref = DIPSolver(c, device="cpu", model=model()).solve(img, mask, seed=0)
+    got = DIPSolver(c, device="cpu", model=model()).solve(img, mask, seed=0,
+                                                          spatial_mesh=[CPU] * 4)
+    np.testing.assert_allclose(got.history.loss, ref.history.loss, rtol=1e-4)
+    np.testing.assert_allclose(got.out_best, ref.out_best, rtol=0,
+                               atol=1e-4 * float(np.abs(ref.out_best).max()))
+
+
+@pytest.mark.parametrize("model,what", [
+    (lambda: SkipNet(4, filters=(8, 16), skip=(4,), pad="reflection"),
+     r"SkipNet\(pad='reflection'\)"),
+    (lambda: UNet(4, filters=(4, 4, 4, 4, 4), upsample_mode="deconv"),
+     r"UNet\(upsample_mode='deconv'\)"),
+    (lambda: AttentionUnet(4), "AttentionUnet"),
+])
+def test_a_sharded_solve_of_an_uncovered_model_is_refused(model, what, monkeypatch):
+    drawn = []
+    real = E._generators
+    monkeypatch.setattr(E, "_generators", lambda *a: drawn.append(1) or real(*a))
+    img, mask = patch(32, 32)
+    solver = DIPSolver(cfg(), device="cpu", model=model())
+    with pytest.raises(NotImplementedError, match=f"{what}: ROADMAP A.13c item 12"):
+        solver.solve(img, mask, seed=0, spatial_mesh=[CPU] * 2)
+    assert not drawn
+    assert len(solver.solve(img, mask, seed=0).history.loss) == 3   # unsharded it runs
+
+
+def test_a_sharded_axis_of_part_blocks_is_refused():
+    """The skip net of [8, 16] downsamples twice: a 34-plane axis (padded
+    to the JAX package's multiple of 2) is not a whole number of its
+    4-plane blocks, and a shard could not halve at its deepest level."""
+    img, mask = patch(24, 34)
+    with pytest.raises(ValueError, match="not a whole number of 4-plane blocks"):
+        DIPSolver(cfg(net="skip"), device="cpu").solve(img, mask, spatial_mesh=[CPU] * 2)

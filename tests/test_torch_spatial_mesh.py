@@ -1,6 +1,7 @@
 """The port's spatial mesh, shard boundaries, state placement and
 collectives (parallel/spatial.py) on the CPU, and what a sharded solve
-refuses for now (ROADMAP A.13c).
+refuses for now (ROADMAP A.13c item 12: a net given as ``model=`` that no
+walk covers).
 
 * ``make_spatial_mesh`` raises past the devices that exist (the JAX one
   truncates) and takes a list of one repeated device (``[cpu] * 8``, as the
@@ -19,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+from deep_prior_interpolation_tpu_torch.models import (CBAM, AttentionUnet, Ensemble,
+                                                      GridAttentionBlock, SkipNet, UNet)
 from deep_prior_interpolation_tpu_torch.models.blocks import upsample
 from deep_prior_interpolation_tpu_torch.ops.conv_vjp import conv_halo
 from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh, shard_solver_state
@@ -166,20 +169,28 @@ def test_a_halo_conv_and_the_linear_upsample_on_shards_are_the_whole_ones():
                                rtol=1e-12, atol=1e-12)
 
 
-# what a sharded solve still refuses: ROADMAP A.13c item 11, the zoo nets,
-# alone and with options the shards serve for the MulResUnet
+# what a sharded solve refuses: ROADMAP A.13c item 12, a net given to the
+# solver (``model=``) with a constructor option ``get_net`` never sets, or
+# of a class it never builds, alone and under options the shards serve
 REFUSED = [
-    ({"net": "skip"}, "--net skip"),
-    ({"net": "skip", "opt_over": "net,input"}, "--net skip"),
-    ({"net": "skip", "vmap_conv_mode": "tapmm", "remat": True}, "--net skip"),
-    ({"net": "unet", "filters": [4, 8, 8, 8, 8], "skip": [4, 4, 4, 4]}, "--net unet"),
-    ({"net": "unet", "filters": [4, 8, 8, 8, 8], "skip": [4, 4, 4, 4],
-      "opt_over": "input", "pocs": True}, "--net unet"),
-    ({"net": "part"}, "--net part"),
-    ({"net": "part", "vmap_conv_mode": "tapmm"}, "--net part"),
-    ({"net": "attmultiunet"}, "--net attmultiunet"),
-    ({"net": "attmultiunet", "phase_space": True, "phase_levels": 1}, "--net attmultiunet"),
-    ({"net": "attmultiunet", "dropout": 0.1}, "--net attmultiunet"),
+    (lambda: SkipNet(4, filters=(4, 8), skip=(4,), pad="reflection"), {},
+     r"SkipNet\(pad='reflection'\)"),
+    (lambda: SkipNet(4, filters=(4, 8), skip=(4,), downsample_mode="lanczos2"),
+     {"opt_over": "net,input"}, r"SkipNet\(downsample_mode='lanczos2'\)"),
+    (lambda: SkipNet(4, filters=(4, 8), skip=(4,), filter_size_down=[3, 4]),
+     {"vmap_conv_mode": "tapmm", "remat": True},
+     r"SkipNet\(filter_size_down=\[3, 4\], filter_size_up=3, filter_skip_size=1\)"),
+    (lambda: UNet(4, filters=(4, 8, 8, 8, 8), upsample_mode="deconv"), {},
+     r"UNet\(upsample_mode='deconv'\)"),
+    (lambda: UNet(4, filters=(8, 8, 8, 8, 8), concat_x=True),
+     {"opt_over": "input", "pocs": True}, r"UNet\(concat_x=True, more_layers=0\)"),
+    (lambda: UNet(4, filters=(4, 8, 8, 8, 8), more_layers=1), {},
+     r"UNet\(concat_x=False, more_layers=1\)"),
+    (lambda: AttentionUnet(4), {"vmap_conv_mode": "tapmm"}, "AttentionUnet"),
+    (lambda: CBAM(4), {}, "CBAM"),
+    (lambda: Ensemble(4, hidden=16), {"dropout": 0.1}, "Ensemble"),
+    (lambda: GridAttentionBlock(4), {"phase_space": True, "phase_levels": 1},
+     "GridAttentionBlock"),
 ]
 
 
@@ -189,9 +200,10 @@ def test_each_a13c_item_is_refused_when_the_solve_starts(monkeypatch):
     real = S.SpatialLayout.__init__
     monkeypatch.setattr(S.SpatialLayout, "__init__",
                         lambda self, *a, **k: drawn.append(1) or real(self, *a, **k))
-    for kw, what in REFUSED:
+    for model, kw, what in REFUSED:
         cfg = Config(**{**dict(datadim="2d", epochs=2, inputdepth=4, filters=[4, 8], skip=[4]),
                         **kw})
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A.13c"):
-            DIPSolver(cfg, device="cpu").solve(img, img, spatial_mesh=[CPU] * 2)
+        with pytest.raises(NotImplementedError, match=f"{what}: ROADMAP A.13c item 12"):
+            DIPSolver(cfg, device="cpu", model=model()).solve(img, img,
+                                                              spatial_mesh=[CPU] * 2)
     assert not drawn
