@@ -247,13 +247,42 @@ Phases, each of which ends the run with a non-zero exit code on failure:
        bit-equal, timed beside the plain version and the atomic backward;
        the fused loss on float32 and 2D shard outputs.
 
+14. convergence against the JAX repository's goldens
+    (``scripts/torch_golden.py``: each workload as the JAX script builds
+    it, both kernel switches on), the launch counters set to 0 just before
+    each run and read just after; each sub-phase prints its JSON line (the
+    port's best SNR mean and std over the seeds, the JAX file's and the
+    torch reference's, the rule's verdict, launches, s/iteration) and fails
+    unless ``accept`` (the JAX scripts' rule: means within 0.5 dB, or at
+    least 5 seeds and overlapping 1-sigma intervals) takes the port against
+    the JAX column (for gpocs the JAX package's float32 column,
+    ``golden_torch_cpu.json``: the golden file's three TPU seeds are
+    narrower than the workload's spread at float32), every loss is finite
+    and every count is as stated:
+    a. g3d (``golden_3d.json``): 8 problems x 150 iterations through
+       ``DIPSolver.solve``, one lane: fused loss 1200 / 1200, wgrad the
+       convs a spy on ``conv_same`` finds the gate admits, ``upsample_bwd``
+       4 x 1200; the differences paired by problem;
+    b. g25d (``golden_25d.json``): 5 seeds x 300 iterations as 5 lanes of
+       ``solve_patches_batched``, the 2.5D mode (slice ``tx``, 8 channels):
+       lane fused loss 300 / 300 and nothing else;
+    c. gpocs (``golden_pocs.json``, stop-grad eps): 5 seeds x 300 as 5
+       lanes, lane fused loss 300 / 300, the step's ``fk_projection`` 300
+       times;
+    d. the flagship with ``phase_levels=3`` (``quality_3d.py``'s net), 9
+       iterations traced as 7a: finite, fused 9 / 9, wgrad = the admitted
+       convs, ``upsample_bwd`` = the hook's plain upsamples, iteration 0 to
+       rel 1e-3 of phase 4's; every wgrad shape that phase 2 and 7d did not
+       check held against its plain version and timed.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 13; every one must pass.
+   after phase 14; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a, 11b, 12a, 12b, 13a-13c; each kernel with its rows at 10a's, 12a's
-and the zoo's shard shapes), the ``{"phase13": ...}``,
+11a, 11b, 12a, 12b, 13a-13c, and in phase 14; each kernel with its rows at
+10a's, 12a's and the zoo's shard shapes), the ``{"phase14": ...}``,
+``{"phase13": ...}``,
 ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
 ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
 and ``{"main_path": ...}`` lines before it, the last line ``{"ok": true,
@@ -1316,6 +1345,41 @@ def check_options(dev, main: dict) -> dict:
     return out
 
 
+class conv_spy:
+    """Within the block, counts the card's ``conv_same`` calls by (x shape,
+    w shape, stride, padding, dtype); ``admitted`` counts those that the
+    wgrad gate takes to the kernel (``DPI_PALLAS_WGRAD=1``), ``away`` lists
+    the others' shapes as (Ci, Co, k, stride, spatial)."""
+
+    def __enter__(self):
+        from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+        self.convs, real = collections.Counter(), conv_vjp._ConvSame.apply
+
+        def spy(x, w, stride, padding, mode):
+            if x.is_cuda:  # not a net's build pass on the CPU
+                self.convs[(tuple(x.shape), tuple(w.shape), stride, padding,
+                            str(x.dtype))] += 1
+            return real(x, w, stride, padding, mode)
+        conv_vjp._ConvSame.apply = spy
+        return self
+
+    def __exit__(self, *exc):
+        from deep_prior_interpolation_tpu_torch.ops import conv_vjp
+        del conv_vjp._ConvSame.apply
+
+    @property
+    def admitted(self) -> int:
+        from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+        return sum(n for (xs, ws, st, p, _), n in self.convs.items()
+                   if WG.wgrad_supported(xs, ws, st, p))
+
+    @property
+    def away(self) -> list:
+        from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
+        return sorted({(xs[1], ws[0], ws[2], st, xs[2:]) for xs, ws, st, p, _ in self.convs
+                       if not WG.wgrad_supported(xs, ws, st, p)})
+
+
 def check_zoo(dev) -> dict:
     """6e: skip, unet (bf16) and part (float32, which the JAX package runs
     only so) at the flagship volume and flags, 6 iterations each; every conv
@@ -1323,7 +1387,6 @@ def check_zoo(dev) -> dict:
     plain version and timed."""
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
     from deep_prior_interpolation_tpu_torch.ops import conv_vjp
-    from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
 
     img, mask = flagship_problem(256, 128, 128)
     flagship = {(ci, co, sp, "bfloat16") for ci, co, sp, _ in WGRAD_SHAPES}
@@ -1333,32 +1396,22 @@ def check_zoo(dev) -> dict:
     # the linear upsamples of each net's forward
     for net, dtype, ups in (("skip", "bfloat16", 5), ("unet", "bfloat16", 4),
                             ("part", "float32", 0)):
-        convs, seen = collections.Counter(), collections.Counter()
-        real_conv, real_wgrad = conv_vjp._ConvSame.apply, conv_vjp.wgrad3d
-
-        def spy_conv(x, w, stride, padding, mode):
-            if x.is_cuda:  # not the net's build pass on the CPU
-                convs[(tuple(x.shape), tuple(w.shape), stride, padding, str(x.dtype))] += 1
-            return real_conv(x, w, stride, padding, mode)
+        seen, real_wgrad = collections.Counter(), conv_vjp.wgrad3d
 
         def hook(x, dy, k):
             seen[(x.shape[1], dy.shape[1], tuple(x.shape[2:]),
                   str(x.dtype).split(".")[-1])] += 1
             return real_wgrad(x, dy, k)
-        conv_vjp._ConvSame.apply = spy_conv
         conv_vjp.wgrad3d = hook
         try:
-            r, _ = option_solve(dev, f"6e --net {net} ({dtype})",
-                                flagship_config(net=net, dtype=dtype, epochs=6, scan_chunk=3),
-                                img, mask)
+            with conv_spy() as spy:
+                r, _ = option_solve(dev, f"6e --net {net} ({dtype})",
+                                    flagship_config(net=net, dtype=dtype, epochs=6,
+                                                    scan_chunk=3), img, mask)
         finally:
-            del conv_vjp._ConvSame.apply
             conv_vjp.wgrad3d = real_wgrad
-        admitted = sum(n for (xs, ws, st, p, _), n in convs.items()
-                       if WG.wgrad_supported(xs, ws, st, p))
-        away = sorted({(xs[1], ws[0], ws[2], st, xs[2:]) for (xs, ws, st, p, _), n
-                       in convs.items() if not WG.wgrad_supported(xs, ws, st, p)})
-        log(f"6e --net {net}: {admitted // 6} of {sum(convs.values()) // 6} conv_same calls "
+        admitted, away = spy.admitted, spy.away
+        log(f"6e --net {net}: {admitted // 6} of {sum(spy.convs.values()) // 6} conv_same calls "
             f"an iteration reach the wgrad kernel; turned away to conv3d_weight "
             f"(Ci, Co, k, stride, spatial): {away}")
         c = r["launches"]
@@ -3329,6 +3382,189 @@ def zoo_kernels(dev, p13: dict, phase10: dict, phase12: dict) -> dict:
     return {"wgrad": rows, "upsample": ups, "fused": fused}
 
 
+# ----------------------------------------------------------------------
+# phase 14: convergence against the JAX repository's goldens
+# ----------------------------------------------------------------------
+
+# what was predicted before the first card run of phase 14 (PERF.md)
+PREDICTED_14 = {
+    "14a": "best SNR 12-20 dB mean, accepted; 0.06-0.12 s/iteration",
+    "14b": "best SNR 29.9-31.8 dB mean, accepted; 0.05-0.15 s a 5-lane iteration",
+    "14c": "best SNR 5.0-5.5 dB mean, accepted; 0.06-0.2 s a 5-lane iteration",
+    "14d": "0.14-0.22 s/iteration, iteration 0 within 1e-3 of phase 4's",
+}
+# phase_levels=3: resolution 2 joins the phase-resident ones (7a's are 0-1)
+PHASE14 = dict(phase_space=True, phase_levels=3, phase_deep_levels=0)
+
+
+def golden_module():
+    """``scripts/torch_golden.py``: the goldens' workloads, runs and rule."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_golden
+    return torch_golden
+
+
+def golden_check(label: str, name: str, runner: str, dev, expect) -> dict:
+    """One golden through ``scripts/torch_golden.py``'s runs with both kernel
+    switches on, the launch counters set to 0 just before and read just
+    after (``expect(counts, admitted)`` returns what is wrong, or None);
+    fails unless the rule accepts the port against the JAX column the golden
+    is judged by (``torch_golden.verdicts``) and every loss is finite.
+    Prints the sub-phase's JSON line."""
+    G = golden_module()
+    golden = G.GOLDENS[name]
+    with conv_spy() as spy:
+        run = G.solve(golden.workload, golden.iters, golden.seeds, True, runner, dev)
+    rec = G.summarise(name, golden, run)
+    G.log_record(rec)
+    losses = [v for r in run["per_seed"] for v in r["loss"]]
+    wrong = expect(rec["launches"], spy.admitted)
+    row = {"golden": name, "runner": runner, "iters": golden.iters, "seeds": golden.seeds,
+           "port": rec["best_snr"], "jax": rec.get("jax"), "jax_f32": rec.get("jax_f32"),
+           "reference": rec.get("reference"), "accept": rec.get("accept"),
+           "judged_against": rec.get("judged_against"), "launches": rec["launches"],
+           "admitted_convs_per_iteration": spy.admitted / (golden.iters * golden.seeds),
+           "s_per_iter": rec["s_per_iter"], "peak_memory_bytes": rec["peak_memory_bytes"],
+           "min_loss": rec["min_loss"], "snr_out_best": rec["snr_out_best"],
+           "predicted": PREDICTED_14[label]}
+    log(json.dumps({f"phase{label}": row}))
+    log(f"{label}: predicted {PREDICTED_14[label]}")
+    if not (len(losses) == golden.iters * golden.seeds and np.all(np.isfinite(losses))):
+        fail(f"{label}: the losses are not {golden.iters} x {golden.seeds} finite values")
+    if wrong:
+        fail(f"{label}: launches {rec['launches']}: {wrong}")
+    if not rec.get("accept"):
+        judged = rec.get("judged_against")
+        fail(f"{label}: the rule refuses the port's best SNR {rec['best_snr']['mean']:.3f} +- "
+             f"{rec['best_snr']['std']:.3f} dB against the JAX package's column {judged}: "
+             f"{rec.get(judged)}")
+    return row
+
+
+def _one_lane(n: int, ups: int):
+    """Launches of ``n`` one-lane iterations: fused loss n / n, wgrad the
+    admitted convs, ``upsample_bwd`` ``ups`` an iteration, no lane kernel."""
+    def expect(c: dict, admitted: int):
+        want = {"fused_loss": n, "fused_loss_grad": n, "wgrad3d": admitted,
+                "upsample_bwd": ups * n, "fused_loss_lanes": 0, "fused_loss_grad_lanes": 0,
+                "wgrad3d_lanes": 0}
+        if c != want or admitted == 0:
+            return f"expected {want} with a non-zero wgrad count"
+        return None
+    return expect
+
+
+def _lanes_2d(n: int):
+    """Launches of ``n`` lane iterations of a 2D net with nearest upsampling:
+    fused loss n / n on the lane kernels, nothing else."""
+    def expect(c: dict, admitted: int):
+        want = {"fused_loss": 0, "fused_loss_grad": 0, "wgrad3d": 0, "upsample_bwd": 0,
+                "fused_loss_lanes": n, "fused_loss_grad_lanes": n, "wgrad3d_lanes": 0}
+        return None if c == want else f"expected {want}"
+    return expect
+
+
+def convergence_g3d(dev) -> dict:
+    """14a: g3d, 8 problems x 150 iterations through ``DIPSolver.solve``,
+    one lane; the 32^3 net's 4 linear upsamples an iteration."""
+    return golden_check("14a", "g3d_150", "solve", dev, _one_lane(8 * 150, 4))
+
+
+def convergence_25d(dev) -> dict:
+    """14b: g25d, 5 seeds x 300 iterations as 5 lanes (the 2.5D mode's slab
+    as 8 channels of a 2D net)."""
+    return golden_check("14b", "g25d", "lanes", dev, _lanes_2d(300))
+
+
+def convergence_pocs(dev) -> dict:
+    """14c: gpocs (stop-grad eps), 5 seeds x 300 iterations as 5 lanes; the
+    step's ``fk_projection`` is counted: once an iteration for all lanes."""
+    from deep_prior_interpolation_tpu_torch.engine import solver as S
+    calls, real = [0], S.fk_projection
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+    S.fk_projection = spy
+    try:
+        row = golden_check("14c", "gpocs", "lanes", dev, _lanes_2d(300))
+    finally:
+        S.fk_projection = real
+    row["fk_projection_calls"] = calls[0]
+    log(f"14c: the step's fk_projection ran {calls[0]} times (expected 300: one an "
+        f"iteration for all lanes)")
+    if calls[0] != 300:
+        fail(f"14c: fk_projection ran {calls[0]} times in 300 iterations")
+    return row
+
+
+def convergence_flagship(dev, main: dict, wgrad: dict) -> dict:
+    """14d: the flagship with ``phase_levels=3`` (quality_3d.py's net),
+    9 iterations in chunks of 3, traced as 7a; every wgrad shape that
+    phase 2 and 7d did not check held against its plain version and timed;
+    iteration 0 against phase 4's (same parameters and canvas)."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(**PHASE14)
+    set_kernels(True)
+    solver = DIPSolver(cfg, outchannel=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with conv_spy() as spy:
+        res, counts, seen, seen_up = traced_solve(solver, img, mask)
+    kinds = read_upsample_kernels()
+    peak = torch.cuda.max_memory_allocated()
+    loss = np.asarray(res.history.loss)
+    want = {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": spy.admitted,
+            "upsample_bwd": sum(seen_up.values())}
+    log(f"14d phase flagship (levels 3): losses {loss.tolist()}\n  launches {counts} "
+        f"(expected {want}: {spy.admitted // 9} admitted convs and "
+        f"{sum(seen_up.values()) // 9} plain upsamples an iteration), upsample kernels {kinds}")
+    if not (len(loss) == 9 and np.all(np.isfinite(loss))):
+        fail("14d: the loss is not finite for 9 iterations")
+    if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+        fail(f"14d: out_best has shape {res.out_best.shape} or is not finite")
+    if counts != want or spy.admitted == 0 or sum(seen.values()) != spy.admitted:
+        fail(f"14d: launches {counts}, expected {want} (the wgrad hook saw "
+             f"{sum(seen.values())})")
+    steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
+    rel = abs(float(loss[0]) - main["loss0"]) / abs(main["loss0"])
+    log(f"14d: steady s/iteration {steady:.4f} (phase 4 {main['s_per_iter']:.4f}), peak "
+        f"{peak / 2**30:.2f} GiB; iteration-0 loss {float(loss[0]):.7g} against phase 4's "
+        f"{main['loss0']:.7g}, rel err {rel:.3e} (tol {LOSS0_TOL_BF16:g}); predicted "
+        f"{PREDICTED_14['14d']}")
+    if not rel <= LOSS0_TOL_BF16:
+        fail("14d: the iteration-0 loss differs from phase 4's")
+    del solver, res
+    torch.cuda.empty_cache()
+    known = {(r["ci"], r["co"], tuple(r["spatial"])): r["ms"]
+             for r in wgrad["shapes"] + wgrad.get("phase_shapes", [])
+             if r["dtype"] == "bfloat16"}
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = [wgrad_row(dev, ci, co, sp, torch.bfloat16, n // 9, g, True)
+            for (ci, co, sp), n in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][2]))
+            if (ci, co, sp) not in known]
+    per_iter = sum(r["ms"] * r["launches_per_iteration"] for r in rows) + sum(
+        known[k] * n / 9 for k, n in seen.items() if k in known)
+    log(f"14d: {len(seen)} wgrad shapes, {len(rows)} new; wgrad ms/iteration {per_iter:.4f} "
+        f"(7d's levels-2 path {wgrad.get('phase_ms_per_iteration', float('nan')):.4f})")
+    row = {"launches": counts, "upsample_kernels": kinds, "losses": loss.tolist(),
+           "s_per_iter": steady, "peak_bytes": peak, "loss0_rel_err": rel,
+           "phase4_s_per_iter": main["s_per_iter"], "wgrad_shapes": len(seen),
+           "new_wgrad_shapes": rows, "wgrad_ms_per_iteration": per_iter,
+           "upsample_shapes": [[c, list(sp), n // 9] for (c, sp), n in seen_up.items()],
+           "predicted": PREDICTED_14["14d"]}
+    log(json.dumps({"phase14d": {k: v for k, v in row.items() if k != "new_wgrad_shapes"}}))
+    wgrad["convergence_shapes"] = rows
+    wgrad["max_abs_err"] = max([wgrad["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+    return row
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -3517,6 +3753,14 @@ def main() -> None:
                                        phase12)
         seconds["13_total"] = time.time() - t13
         log(f"phase 13: {seconds['13_total']:.1f} s")
+        t14 = time.time()
+        phase14 = {"14a_g3d": phase("14a_convergence_g3d", convergence_g3d, dev),
+                   "14b_g25d": phase("14b_convergence_25d", convergence_25d, dev),
+                   "14c_gpocs": phase("14c_convergence_pocs", convergence_pocs, dev),
+                   "14d_flagship": phase("14d_convergence_flagship", convergence_flagship,
+                                         dev, main, wgrad)}
+        seconds["14_total"] = time.time() - t14
+        log(f"phase 14: {seconds['14_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -3576,8 +3820,21 @@ def main() -> None:
                                + zoo_rows["wgrad"])
     wgrad["spatial_phase_ms_per_iteration"] = phase12["12d_kernels"]["ms_per_iteration"]
     upsample["spatial_shapes"] = phase10["10c_kernels"]["upsample"] + zoo_rows["upsample"]
-    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample]
-                    + lane_entries(survey8, kernels8)}))
+    # phase 14's launches: the one-lane kernels in 14a and 14d, the lane
+    # fused loss in 14b and 14c
+    log(json.dumps({"phase14": {
+        "accept": {k: r["accept"] for k, r in phase14.items() if "accept" in r},
+        "s_per_iter": {k: r["s_per_iter"] for k, r in phase14.items()},
+        "seconds": {k: v for k, v in seconds.items() if k.startswith("14")}}}))
+    for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
+                       (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
+        entry["convergence_launches"] = {"14a": phase14["14a_g3d"]["launches"][key],
+                                         "14d": phase14["14d_flagship"]["launches"][key]}
+    lanes = lane_entries(survey8, kernels8)
+    for entry in lanes:
+        entry["convergence_launches"] = {k: phase14[f"{k}_{g}"]["launches"][entry["name"]]
+                                         for k, g in (("14b", "g25d"), ("14c", "gpocs"))}
+    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample] + lanes}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@
 Hyperbolic diffraction events over a (t, x[, y]) grid, the random
 trace-decimation mask of the flagship benchmark (66 % of the traces removed,
 the same traces at every time sample), and a (volume, mask) pair decimated
-by ``ops.masks.build_mask``.
+by ``ops.masks.build_mask``. ``synth_hyperbolic`` is the JAX repository's
+benchmark volume (``bench.py``), the data of its 3D quality runs.
 """
 from __future__ import annotations
 
@@ -39,6 +40,27 @@ def hyperbolic_events(nt: int = 256, nx: int = 128, ny: Optional[int] = 128,
         vol += amp * np.exp(-0.5 * ((t - tt) / sigma_t) ** 2)
     peak = np.abs(vol).max()
     return vol / peak if peak > 0 else vol
+
+
+def synth_hyperbolic(nt: int = 256, nx: int = 128, ny: int = 128,
+                     seed: int = 0) -> np.ndarray:
+    """The JAX repository's benchmark volume (its ``bench.synth_hyperbolic``,
+    the poc_3D and quality_3d data): six hyperbolic events with float64
+    moveout, peak-normalised, float32. Not ``hyperbolic_events``: the event
+    times are drawn from another range."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(nt)[:, None, None]
+    x = (np.arange(nx) - nx / 2)[None, :, None]
+    y = (np.arange(ny) - ny / 2)[None, None, :]
+    vol = np.zeros((nt, nx, ny), np.float32)
+    for _ in range(6):
+        t0 = rng.uniform(20, nt - 40)
+        v = rng.uniform(2.0, 6.0)
+        amp = rng.uniform(0.5, 1.0) * rng.choice([-1, 1])
+        tt = np.sqrt(t0 ** 2 + (x / v) ** 2 + (y / v) ** 2)
+        vol += amp * np.exp(-0.5 * ((t - tt) / 2.0) ** 2)
+    vol /= np.abs(vol).max()
+    return vol
 
 
 def source_wavelet(points: int = 51, a: float = 4.0) -> np.ndarray:

@@ -9,6 +9,7 @@ imported only here, when a report is drawn.
 from __future__ import annotations
 
 import os
+import sys
 from pathlib import Path
 from random import sample
 from typing import Optional
@@ -24,12 +25,24 @@ from ..utils.plotting import _pyplot, clim, explode_volume, plot_gather
 __all__ = ["show_results"]
 
 
+def _can_draw() -> bool:
+    """Whether matplotlib imports; says so on stderr when it does not."""
+    try:
+        _pyplot()
+    except ImportError:
+        print("show_results: matplotlib is not installed, no figure drawn", file=sys.stderr)
+        return False
+    return True
+
+
 def show_results(res_dir, opts: Optional[dict] = None, curves: int = 0,
                  savefig: bool = False, original: Optional[np.ndarray] = None):
     """Assemble and report a finished run directory; returns (outputs, a
     summary dict with 'snr', 'pcorr' and 'n_patches'). ``curves`` patches'
     loss, SNR, Pearson and learning-rate curves are drawn (``curves.png``
-    with ``savefig``), beside the volume (``output.png``)."""
+    with ``savefig``), beside the volume (``output.png``). Where matplotlib
+    is not installed (a card's machine may lack it), no figure is drawn and
+    the outputs and summary are returned all the same."""
     res_dir = Path(res_dir)
     cfg = read_args(str(res_dir / "args.txt"))
 
@@ -46,10 +59,11 @@ def show_results(res_dir, opts: Optional[dict] = None, curves: int = 0,
     if outputs.shape != inputs.shape:  # a stride-cropped extent
         inputs = inputs[tuple(slice(0, s) for s in outputs.shape)]
 
-    if outputs.ndim == 3:
+    draw = _can_draw()
+    if draw and outputs.ndim == 3:
         explode_volume(outputs, filename=str(res_dir / "output") if savefig else None,
                        save_opts=save_opts if savefig else None, **opts)
-    else:
+    elif draw:
         plot_gather(outputs, filename=str(res_dir / "output.png") if savefig else None,
                     **{k: v for k, v in opts.items()
                        if k in ("figsize", "cmap", "clipval", "p", "tlim", "xlim", "labels")})
@@ -58,7 +72,7 @@ def show_results(res_dir, opts: Optional[dict] = None, curves: int = 0,
     summary = {"snr": float(snr(out_t, in_t)), "pcorr": float(pcorr(out_t, in_t)),
                "n_patches": len(hist)}
 
-    if curves > 0 and hist:
+    if draw and curves > 0 and hist:
         plt = _pyplot()
         idx = sorted(sample(range(len(hist)), curves)) if len(hist) > curves \
             else range(len(hist))

@@ -18,7 +18,7 @@ from deep_prior_interpolation_tpu.io import show_results as jax_show_results
 from deep_prior_interpolation_tpu_torch import cli
 from deep_prior_interpolation_tpu_torch.config import parse_arguments
 from deep_prior_interpolation_tpu_torch.data import dataset_path
-from deep_prior_interpolation_tpu_torch.io import show_results
+from deep_prior_interpolation_tpu_torch.io import report, show_results
 from deep_prior_interpolation_tpu_torch.utils import plotting as PP
 
 torch.set_num_threads(1)
@@ -102,4 +102,17 @@ def test_show_results_reads_either_packages_run(run_dirs, which):
         np.testing.assert_allclose(summary[k], jax_summary[k], rtol=1e-6)
     assert os.path.exists(os.path.join(res_dir, "curves.png"))
     assert os.path.exists(os.path.join(res_dir, "output.png"))
+    PP._pyplot().close("all")
+
+
+def test_show_results_without_matplotlib_returns_the_summary(run_dirs, monkeypatch):
+    # a card's machine may lack matplotlib: the report is computed, no figure drawn
+    want, want_summary = show_results(run_dirs[0])
+
+    def missing():
+        raise ImportError("No module named 'matplotlib'")
+    monkeypatch.setattr(report, "_pyplot", missing)
+    got, summary = show_results(run_dirs[0], curves=1)
+    np.testing.assert_array_equal(got, want)
+    assert summary == want_summary
     PP._pyplot().close("all")
