@@ -275,13 +275,41 @@ Phases, each of which ends the run with a non-zero exit code on failure:
        rel 1e-3 of phase 4's; every wgrad shape that phase 2 and 7d did not
        check held against its plain version and timed.
 
+15. the zoo's remaining constructor options over spatial shards, each
+    net given to the solver (``DIPSolver(model=...)``), solved unsharded
+    and sharded along axis 1 with the launch counters set to 0 just before
+    each solve and read just after: finite losses, an ``out_best`` of the
+    image's shape, fused N x iterations forward and backward, wgrad N x
+    the unsharded solve's, ``upsample_bwd`` N x the net's linear upsamples
+    an iteration, the iteration-0 loss within 1e-3 (bf16) or 1e-5
+    (float32; the CBAM U-Net 1e-4, its own conditioning) of the unsharded
+    solve's, s/iteration and peak beside it:
+    a. at the flagship volume and widths, 6 iterations in chunks of 3,
+       over [cuda:0] x 2 and x 4: the skip net with reflection padding and
+       Lanczos downsampling (bf16, trilinear), the U-Net with its deconv up
+       path and ``more_layers=1`` (float32: its transposed convs compute in
+       float32), the U-Net with ``concat_x`` (bf16, trilinear, 8 input
+       channels);
+    b. the lines command's patch with ``--pad_multiple 32`` over
+       [cuda:0] x 2, 9 iterations with POCS: the CBAM U-Net (its gates'
+       bilinear upsamples on the upsample kernel) and the ConvGRU ensemble
+       of one frame (hidden 512);
+    c. 15a's ``concat_x`` U-Net over 2 shards, two 3-iteration solves with
+       deterministic cuDNN: bit-equal;
+    d. each kernel at the new shard shapes: wgrad against its plain version
+       timed beside its bound, the plain version and ``conv3d_weight``,
+       ``upsample_bwd``
+       bit-equal beside the plain version and the atomic backward, the
+       fused loss on 15b's 2D shard outputs.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 14; every one must pass.
+   after phase 15; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a, 11b, 12a, 12b, 13a-13c, and in phase 14; each kernel with its rows at
-10a's, 12a's and the zoo's shard shapes), the ``{"phase14": ...}``,
+11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, and in phase 14; each kernel with
+its rows at 10a's, 12a's, the zoo's and phase 15's shard shapes), the
+``{"phase15": ...}``, ``{"phase14": ...}``,
 ``{"phase13": ...}``,
 ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
 ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
@@ -667,18 +695,21 @@ def check_upsample_2d(dev) -> list:
             if not equal:
                 fail(f"upsample_bwd 2D {b} x {c} x {hw} is not bit-equal to the plain version")
             ms = time_ms(lambda: U.upsample_bwd(go, 2))
+            plain_ms = time_ms(lambda: U.upsample_bwd_plain(go, 2))
             lib = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
                 go, out_hw, [1, b * c, *hw], False, 2.0, 2.0))
             n_in = b * c * math.prod(hw)
             # 7 flops an output of each pass: 2 x 7 (W) + 7 (H) an input
             b_ms, b_by = bound_ms(5 * n_in * 2, 21.0 * n_in, torch.float32)
             log(f"upsample_bwd 2D lines B = {b}: {b * c} planes x {hw} bf16 ({kernel} kernel), "
-                f"bit-equal {equal}; ms {ms:.4f} atomic F.interpolate backward {lib:.4f} "
-                f"bound {b_ms:.4f} ({b_by}), {b_ms / ms:.0%} of the bound's speed")
+                f"bit-equal {equal}; ms {ms:.4f} plain {plain_ms:.4f} atomic F.interpolate "
+                f"backward {lib:.4f} bound {b_ms:.4f} ({b_by}), {b_ms / ms:.0%} of the bound's "
+                f"speed")
             per_iter += ms
             lib_iter += lib
             rows.append({"lanes": b, "planes": b * c, "spatial": list(hw), "kernel": kernel,
-                         "ms": ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b_ms,
+                         "bound_by": b_by,
                          "bit_equal_to_plain": equal})
         log(f"upsample_bwd 2D lines B = {b}: {per_iter:.4f} ms a step over the four "
             f"(atomic {lib_iter:.4f})")
@@ -2095,21 +2126,22 @@ def lane_kernels(dev, survey: dict) -> dict:
                             U.upsample_bwd_plain(folded, 3))
         kernel = U.plan(c, *sp, True, 2, folded.data_ptr() % 16 == 0).kernel
         ms = time_ms(lambda: U.upsample_bwd(folded, 3))
+        plain_ms = time_ms(lambda: U.upsample_bwd_plain(folded, 3))
         lib = time_ms(lambda: torch.ops.aten.upsample_trilinear3d_backward(
             folded, list(folded.shape[2:]), [*folded.shape[:2], *sp], False, 2.0, 2.0, 2.0))
         b_ms, b_by = bound_ms(9 * folded.numel() // 8 * 2, 8.0 * folded.numel(), torch.float32)
         log(f"8c upsample_bwd lane-folded {c} planes x {sp} bf16 ({kernel} kernel): one launch, "
             f"bit-equal to per-lane calls {same} and to the plain version {plain}; ms {ms:.4f} "
-            f"atomic F.interpolate backward {lib:.4f} bound {b_ms:.4f} ({b_by}), "
-            f"{b_ms / ms:.0%} of the bound's speed")
+            f"plain {plain_ms:.4f} atomic F.interpolate backward {lib:.4f} bound {b_ms:.4f} "
+            f"({b_by}), {b_ms / ms:.0%} of the bound's speed")
         if not (same and plain):
             fail(f"8c: the lane-folded upsample backward at {c} x {sp} is not the per-lane one "
                  f"or not the plain one")
         if kernel != "tma":
             fail(f"8c: the lane-folded upsample backward at {c} x {sp} takes the {kernel} kernel")
         up_rows.append({"planes": c, "spatial": list(sp), "kernel": kernel, "ms": ms,
-                        "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-                        "launches_per_iteration": 1, "bit_equal_to_lanes": same,
+                        "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b_ms,
+                        "bound_by": b_by, "launches_per_iteration": 1, "bit_equal_to_lanes": same,
                         "bit_equal_to_plain": plain})
     return {"fused": fused, "wgrad": rows, "wgrad_ms_per_iteration": per_iter,
             "wgrad_library_ms_per_iteration": lib_iter, "upsample": up_rows}
@@ -3307,16 +3339,49 @@ def fused_shard_row(dev, shape, out_dtype, g, label: str, shards: int) -> dict:
     return row
 
 
+def upsample_shard_row(dev, c: int, sp, ndim: int, dt, k: int, g, label: str) -> dict:
+    """``upsample_bwd`` at one shard's input ``sp`` (its halo planes
+    included) of ``c`` channels, bit-equal to the plain version, timed
+    beside it, the atomic library backward and its bound; ``k`` launches
+    an iteration."""
+    from deep_prior_interpolation_tpu_torch.ops import upsample as U
+
+    go = torch.randn((1, c, *[2 * v for v in sp]), generator=g, device=dev).to(dt)
+    got = U.upsample_bwd(go, ndim)
+    equal = torch.equal(got, U.upsample_bwd_plain(go, ndim))
+    kernel = U.plan(c, *(sp if ndim == 3 else (1, *sp)), ndim == 3, go.element_size()).kernel
+    size = [1, c, *sp]
+    if ndim == 3:
+        lib = lambda: torch.ops.aten.upsample_trilinear3d_backward(  # noqa: E731
+            go, list(go.shape[2:]), size, False, 2.0, 2.0, 2.0)
+    else:
+        lib = lambda: torch.ops.aten.upsample_bilinear2d_backward(  # noqa: E731
+            go, list(go.shape[2:]), size, False, 2.0, 2.0)
+    n_in = c * math.prod(sp)
+    b_ms, b_by = bound_ms((1 + 2 ** ndim) * n_in * go.element_size(),
+                          (49.0 if ndim == 3 else 21.0) * n_in, torch.float32)
+    row = {"ndim": ndim, "channels": c, "input": list(sp), "dtype": str(dt)[6:],
+           "kernel": kernel, "bit_equal_to_plain": equal, "launches_per_iteration": k,
+           "ms": time_ms(lambda: U.upsample_bwd(go, ndim)),
+           "plain_ms": time_ms(lambda: U.upsample_bwd_plain(go, ndim)),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    log(f"{label} upsample_bwd {c} x {tuple(sp)} {row['dtype']} ({kernel}): bit-equal to the "
+        f"plain version {equal}; ms {row['ms']:.4f} bound {b_ms:.4f} plain "
+        f"{row['plain_ms']:.4f} atomic {row['library_ms']:.4f}")
+    if not equal:
+        fail(f"{label}: upsample_bwd at {c} x {sp} is not bit-equal to the plain version")
+    return row
+
+
 def zoo_kernels(dev, p13: dict, phase10: dict, phase12: dict) -> dict:
     """13e: each kernel at the zoo's shard shapes that no earlier phase
     held against its plain version: wgrad at every shard shape 13a and 13b
     saw and 10c / 12d did not (bf16 for skip and unet, float32 for part's
-    decoder), timed beside its bound and ``conv3d_weight`` of the shard
-    conv; ``upsample_bwd`` at every shard shape of 13a and 13c, bit-equal
+    decoder), timed beside its bound, the plain version and
+    ``conv3d_weight`` of the shard conv; ``upsample_bwd`` at every shard
+    shape of 13a and 13c, bit-equal
     to the plain version, timed beside it and the atomic backward; the
     fused loss on part's float32 shard outputs and on 13c's 2D shards."""
-    from deep_prior_interpolation_tpu_torch.ops import upsample as U
-
     g = torch.Generator(device=dev).manual_seed(13)
     done = {(r["ci"], r["co"], tuple(r["x_shape"]))
             for r in phase10["10c_kernels"]["wgrad"] + phase12["12d_kernels"]["wgrad"]}
@@ -3330,7 +3395,7 @@ def zoo_kernels(dev, p13: dict, phase10: dict, phase12: dict) -> dict:
                     continue
                 seen.add(key)
                 sp = (xs[0], (xs[1] - 2) * n, xs[2])
-                row = spatial_wgrad_row(dev, ci, co, sp, xs[1] - 2, n, k // n, g, False, "13e",
+                row = spatial_wgrad_row(dev, ci, co, sp, xs[1] - 2, n, k // n, g, True, "13e",
                                         getattr(torch, dtype))
                 row["net"] = net
                 rows.append(row)
@@ -3347,34 +3412,7 @@ def zoo_kernels(dev, p13: dict, phase10: dict, phase12: dict) -> dict:
                     continue
                 seen.add((c, tuple(sp)))
                 dt = torch.bfloat16 if ndim == 3 else torch.float32
-                go = torch.randn((1, c, *[2 * v for v in sp]), generator=g, device=dev).to(dt)
-                got = U.upsample_bwd(go, ndim)
-                equal = torch.equal(got, U.upsample_bwd_plain(go, ndim))
-                kernel = U.plan(c, *(sp if ndim == 3 else (1, *sp)), ndim == 3,
-                                go.element_size()).kernel
-                size = [1, c, *sp]
-                if ndim == 3:
-                    lib = lambda: torch.ops.aten.upsample_trilinear3d_backward(  # noqa: E731
-                        go, list(go.shape[2:]), size, False, 2.0, 2.0, 2.0)
-                else:
-                    lib = lambda: torch.ops.aten.upsample_bilinear2d_backward(  # noqa: E731
-                        go, list(go.shape[2:]), size, False, 2.0, 2.0)
-                n_in = c * math.prod(sp)
-                b_ms, b_by = bound_ms((1 + 2 ** ndim) * n_in * go.element_size(),
-                                      (49.0 if ndim == 3 else 21.0) * n_in, torch.float32)
-                row = {"ndim": ndim, "channels": c, "input": list(sp), "dtype": str(dt)[6:],
-                       "kernel": kernel, "bit_equal_to_plain": equal,
-                       "launches_per_iteration": k,
-                       "ms": time_ms(lambda: U.upsample_bwd(go, ndim)),
-                       "plain_ms": time_ms(lambda: U.upsample_bwd_plain(go, ndim)),
-                       "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
-                log(f"13e upsample_bwd {c} x {tuple(sp)} {row['dtype']} ({kernel}): bit-equal "
-                    f"to the plain version {equal}; ms {row['ms']:.4f} bound {b_ms:.4f} plain "
-                    f"{row['plain_ms']:.4f} atomic {row['library_ms']:.4f}")
-                if not equal:
-                    fail(f"13e: upsample_bwd at {c} x {sp} is not bit-equal to the plain version")
-                ups.append(row)
-                del go, got
+                ups.append(upsample_shard_row(dev, c, sp, ndim, dt, k, g, "13e"))
     fused = [fused_shard_row(dev, (1, 1, 256, 128 // n, 128), torch.float32, g, "13e", n)
              for n in SPATIAL_SHARDS]
     fused += [fused_shard_row(dev, (1, 1, 170, w), torch.float32, g, "13e", ZOO_2D_SHARDS)
@@ -3565,6 +3603,230 @@ def convergence_flagship(dev, main: dict, wgrad: dict) -> dict:
     return row
 
 
+# ----------------------------------------------------------------------
+# phase 15: the zoo's remaining constructor options over spatial shards
+# ----------------------------------------------------------------------
+
+# what was predicted before the first card run of phase 15 (PERF.md)
+PREDICTED_15 = ("15a s/iteration at N = 1 / 2 / 4: skip (reflection, Lanczos) 0.05-0.09 / "
+                "0.10-0.20 / 0.18-0.35, unet deconv + more_layers (float32) 0.10-0.25 / "
+                "0.15-0.40 / 0.20-0.55, unet concat_x 0.035-0.07 / 0.06-0.12 / 0.09-0.20; "
+                "15b lines cbam 0.02-0.08 / 0.04-0.15, ensemble 0.02-0.06 / 0.04-0.12; "
+                "iteration-0 losses within 1e-4 (bf16) and 1e-6 (float32)")
+# 15a: the 3D nets at the flagship volume, widths and flags: (label, the
+# net's input channels, its dtype, its linear upsamples an iteration)
+ZOO15_3D = (("skip_reflect_lanczos", 64, "bfloat16", 5),
+            ("unet_deconv_more_layers", 64, "float32", 0),
+            ("unet_concat_x", 8, "bfloat16", 4))
+# 15b: the 2D nets on the lines gather padded to 32: (label, linear upsamples)
+ZOO15_2D = (("cbam_unet", 4), ("ensemble", 0))
+# iteration-0 loss of a sharded solve against the unsharded one's, by dtype;
+# the CBAM U-Net's float32 forward amplifies a one-ulp change of its canvas
+# to 2.2e-4 of its output's max (its gates' Norms of near-constant maps;
+# measured on the CPU), and its sharded lines loss parted by 1.7e-5 there
+LOSS0_TOL_15 = {"bfloat16": LOSS0_TOL_BF16, "float32": LOSS0_TOL_13}
+LOSS0_TOL_15_CBAM = 1e-4
+
+
+def zoo15_net(label: str, inputdepth: int):
+    """A phase-15 net, given to the solver as ``model=``: 15a's at the
+    flagship's filters (skip widths as ``get_net`` pads them), 15b's at the
+    library's own widths."""
+    from deep_prior_interpolation_tpu_torch.models import (AttentionUnet, Ensemble, SkipNet,
+                                                          UNet)
+    f, s = FLAGSHIP["filters"], FLAGSHIP["skip"]
+    if label == "skip_reflect_lanczos":
+        return SkipNet(inputdepth, 1, 3, f, s, pad="reflection", upsample_mode="linear",
+                       downsample_mode=["lanczos2", "lanczos3", "lanczos2", "lanczos3",
+                                        "lanczos2"])
+    if label == "unet_deconv_more_layers":
+        return UNet(inputdepth, 1, 3, f, more_layers=1, upsample_mode="deconv")
+    if label == "unet_concat_x":
+        return UNet(inputdepth, 1, 3, f, concat_x=True, upsample_mode="linear")
+    if label == "cbam_unet":
+        return AttentionUnet(inputdepth, 1, att="cbam")
+    if label == "ensemble":
+        return Ensemble(inputdepth, 1, num_frames=1, hidden=512)
+    raise ValueError(label)
+
+
+def zoo15_solve(dev, label: str, cfg, inputdepth: int, img, mask, mesh=None) -> dict:
+    """One phase-15 net through ``DIPSolver(model=...).solve``, unsharded
+    or over ``mesh`` along axis 1, traced: launches, wgrad and upsample
+    shapes, losses (and POCS terms), steady s/iteration (median of chunks
+    2..), peak; fails on a non-finite loss or an ``out_best`` not of the
+    image's shape."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+
+    set_kernels(True)
+    solver = DIPSolver(cfg, outchannel=img.shape[-1], device=dev,
+                       model=zoo15_net(label, inputdepth))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {} if mesh is None else {"spatial_mesh": mesh, "spatial_axis": SPATIAL_AXIS}
+    res, counts, seen, seen_up = traced_solve(solver, img, mask, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    kinds = read_upsample_kernels()
+    loss = np.asarray(res.history.loss)
+    steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
+    n = 1 if mesh is None else len(mesh)
+    log(f"15 {label} over {n} shard(s): losses {loss.tolist()}; launches {counts}, upsample "
+        f"by kernel {kinds}; chunk seconds {res.chunk_seconds}, steady s/iteration "
+        f"{steady:.4f}, peak {peak / 2**30:.2f} GiB")
+    fields = ("loss", "df", "reg", "eps") if cfg.pocs else ("loss",)
+    if not (len(loss) == cfg.epochs
+            and all(np.all(np.isfinite(getattr(res.history, f))) for f in fields)):
+        fail(f"15 {label} over {n} shard(s): the loss is not finite for {cfg.epochs} iterations")
+    if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+        fail(f"15 {label} over {n} shard(s): out_best has shape {res.out_best.shape} or is "
+             f"not finite")
+    del solver
+    return {"shards": n, "launches": counts, "upsample_kernels": kinds,
+            "losses": loss.tolist(), "s_per_iter": steady, "chunk_seconds": res.chunk_seconds,
+            "peak_bytes": peak,
+            "wgrad_shapes": [[ci, co, list(sp), c // cfg.epochs]
+                             for (ci, co, sp), c in sorted(seen.items())],
+            "upsample_shapes": [[c, list(sp), k // cfg.epochs]
+                                for (c, sp), k in sorted(seen_up.items())]}
+
+
+def zoo15_sharded(dev, label: str, cfg, inputdepth: int, img, mask, ups: int,
+                  shards) -> dict:
+    """A net unsharded and over [dev] x N for each N of ``shards``: each
+    sharded solve launches fused N x iterations (forward and backward),
+    wgrad N x the unsharded solve's and ``upsample_bwd`` N x its linear
+    upsamples an iteration; its iteration-0 loss within the precision's
+    tolerance of the unsharded one's."""
+    iters = cfg.epochs
+    tol = LOSS0_TOL_15_CBAM if label == "cbam_unet" else LOSS0_TOL_15[cfg.dtype]
+    ref = zoo15_solve(dev, label, cfg, inputdepth, img, mask)
+    if ref["launches"]["upsample_bwd"] != ups * iters:
+        fail(f"15 {label}: {ref['launches']['upsample_bwd']} upsample_bwd launches unsharded, "
+             f"not {ups} an iteration")
+    out = {"1": ref}
+    for n in shards:
+        r = zoo15_solve(dev, label, cfg, inputdepth, img, mask, [dev] * n)
+        want = {"fused_loss": n * iters, "fused_loss_grad": n * iters,
+                "wgrad3d": n * ref["launches"]["wgrad3d"], "upsample_bwd": n * ups * iters}
+        r["loss0_rel_err"] = _rel(r["losses"][0], ref["losses"][0])
+        log(f"15 {label} over {n} shards: launches {r['launches']} (expected {want}); "
+            f"iteration-0 loss {r['losses'][0]:.7g} against unsharded {ref['losses'][0]:.7g}, "
+            f"rel err {r['loss0_rel_err']:.3e} (tol {tol:g}); s/iteration {r['s_per_iter']:.4f} "
+            f"against {ref['s_per_iter']:.4f}, peak {r['peak_bytes'] / 2**30:.2f} against "
+            f"{ref['peak_bytes'] / 2**30:.2f} GiB (predicted: {PREDICTED_15})")
+        if r["launches"] != want:
+            fail(f"15 {label} over {n} shards: launch counts {r['launches']}, not {want}")
+        if not r["loss0_rel_err"] <= tol:
+            fail(f"15 {label} over {n} shards: the iteration-0 loss differs from the unsharded "
+                 f"solve's by more than {tol:g}")
+        out[str(n)] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo15_3d(dev) -> dict:
+    """15a: ``ZOO15_3D`` at the flagship volume, unsharded and over
+    [cuda:0] x 2 and x 4 along H, 6 iterations in chunks of 3; the deconv
+    U-Net in float32 (TF32 off), as its ``ConvTranspose`` computes in
+    float32 and both packages refuse a bfloat16 carry that turns float32;
+    the U-Net's wgrad launches at least one a shard an admitted conv."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    out = {}
+    for label, depth, dtype, ups in ZOO15_3D:
+        cfg = flagship_config(inputdepth=depth, dtype=dtype, epochs=6, scan_chunk=3)
+        out[label] = zoo15_sharded(dev, label, cfg, depth, img, mask, ups, SPATIAL_SHARDS)
+        if label.startswith("unet") and out[label]["1"]["launches"]["wgrad3d"] == 0:
+            fail(f"15a {label}: no conv reached the wgrad kernel")
+    return out
+
+
+def zoo15_lines(dev) -> dict:
+    """15b: the lines command's patch (its flags, POCS on the step) padded
+    with ``--pad_multiple 32``, ``ZOO15_2D`` unsharded and over
+    [cuda:0] x 2 along axis 1 (4 blocks of 32 planes), 9 iterations in
+    chunks of 3."""
+    from deep_prior_interpolation_tpu_torch.data import extract_patches
+
+    cfg = lines_config("unused", "--pad_multiple", "32", "--scan_chunk", "3")
+    patch = extract_patches(cfg)[0]
+    return {label: zoo15_sharded(dev, label, cfg, cfg.inputdepth, patch["image"],
+                                 patch["mask"], ups, (ZOO_2D_SHARDS,))
+            for label, ups in ZOO15_2D}
+
+
+def zoo15_exactness(dev) -> dict:
+    """15c: 15a's ``concat_x`` U-Net (bf16, all three kernels) over 2
+    shards, 3 iterations twice with deterministic cuDNN (the wgrad grids
+    15a tuned): history and ``out_best`` bit-equal."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(inputdepth=8, epochs=3, scan_chunk=3)
+    set_kernels(True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [DIPSolver(cfg, device=dev, model=zoo15_net("unet_concat_x", 8)).solve(
+            img, mask, seed=0, spatial_mesh=[dev] * 2, spatial_axis=SPATIAL_AXIS)
+            for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = (np.array_equal(runs[0].history.loss, runs[1].history.loss)
+            and np.array_equal(runs[0].out_best, runs[1].out_best))
+    log(f"15c: unet concat_x over 2 shards, losses {list(runs[0].history.loss)}; two solves "
+        f"bit-equal {same}")
+    if not same:
+        fail("15c: two sharded concat_x U-Net solves from one seed are not bit-equal")
+    return {"two_runs_bit_equal": same, "losses": list(runs[0].history.loss)}
+
+
+def zoo15_kernels(dev, p15: dict, done_wgrad: set, done_upsample: set) -> dict:
+    """15d: each kernel at phase 15's shard shapes that no earlier phase
+    held against its plain version: wgrad at every shard shape of 15a not
+    in ``done_wgrad`` ((Ci, Co, x's shape, dtype): bf16 and the deconv
+    U-Net's float32), timed beside its bound, the plain version and
+    ``conv3d_weight`` of the shard conv; ``upsample_bwd`` at every shard
+    shape of 15a (trilinear) and 15b (the CBAM U-Net's bilinear) not in
+    ``done_upsample`` ((C, input, dtype)), bit-equal, beside the plain
+    version and the atomic backward; the fused loss on 15b's 2D float32
+    shard outputs."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows, seen = [], set(done_wgrad)
+    for label, _, dtype, _ in ZOO15_3D:
+        for n in SPATIAL_SHARDS:
+            per_iter = 0.0
+            for ci, co, xs, k in p15["15a"][label][str(n)]["wgrad_shapes"]:
+                key = (ci, co, tuple(xs), dtype)
+                if key in seen:
+                    continue
+                seen.add(key)
+                sp = (xs[0], (xs[1] - 2) * n, xs[2])
+                row = spatial_wgrad_row(dev, ci, co, sp, xs[1] - 2, n, k // n, g, True, "15d",
+                                        getattr(torch, dtype))
+                row["net"] = label
+                rows.append(row)
+                per_iter += row["ms"] * k
+            log(f"15d {label} {n} shards: wgrad ms/iteration over its new shard shapes "
+                f"{per_iter:.4f}")
+    ups, seen = [], set(done_upsample)
+    runs = [(3, p15["15a"][label][str(n)]) for label, _, _, u in ZOO15_3D if u
+            for n in SPATIAL_SHARDS]
+    runs += [(2, p15["15b"][label][str(ZOO_2D_SHARDS)]) for label, u in ZOO15_2D if u]
+    for ndim, r in runs:
+        for c, sp, k in r["upsample_shapes"]:
+            dt = torch.bfloat16 if ndim == 3 else torch.float32
+            if (c, tuple(sp), str(dt)[6:]) in seen:
+                continue
+            seen.add((c, tuple(sp), str(dt)[6:]))
+            ups.append(upsample_shard_row(dev, c, sp, ndim, dt, k, g, "15d"))
+    fused = [fused_shard_row(dev, (1, 1, 170, 50), torch.float32, g, "15d", ZOO_2D_SHARDS)]
+    return {"wgrad": rows, "upsample": ups, "fused": fused}
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -3613,7 +3875,8 @@ CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
               "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py",
-              "tests/test_torch_cuda_spatial_phase.py", "tests/test_torch_cuda_spatial_zoo.py"]
+              "tests/test_torch_cuda_spatial_phase.py", "tests/test_torch_cuda_spatial_zoo.py",
+              "tests/test_torch_cuda_spatial_zoo_options.py"]
 
 
 # the one skip reason the CUDA tests may give, and only on a one-card machine
@@ -3761,6 +4024,20 @@ def main() -> None:
                                          dev, main, wgrad)}
         seconds["14_total"] = time.time() - t14
         log(f"phase 14: {seconds['14_total']:.1f} s")
+        t15 = time.time()
+        phase15 = {"15a": phase("15a_zoo_options_3d", zoo15_3d, dev),
+                   "15b": phase("15b_zoo_options_lines", zoo15_lines, dev),
+                   "15c": phase("15c_zoo_options_exactness", zoo15_exactness, dev)}
+        done_wgrad = {(r["ci"], r["co"], tuple(r["x_shape"]), r["dtype"])
+                      for r in (phase10["10c_kernels"]["wgrad"] + phase12["12d_kernels"]["wgrad"]
+                                + phase13["13e_kernels"]["wgrad"])}
+        done_upsample = {(r["channels"], tuple(r["input"]), r.get("dtype", "bfloat16"))
+                         for r in (phase10["10c_kernels"]["upsample"]
+                                   + phase13["13e_kernels"]["upsample"])}
+        phase15["15d_kernels"] = phase("15d_zoo_options_kernels", zoo15_kernels, dev, phase15,
+                                       done_wgrad, done_upsample)
+        seconds["15_total"] = time.time() - t15
+        log(f"phase 15: {seconds['15_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -3830,6 +4107,21 @@ def main() -> None:
                        (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
         entry["convergence_launches"] = {"14a": phase14["14a_g3d"]["launches"][key],
                                          "14d": phase14["14d_flagship"]["launches"][key]}
+    phase15["seconds"] = {k: v for k, v in seconds.items() if k.startswith("15")}
+    log(json.dumps({"phase15": {k: v for k, v in phase15.items() if k != "15d_kernels"}}))
+    # phase 15's launches: each net unsharded ("1") and by shard count, and
+    # its rows at the new shard shapes (15d)
+    for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
+                       (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
+        entry["spatial_zoo_options_launches"] = {
+            part: {f"{label} {n}": r["launches"][key] for label, runs in phase15[part].items()
+                   for n, r in runs.items()} for part in ("15a", "15b")}
+    rows15 = phase15["15d_kernels"]
+    fused["spatial_shapes"] += rows15["fused"]
+    wgrad["spatial_shapes"] += rows15["wgrad"]
+    upsample["spatial_shapes"] += rows15["upsample"]
+    for entry, rows in ((fused, rows15["fused"]), (wgrad, rows15["wgrad"])):
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in rows])
     lanes = lane_entries(survey8, kernels8)
     for entry in lanes:
         entry["convergence_launches"] = {k: phase14[f"{k}_{g}"]["launches"][entry["name"]]

@@ -62,8 +62,13 @@ output.
 Where the JAX package refuses a configuration the port raises the same
 error class: under ``dtype="bfloat16"`` input optimisation, and a net output
 that is not bfloat16 (data forgetting, the partial-conv U-Net), raise
-``TypeError``. Features the port does not serve yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``TypeError``; so does a net whose output is not ``(1, outchannel,
+*padded)`` (``check_net_output``: a CBAM block alone, a ConvGRU ensemble of
+several frames, a skip net with even kernel sizes), before anything is
+drawn, where JAX's scan refuses the carry (or, for an output smaller than
+the patch, runs on with an output that does not cover it). Features the
+port does not serve yet raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -82,8 +87,9 @@ from torch.func import functional_call, vmap
 
 from ..config import Config
 from ..io import checkpoint as ckpt_io
-from ..models import (AttMulResUnet, PartialUNet, SkipNet, UNet, get_net, init_weights,
-                      set_dropout_generator)
+from ..models import (AttMulResUnet, AttentionUnet, Ensemble, PartialUNet, SkipNet, UNet,
+                      get_net, init_weights, set_dropout_generator)
+from ..models.blocks import Compact, meta_forward
 from ..ops import losses as L
 from ..ops import wgrad as wgrad_ops
 from ..ops.conv_vjp import conv_impl
@@ -190,7 +196,8 @@ def shard_block(cfg: Config, model: torch.nn.Module) -> int:
     """The planes a spatial shard of ``model``'s padded volume holds a
     whole number of: 2^S for the net's S stride-2 steps (the skip net one a
     filter, the U-Net 4 + ``more_layers``, the partial-conv U-Net 5, the
-    attention MultiRes U-Net one a filter but the first), so every level
+    attention MultiRes U-Net one a filter but the first, the CBAM U-Net 4,
+    the ConvGRU ensemble 5), so every level
     halves each shard exactly; the MulResUnet's ``net_multiple``. It can be
     wider than ``pad_multiple_for``'s (which mirrors the JAX package's
     padding): a padded axis that is not a whole number of blocks is
@@ -203,7 +210,31 @@ def shard_block(cfg: Config, model: torch.nn.Module) -> int:
         return 2 ** 5
     if isinstance(model, AttMulResUnet):
         return 2 ** (len(model.filters) - 1)
+    if isinstance(model, AttentionUnet):
+        return 2 ** 4
+    if isinstance(model, Ensemble):
+        return 2 ** 5
     return net_multiple(cfg)
+
+
+def check_net_output(model: torch.nn.Module, input_shape: Tuple[int, ...],
+                     want: Tuple[int, ...], takes_mask: bool = False) -> None:
+    """Build ``model`` where it is a library net that makes its children at
+    its first call and has not been built (a ``Compact``), at the canvas's
+    shape on the CPU, as flax's ``init`` builds a module; then raise
+    ``TypeError`` naming both shapes where its output for an input of
+    ``input_shape`` (and the mask, for a net that takes it) is not ``want``,
+    ``(1, outchannel, *padded)``: the shape of the output the solver
+    tracks. The output's shape comes from a forward on the meta device."""
+    inputs = (input_shape, input_shape) if takes_mask else (input_shape,)
+    if isinstance(model, Compact) and not model._built:
+        model.build(*(torch.zeros(sh) for sh in inputs))
+    out = meta_forward(model, *inputs)
+    got = tuple(out.shape) if isinstance(out, torch.Tensor) else type(out).__name__
+    if got != tuple(want):
+        raise TypeError(f"the net's output is {got} for an input of {tuple(input_shape)}, "
+                        f"not the tracked output's {tuple(want)} (1, outchannel, *padded): "
+                        f"the JAX package's scan refuses a carry whose shape changes")
 
 
 def padded_spatial(spatial: Tuple[int, ...], mult: int) -> Tuple[int, ...]:
@@ -855,9 +886,11 @@ class DIPSolver:
         (0 = the first spatial dim) over its shards
         (``parallel/spatial.py``): the same solve up to the order of its
         sums; a checkpoint holds whole tensors and resumes on the same mesh.
-        A net given as ``model`` that no sharded walk covers raises
-        ``NotImplementedError`` (ROADMAP A.13c item 12) before anything is
-        drawn.
+        A net given as ``model`` whose output is not ``(1, outchannel,
+        *padded)`` raises ``TypeError`` (``check_net_output``), sharded or
+        not, and one of a class no sharded walk covers (a module of the
+        caller's own) ``NotImplementedError`` (ROADMAP A.13c item 13), both
+        before anything is drawn.
         """
         args = (img, mask, seed, init_params, noise, verbose)
         if not checkpoint_path:
@@ -889,6 +922,8 @@ class DIPSolver:
             raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
                             "p - lr * d of the bfloat16 canvas is float32, and the JAX "
                             "package's scan refuses a carry whose dtype changes")
+        check_net_output(self.model, s.input_shape, (1, self.outchannel) + padded,
+                         s.takes_mask)
         layout = None
         if spatial_mesh is not None:
             from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported

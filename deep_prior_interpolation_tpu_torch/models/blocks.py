@@ -36,12 +36,14 @@ is a name-for-name transpose.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..ops import phase_space as ps
 from ..ops.conv_vjp import conv_same
@@ -267,17 +269,33 @@ def lanczos_kernel_1d(factor: int, support: int) -> torch.Tensor:
 def lanczos_downsample(x: torch.Tensor, factor: int, support: int = 2) -> torch.Tensor:
     """Separable Lanczos anti-aliased downsample of the spatial dims of an
     (N, C, *spatial) tensor: per dim, edge padding and a stride-``factor``
-    correlation with the 1-D taps."""
-    taps = lanczos_kernel_1d(factor, support).to(x.device, x.dtype)
-    width = taps.shape[0]
-    pad = (width - factor) // 2
+    correlation with the 1-D taps (``lanczos_pass``)."""
     for ax in range(2, x.ndim):
-        xm = x.movedim(ax, -1)
-        lead = xm.shape[:-1]
-        xr = F.pad(xm.reshape(-1, 1, xm.shape[-1]), (pad, pad), mode="replicate")
-        y = F.conv1d(xr, taps.view(1, 1, width), stride=factor)
-        x = y.reshape(lead + (y.shape[-1],)).movedim(-1, ax)
+        x = lanczos_pass(x, ax, factor, support)
     return x
+
+
+def lanczos_halo(factor: int, support: int) -> tuple:
+    """The (before, after) edge planes ``lanczos_pass`` pads an axis with."""
+    width = 2 * support * factor
+    pad = (width - factor) // 2
+    return pad, width - factor - pad
+
+
+def lanczos_pass(x: torch.Tensor, ax: int, factor: int, support: int,
+                 padded: bool = True) -> torch.Tensor:
+    """``lanczos_downsample`` along dim ``ax`` alone: edge padding by
+    ``lanczos_halo`` (none where ``padded`` is false: x then carries those
+    planes, a spatial shard's halo) and a stride-``factor`` correlation
+    with the 1-D taps."""
+    taps = lanczos_kernel_1d(factor, support).to(x.device, x.dtype)
+    xm = x.movedim(ax, -1)
+    lead = xm.shape[:-1]
+    xr = xm.reshape(-1, 1, xm.shape[-1])
+    if padded:
+        xr = F.pad(xr, lanczos_halo(factor, support), mode="replicate")
+    y = F.conv1d(xr, taps.view(1, 1, -1), stride=factor)
+    return y.reshape(lead + (y.shape[-1],)).movedim(-1, ax)
 
 
 class _LaneUniform(torch.autograd.Function):
@@ -360,7 +378,7 @@ class Compact(nn.Module):
     that first forward on a small zero input on the CPU; later calls ask for
     the same children in the same order."""
 
-    building = False  # a build pass runs: Dropout passes its input through
+    building = False  # a build or shape pass runs: Dropout passes its input through
 
     def __init__(self):
         super().__init__()
@@ -397,6 +415,22 @@ class Compact(nn.Module):
         finally:
             Compact.building = False
         return self
+
+
+def meta_forward(model: nn.Module, *shapes: Sequence[int]):
+    """``model``'s output for float32 inputs of ``shapes`` on the meta
+    device: its parameters and buffers as meta tensors, dropout passing
+    its input through, so only the shapes are computed (no data, no
+    memory); the output's shape is the real forward's."""
+    meta = {k: torch.empty_like(v, device="meta")
+            for k, v in itertools.chain(model.named_parameters(), model.named_buffers())}
+    Compact.building = True
+    try:
+        with torch.no_grad():
+            return functional_call(model, meta, tuple(torch.empty(tuple(s), device="meta")
+                                                      for s in shapes))
+    finally:
+        Compact.building = False
 
 
 def _promoted(x: torch.Tensor) -> torch.dtype:

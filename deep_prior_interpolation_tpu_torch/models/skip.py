@@ -47,7 +47,34 @@ class SkipNet(Compact):
         last = None if (isinstance(last_act, str) and last_act.lower() == "none") else last_act
         self.last_act = get_activation(last)
         self.drop = Dropout(dropout)
-        self.build(torch.zeros((1, in_channels) + (2 ** (len(self.filters) + 1),) * ndim))
+        self.build(torch.zeros((1, in_channels) + (self._probe_side(in_channels),) * ndim))
+
+    def _probe_side(self, in_channels: int) -> int:
+        """The planes a side of the build's input: 2^(n + 1) for n scales,
+        or, where a kernel size is even (a same-pad conv of even k drops a
+        plane, as the JAX module's does) or the padding reflects (which
+        takes fewer planes than the axis has), the least such power of two
+        at which every conv still gets its window, found by building on the
+        meta device."""
+        n = len(self.filters)
+        side = 2 ** (n + 1)
+        sizes = (_per_scale(self.filter_size_down, n) + _per_scale(self.filter_size_up, n)
+                 + [self.filter_skip_size])
+        if all(k % 2 for k in sizes) and self.pad != "reflection":
+            return side
+        while True:
+            try:
+                with torch.device("meta"):
+                    self.build(torch.zeros((1, in_channels) + (side,) * self.ndim))
+                return side
+            except RuntimeError:
+                if side >= 2 ** 12:
+                    raise
+                side *= 2
+            finally:   # unbuilt again: the real build follows
+                for name in self._order:
+                    delattr(self, name)
+                self._order, self._counts, self._built = [], {}, False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the CLI passes one skip width fewer than filters: pad with the last

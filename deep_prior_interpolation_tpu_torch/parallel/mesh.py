@@ -41,7 +41,7 @@ from ..engine.history import History, HistoryPOCS
 from ..engine.solver import (DIPSolver, SolveResult, StepSettings, _generators,
                              _to_channels_first, _to_channels_last, _FlatParams,
                              _crop_center, build_base_input, build_data, build_hyper,
-                             pad_multiple_for, padded_spatial)
+                             check_net_output, pad_multiple_for, padded_spatial)
 from ..models import set_dropout_generator
 from ..ops.conv_vjp import conv_impl
 from ..ops.pocs import fk_projection
@@ -262,6 +262,7 @@ def solve_patches_batched(cfg: Config, solver: DIPSolver, patches: List[dict],
                                  input_shape=input_shape)
     if noises is not None:
         s = dataclasses.replace(s, virtual_input=False)
+    check_net_output(solver.model, input_shape, (1, solver.outchannel) + padded, s.takes_mask)
     if s.opt_input and cfg.dtype == "bfloat16":
         raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
                         "p - lr * d of the bfloat16 canvas is float32, and the JAX "

@@ -13,14 +13,16 @@ list of shards itself, from one process, as JAX's single controller does:
     2^(r + q) for a phase level r at depth q), so each shard halves exactly
     at every level, blocks exactly at every phase depth, and every halo is
     a few planes of its own level;
-  * three collectives, autograd Functions whose sums run on one device in
+  * four collectives, autograd Functions whose sums run on one device in
     shard order, so a sharded step repeats bit for bit: ``_AllReduce`` (N
     tensors in, N copies of their sum out; its backward the same),
-    ``_HaloExchange`` (each shard gets its neighbours' edge planes, zeros or
-    a copy of its own edge plane at the volume's ends; its backward adds
-    each halo plane's gradient into the plane it was copied from) and
-    ``_Replicate`` (a parameter to every shard's device; its backward sums
-    the shards' gradients, the all-reduce before Adam);
+    ``_AllMax`` (the volume's max, whose backward splits the cotangent over
+    the tied voxels of every shard), ``_HaloExchange`` (each shard gets the
+    planes of any width around it from whichever shards hold them, and past
+    the volume's ends zeros, copies of the end plane, its mirror or -inf;
+    its backward adds each halo plane's gradient into the plane it was
+    copied from) and ``_Replicate`` (a parameter to every shard's device;
+    its backward sums the shards' gradients, the all-reduce before Adam);
   * ``ShardedStep`` walks the net's own modules and parameters over the
     shards (so parameters, checkpoints and weights files are the plain
     net's): a same-pad conv exchanges a zero halo and convolves unpadded
@@ -65,19 +67,24 @@ projects the whole volume there, where its weights stay whole.
 A sharded solve covers every net ``get_net`` builds: the MulResUnet, plain
 or in phase space, 2D and 3D, and the zoo nets (the skip net, the U-Net,
 the partial-conv U-Net and the attention MultiRes U-Net, walked in
-``parallel/spatial_zoo.py``); nearest and linear upsampling, bfloat16 and
+``parallel/spatial_zoo.py``, with every constructor option, beside the
+CBAM U-Net, the ConvGRU ensemble and the library's blocks given to the
+solver alone); nearest and linear upsampling, bfloat16 and
 float32, both conv formulations (cuDNN and tapmm), the fused and the plain
 loss, snapshots, checkpoints, POCS, remat (the MulResUnet's; ``get_net``
 gives it to no other net), dropout, parameter noise, data forgetting, a
 shaped, a virtual or an optimised canvas. ``check_supported`` refuses a
-net given to the solver (``DIPSolver(model=...)``) whose class or
-constructor options no walk covers (ROADMAP A.13c item 12).
+net given to the solver (``DIPSolver(model=...)``) of a class no walk
+covers, a module of the caller's own (ROADMAP A.13c item 13).
 """
 from __future__ import annotations
 
+import bisect
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..models.blocks import Conv, Dropout, Norm, _bcast, _lanes, upsample
 from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath, recomputed
@@ -241,74 +248,155 @@ def all_reduce(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(_AllReduce.apply(*xs))
 
 
+class _AllMax(torch.autograd.Function):
+    """N shard tensors in, N copies of the whole volume's max over ``dims``
+    (kept) out, one on each shard's device: the shards' maxes compared on
+    the first shard's device. The backward sums the N cotangents in shard
+    order and splits the sum evenly over every voxel of the whole volume
+    that equals the max, counted over all shards: ``torch.amax``'s rule
+    (and ``jax.lax.reduce_max``'s), which a max of per-shard maxes would
+    break under ties on two shards."""
+
+    @staticmethod
+    def forward(ctx, dims: Tuple[int, ...], *xs):
+        top = torch.amax(xs[0], dim=dims, keepdim=True)
+        for x in xs[1:]:
+            top = torch.maximum(top, torch.amax(x, dim=dims, keepdim=True).to(top.device))
+        ctx.dims = dims
+        ctx.save_for_backward(top, *xs)
+        return tuple(top.to(x.device, copy=True) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        top, *xs = ctx.saved_tensors
+        dev = top.device
+        ties = [x == top.to(x.device) for x in xs]
+        count = _sum_in_order([t.sum(dim=ctx.dims, keepdim=True) for t in ties], dev)
+        scale = _sum_in_order(gs, dev) / count
+        return (None, *(scale.to(x.device) * t for x, t in zip(xs, ties)))
+
+
+def all_max(xs: Sequence[torch.Tensor], dims: Sequence[int]) -> List[torch.Tensor]:
+    """The whole volume's max over ``dims`` (kept), one copy a shard."""
+    return list(_AllMax.apply(tuple(dims), *xs))
+
+
 class _HaloExchange(torch.autograd.Function):
-    """Each shard with ``lo`` planes of its left neighbour before it and
-    ``hi`` planes of its right one after it, along dim 2 + ``axis``; at the
-    volume's two ends zeros (``edge="zero"``) or copies of the shard's own
-    edge plane (``edge="replicate"``). The backward adds each halo plane's
-    gradient into the plane it was copied from, shard by shard in order."""
+    """Each shard with the ``lo`` planes before it and the ``hi`` planes
+    after it along dim 2 + ``axis``, each taken from whichever shard holds
+    it, however far away; planes past the volume's ends follow ``edge``
+    (``_source``): zeros, copies of the end plane (``"replicate"``), the
+    mirror without the end plane (``"reflect"``, as ``F.pad`` and
+    ``jnp.pad`` reflect) or -inf (``"-inf"``, a max pool's padding). The
+    backward adds each halo plane's gradient into the plane it was copied
+    from, in a fixed order: into each shard its own gradient, then the
+    other shards' halos that copied it in shard order, then the edge
+    planes mapped onto it in shard order (a run of copies of one plane
+    summed first)."""
 
     @staticmethod
     def forward(ctx, axis: int, lo: int, hi: int, edge: str, *xs):
         dim = 2 + axis
         sizes = [x.shape[dim] for x in xs]
-        if min(sizes) < max(lo, hi):
-            raise ValueError(f"a halo of {max(lo, hi)} planes needs shards of as many, got "
-                             f"{sizes}")
-        ctx.axis, ctx.lo, ctx.hi, ctx.edge, ctx.sizes = axis, lo, hi, edge, sizes
-        ctx.devices = [x.device for x in xs]
-        n, outs = len(xs), []
-        for i, x in enumerate(xs):
+        runs = _halo_runs(sizes, lo, hi, edge)
+        ctx.dim, ctx.lo, ctx.sizes, ctx.runs = dim, lo, sizes, runs
+        outs = []
+        for x, rs in zip(xs, runs):
             parts = []
-            if lo:
-                if i > 0:
-                    parts.append(xs[i - 1].narrow(dim, sizes[i - 1] - lo, lo).to(x.device))
+            for pos, count, j, start, step, _ in rs:
+                if j is None:
+                    shape = list(x.shape)
+                    shape[dim] = count
+                    parts.append(x.new_full(shape, 0.0 if edge == "zero" else -math.inf))
+                    continue
+                if step == 0:
+                    piece = xs[j].narrow(dim, start, 1).expand(
+                        *[count if d == dim else -1 for d in range(x.dim())])
+                elif step < 0:
+                    piece = xs[j].narrow(dim, start - count + 1, count).flip(dim)
                 else:
-                    parts.append(_edge(x, dim, 0, lo, edge))
-            parts.append(x)
-            if hi:
-                if i < n - 1:
-                    parts.append(xs[i + 1].narrow(dim, 0, hi).to(x.device))
-                else:
-                    parts.append(_edge(x, dim, sizes[i] - 1, hi, edge))
-            outs.append(torch.cat(parts, dim))
+                    piece = xs[j].narrow(dim, start, count)
+                parts.append(piece.to(x.device))
+            outs.append(torch.cat(parts, dim) if len(parts) > 1 else parts[0].clone())
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        dim, lo, hi, sizes = 2 + ctx.axis, ctx.lo, ctx.hi, ctx.sizes
-        n, dxs = len(gs), []
-        for i, g in enumerate(gs):
-            dx = g.narrow(dim, lo, sizes[i]).clone()
-            if hi and i > 0:      # the left neighbour's right halo: my first planes
-                dx.narrow(dim, 0, hi).add_(
-                    gs[i - 1].narrow(dim, lo + sizes[i - 1], hi).to(dx.device))
-            if lo and i < n - 1:  # the right neighbour's left halo: my last planes
-                dx.narrow(dim, sizes[i] - lo, lo).add_(gs[i + 1].narrow(dim, 0, lo).to(dx.device))
-            if ctx.edge == "replicate":
-                if lo and i == 0:
-                    dx.narrow(dim, 0, 1).add_(g.narrow(dim, 0, lo).sum(dim, keepdim=True))
-                if hi and i == n - 1:
-                    dx.narrow(dim, sizes[i] - 1, 1).add_(
-                        g.narrow(dim, lo + sizes[i], hi).sum(dim, keepdim=True))
-            dxs.append(dx)
+        dim, lo, sizes = ctx.dim, ctx.lo, ctx.sizes
+        dxs = [g.narrow(dim, lo, s).clone() for g, s in zip(gs, sizes)]
+        # halo planes that copied a plane inside the volume, then edge planes
+        for edge_pass in (False, True):
+            for i, dx in enumerate(dxs):
+                for k, (g, rs) in enumerate(zip(gs, ctx.runs)):
+                    for pos, count, j, start, step, at_edge in rs:
+                        if j != i or at_edge != edge_pass or (k == i and not at_edge):
+                            continue
+                        piece = g.narrow(dim, pos, count).to(dx.device)
+                        if step == 0:
+                            dx.narrow(dim, start, 1).add_(piece.sum(dim, keepdim=True))
+                        elif step < 0:
+                            dx.narrow(dim, start - count + 1, count).add_(piece.flip(dim))
+                        else:
+                            dx.narrow(dim, start, count).add_(piece)
         return (None, None, None, None, *dxs)
 
 
-def _edge(x: torch.Tensor, dim: int, plane: int, count: int, edge: str) -> torch.Tensor:
-    """``count`` planes past the volume's end: zeros, or copies of ``plane``."""
-    if edge == "zero":
-        shape = list(x.shape)
-        shape[dim] = count
-        return x.new_zeros(shape)
+def _source(g: int, n: int, edge: str) -> Optional[int]:
+    """The plane of an axis of ``n`` planes that plane ``g`` (which may lie
+    past either end) copies under ``edge``; None for a constant plane."""
+    if 0 <= g < n:
+        return g
     if edge == "replicate":
-        return x.narrow(dim, plane, 1).expand(
-            *[count if d == dim else -1 for d in range(x.dim())])
-    raise ValueError(f"edge is 'zero' or 'replicate', got {edge!r}")
+        return 0 if g < 0 else n - 1
+    if edge == "reflect":
+        s = -g if g < 0 else 2 * (n - 1) - g
+        if not 0 <= s < n:
+            raise ValueError(f"a reflect halo reaches plane {g} of an axis of {n} planes: "
+                             f"it mirrors at most {n - 1} planes")
+        return s
+    if edge in ("zero", "-inf"):
+        return None
+    raise ValueError(f"edge is 'zero', 'replicate', 'reflect' or '-inf', got {edge!r}")
+
+
+def _halo_runs(sizes: Sequence[int], lo: int, hi: int, edge: str) -> List[list]:
+    """Each shard's planes ``[a - lo, b + hi)`` as runs ``(pos, count, j,
+    start, step, at_edge)``: ``count`` planes from position ``pos`` of the
+    extended shard copy shard ``j``'s planes ``start, start + step, ...``
+    (``step`` 1, -1 for a mirror, 0 for copies of one plane; ``j`` None for
+    a constant run); ``at_edge`` marks planes past the volume's ends."""
+    offsets = [0]
+    for s in sizes:
+        offsets.append(offsets[-1] + s)
+    n = offsets[-1]
+    out = []
+    for i in range(len(sizes)):
+        runs: list = []
+        for pos, g in enumerate(range(offsets[i] - lo, offsets[i + 1] + hi)):
+            src, at_edge = _source(g, n, edge), not 0 <= g < n
+            j = None if src is None else bisect.bisect_right(offsets, src) - 1
+            local = None if src is None else src - offsets[j]
+            if runs:
+                r = runs[-1]
+                if r[2] is None and j is None:
+                    r[1] += 1
+                    continue
+                if r[2] == j and r[5] == at_edge and j is not None:
+                    step = local - (r[3] + r[4] * (r[1] - 1))
+                    if (r[1] == 1 and step in (1, -1, 0)) or step == r[4]:
+                        r[4] = step
+                        r[1] += 1
+                        continue
+            runs.append([pos, 1, j, local, 1, at_edge])
+        out.append([tuple(r) for r in runs])
+    return out
 
 
 def halo_exchange(xs: Sequence[torch.Tensor], axis: int, lo: int, hi: int,
                   edge: str = "zero") -> List[torch.Tensor]:
+    """Each shard extended by ``lo`` planes before it and ``hi`` after it
+    along spatial ``axis``, as ``F.pad`` of the whole volume with ``edge``
+    (``_HaloExchange``) would give it, at any width."""
     return list(_HaloExchange.apply(axis, lo, hi, edge, *xs))
 
 
@@ -348,15 +436,15 @@ class _Replicate(torch.autograd.Function):
 
 
 def check_supported(model: torch.nn.Module) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A.13c item 12 for a net
-    whose class or constructor options no sharded walk covers
-    (``spatial_zoo.uncovered``): only a net given to the solver can be
-    such, as every net ``get_net`` builds from a ``Config`` is covered."""
+    """Raise ``NotImplementedError`` naming ROADMAP A.13c item 13 for a net
+    of a class no sharded walk covers (``spatial_zoo.uncovered``): a module
+    of the caller's own. Every net ``get_net`` builds, and every library
+    net and block with any of its constructor options, is covered."""
     from .spatial_zoo import uncovered
     what = uncovered(model)
     if what is not None:
-        raise NotImplementedError(f"a spatially sharded solve of {what}: ROADMAP A.13c "
-                                  f"item 12")
+        raise NotImplementedError(f"a spatially sharded solve of {what} (a module no sharded "
+                                  f"walk covers): ROADMAP A.13c item 13")
 
 
 def _each(fn, xs: List[torch.Tensor], times: int = 1) -> List[torch.Tensor]:
@@ -433,7 +521,7 @@ class ShardedStep:
         net that takes the mask, its shards ``masks``). Each call
         replicates the parameters once; their gradients come back summed."""
         m = self.model
-        zoo = not isinstance(m, MulResUnet)
+        zoo = type(m) is not MulResUnet
         if not zoo:
             m.check_phase_dims(self.layout.padded)
         reps = _Replicate.apply(tuple(self.layout.mesh), *self._params)
@@ -510,6 +598,8 @@ class ShardedStep:
             pads = phase_paddings(k, 2)
             ys = self._halo_conv(_each(depth_to_space, xs, m.phase_depth - 1),
                                  [phase_kernel(w, 2) for w in ws], 1, pads, pads)
+        elif m.pad == "reflection" and k > 1:
+            ys = self._reflect_conv(xs, ws, m.stride, (k - 1) // 2)
         elif m.stride == 1:
             for _ in range(m.phase_depth if m.phase_in else 0):   # phase -> phase
                 ws = [phase_kernel(w, 1) for w in ws]
@@ -527,6 +617,22 @@ class ShardedStep:
             ys = [y + _bcast(_lanes(b.to(dt), lanes), y.ndim)
                   for y, b in zip(ys, self._rep(m.bias))]
         return ys
+
+    def _reflect_conv(self, xs: List[torch.Tensor], ws: List[torch.Tensor], stride: int,
+                      p: int) -> List[torch.Tensor]:
+        """A reflection-padded conv (``Conv(pad="reflection")``: ``F.pad``
+        reflect by p, then unpadded) on the shards: a reflect halo of p
+        planes along the axis (p and p - 1 at stride 2, each shard starting
+        on an even plane), ``F.pad`` reflect along the others, unpadded;
+        like the plain net's, its weight gradient never takes the wgrad
+        kernel, whose gate admits same-padded convs only."""
+        ax = self.layout.axis
+        xs = halo_exchange(xs, ax, p, p if stride == 1 else p - 1, "reflect")
+        nd = xs[0].dim() - 2
+        spec = [p] * (2 * nd)
+        spec[2 * (nd - 1 - ax)] = spec[2 * (nd - 1 - ax) + 1] = 0
+        return [conv_same(F.pad(x, spec, mode="reflect"), w, stride, 0)
+                for x, w in zip(xs, ws)]
 
     def _halo_conv(self, xs: List[torch.Tensor], ws: List[torch.Tensor], stride: int,
                    pad: Tuple[int, int], halo: Tuple[int, int]) -> List[torch.Tensor]:

@@ -1,6 +1,7 @@
 """The zoo nets over spatial shards: ``ShardedStep``'s walks of the skip
-net, the U-Net, the partial-conv U-Net and the attention MultiRes U-Net
-(``parallel/spatial.py`` walks the MulResUnet).
+net, the U-Net, the partial-conv U-Net, the attention MultiRes U-Net, the
+CBAM U-Net and the ConvGRU ensemble, and of the library's blocks given to
+the solver alone (``parallel/spatial.py`` walks the MulResUnet).
 
 Each walk mirrors its net's ``forward`` over the list of shards with the
 step's shared pieces (``ShardedStep._conv``, ``_norm``, ``_drop``,
@@ -11,27 +12,43 @@ number of the net's blocks (``engine.solver.shard_block``: 2^S planes for S
 stride-2 steps), so every level halves each shard exactly and a
 ``concat_crop`` or ``_crop_front`` leaves the sharded axis alone: the walks
 check that, and crop the other axes per shard as the plain net crops them.
+A halo may reach past the neighbouring shard (``halo_exchange`` takes each
+plane from whichever shard holds it): at a net's deepest levels a shard
+holds one or two planes.
 
 What is new beside the MulResUnet's pieces:
 
   * the U-Net's ``InstanceNorm`` takes two all-reduces: the float32 sum for
     the mean, then the float32 sum of squared deviations from it (the
-    plain net's two-pass population variance); its 2x pools are local;
+    plain net's two-pass population variance); its 2x pools and the
+    ``concat_x`` input pyramid are local; its deconv up path
+    (``ConvTranspose``, k = 4, stride 2) takes a zero halo of one input
+    plane on each side and crops two output planes on each side;
   * the partial conv's own conv is flax's ``nn.Conv`` (``FlaxConv``): it
     runs through ``F.conv*`` over a zero halo of (k - 1) / 2 planes,
     unpadded along the axis, so its weight gradient stays with cuDNN as in
     the plain net; the window sum of the mask's channel sum takes the same
     halo before its unpadded pool; the division, the holes and the new
-    mask are local;
+    mask are local; the ConvGRU cell's three gates are such convs too;
   * the attention gate's map is a one-channel bilinear x2 upsample over
-    the resize's replicate halo, whatever the net's own upsample mode.
+    the resize's replicate halo, whatever the net's own upsample mode;
+  * the skip net's reflection padding takes a reflect halo
+    (``ShardedStep._conv``); its Lanczos downsampling a replicate halo of
+    3 (``lanczos2``) or 5 (``lanczos3``) planes before the pass along the
+    axis (``lanczos_pass``), the other axes padded locally;
+  * CBAM's channel gate takes the volume's mean (an all-reduce of float32
+    sums) and its max (``all_max``, whose backward splits the cotangent
+    over the tied voxels of the whole volume); its spatial gate's 7 x 7
+    conv a zero halo of 3 planes;
+  * the ensemble's stem max pool (3, stride 2, padding 1) takes one plane
+    on the left, -inf at the volume's start.
 
-``uncovered`` names what no walk covers yet (ROADMAP A.13c item 12): a
-class outside the five, and the constructor options ``get_net`` never
-sets: the skip net's reflection padding, Lanczos downsampling and even
-kernel sizes, the U-Net's deconv up path, ``concat_x`` and ``more_layers``.
-The skip net's per-scale mode lists and its avg and max pool downsampling
-are covered (the pools are local on whole blocks).
+``uncovered`` names a net of a class no walk covers: a module of the
+caller's own (ROADMAP A.13c item 13). Every constructor option of the
+library's nets is covered; a net whose output is not the solver's
+``(1, outchannel, *padded)`` (a skip net with even kernel sizes, an
+ensemble of several frames) is refused, sharded or not, by
+``engine.solver.check_net_output`` first.
 """
 from __future__ import annotations
 
@@ -41,13 +58,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.attention import AttMulResUnet, GridAttentionBlock, _crop_front
-from ..models.blocks import FlaxConv, _bcast, _promoted, concat_crop, downsample_pool
-from ..models.mulresunet import MulResUnet
+from ..models.attention import (CBAM, AttentionUnet, AttMulResUnet, ChannelGate,
+                                GridAttentionBlock, SpatialGate, _crop_front)
+from ..models.blocks import (Conv, ConvNormAct, ConvTranspose, FlaxConv, Norm, _bcast,
+                             _promoted, concat_crop, downsample_pool, lanczos_halo,
+                             lanczos_pass)
+from ..models.convgru import ConvGRUCell, Decoder, Encoder, Ensemble, ResNetBasicBlock
+from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath
 from ..models.partial import PartialBlock, PartialConv, PartialUNet
 from ..models.skip import SkipNet, _per_scale
 from ..models.unet import InstanceNorm, UNet, UNetConv, _pool
-from .spatial import ShardedStep, all_reduce, halo_exchange
+from .spatial import ShardedStep, all_max, all_reduce, halo_exchange
 
 __all__ = ["uncovered", "walk"]
 
@@ -55,46 +76,25 @@ Shards = List[torch.Tensor]
 
 
 def uncovered(model: nn.Module) -> Optional[str]:
-    """What of ``model`` no sharded walk covers (ROADMAP A.13c item 12), as
-    the constructor call that made it; None where a walk covers it."""
-    if isinstance(model, (MulResUnet, PartialUNet, AttMulResUnet)):
-        return None
-    if isinstance(model, SkipNet):
-        n = len(model.filters)
-        if model.pad != "zero":
-            return f"SkipNet(pad={model.pad!r})"
-        downs = _per_scale(model.downsample_mode, n)
-        if any(d not in ("stride", "avg", "max") for d in downs):
-            return f"SkipNet(downsample_mode={model.downsample_mode!r})"
-        sizes = (_per_scale(model.filter_size_down, n) + _per_scale(model.filter_size_up, n)
-                 + [model.filter_skip_size])
-        if any(k % 2 == 0 for k in sizes):
-            return (f"SkipNet(filter_size_down={model.filter_size_down!r}, filter_size_up="
-                    f"{model.filter_size_up!r}, filter_skip_size={model.filter_skip_size})")
-        return None
-    if isinstance(model, UNet):
-        if model.upsample_mode == "deconv":
-            return "UNet(upsample_mode='deconv')"
-        if model.concat_x or model.more_layers:
-            return f"UNet(concat_x={model.concat_x}, more_layers={model.more_layers})"
+    """The class of ``model`` where no sharded walk covers it (a module of
+    the caller's own: ROADMAP A.13c item 13); None where one does."""
+    if type(model) is MulResUnet or type(model) in _WALKS:
         return None
     return type(model).__name__
 
 
 def walk(step: ShardedStep, xs: Shards, masks: Optional[Shards] = None) -> Shards:
-    """The output shards of ``step.model``, a zoo net, for the input shards
-    ``xs`` (and the partial-conv U-Net's mask shards ``masks``)."""
+    """The output shards of ``step.model``, a zoo net or a library block,
+    for the input shards ``xs`` (and the partial-conv U-Net's mask shards
+    ``masks``)."""
     m = step.model
-    if isinstance(m, SkipNet):
-        return _skip(step, m, xs)
-    if isinstance(m, UNet):
-        return _unet(step, m, xs)
+    fn = _WALKS.get(type(m))
+    if fn is None:
+        raise NotImplementedError(f"a spatially sharded solve of {type(m).__name__}: "
+                                  f"ROADMAP A.13c item 13")
     if isinstance(m, PartialUNet):
-        return _partial(step, m, xs, masks)
-    if isinstance(m, AttMulResUnet):
-        return _attention(step, m, xs)
-    raise NotImplementedError(f"a spatially sharded solve of {type(m).__name__}: "
-                              f"ROADMAP A.13c item 12")
+        return fn(step, m, xs, masks)
+    return fn(step, m, xs)
 
 
 def _children(m: nn.Module) -> Callable[[], nn.Module]:
@@ -138,9 +138,12 @@ def _skip(step: ShardedStep, m: SkipNet, xs: Shards) -> Shards:
     downs = _per_scale(m.downsample_mode, n)
 
     def conv_block(h: Shards, stride: int = 1, down: str = "stride") -> Shards:
-        if stride != 1 and down != "stride":   # a stride-1 conv, then a local pool
-            return [downsample_pool(t, stride, down) for t in step._conv(nxt(), h)]
-        return step._conv(nxt(), h)
+        if stride == 1 or down == "stride":
+            return step._conv(nxt(), h)
+        h = step._conv(nxt(), h)   # a stride-1 conv, then the downsample
+        if down in ("lanczos2", "lanczos3"):
+            return _lanczos(step, h, stride, int(down[-1]))
+        return [downsample_pool(t, stride, down) for t in h]
 
     def norm(h: Shards) -> Shards:
         return step._norm(nxt(), h)
@@ -162,6 +165,19 @@ def _skip(step: ShardedStep, m: SkipNet, xs: Shards) -> Shards:
         return y
 
     return [m.last_act(t) for t in conv_block(level(0, xs))]
+
+
+def _lanczos(step: ShardedStep, xs: Shards, factor: int, support: int) -> Shards:
+    """``lanczos_downsample`` over the shards: its passes in the plain
+    order, the one along the sharded axis over a replicate halo of
+    ``lanczos_halo`` planes (the plain pass's edge padding at the volume's
+    ends), unpadded there; each shard starts on a multiple of ``factor``."""
+    for ax in range(2, xs[0].ndim):
+        if ax == step.layout.dim:
+            xs = halo_exchange(xs, step.layout.axis, *lanczos_halo(factor, support),
+                               "replicate")
+        xs = [lanczos_pass(x, ax, factor, support, padded=ax != step.layout.dim) for x in xs]
+    return xs
 
 
 # -- the U-Net ---------------------------------------------------------------
@@ -191,22 +207,60 @@ def _unet_conv(step: ShardedStep, m: UNetConv, xs: Shards) -> Shards:
     return xs
 
 
+def _deconv(step: ShardedStep, m: ConvTranspose, xs: Shards) -> Shards:
+    """``ConvTranspose`` (SAME: stride x the input's planes) on the shards,
+    in the promoted dtype: each shard with the input planes its outputs
+    read past its ends (one on each side for k = 4, stride 2), zeros at
+    the volume's ends (where the plain conv has no input), transposed as
+    the plain conv, and cropped to its own stride x planes."""
+    s, p, k = m.stride, m.padding, m.kernel.shape[2]
+    lo, hi = (k - 1 - p) // s, (p + s - 1) // s
+    dt = _promoted(xs[0])
+    xs = halo_exchange([x.to(dt) for x in xs], step.layout.axis, lo, hi, "zero")
+    conv_t = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[xs[0].ndim - 3]
+    biases = step._rep(m.bias) if m.bias is not None else [None] * len(xs)
+    dim = step.layout.dim
+    ys = [conv_t(x, w.to(dt), None if b is None else b.to(dt), stride=s, padding=p,
+                 output_padding=m.output_padding)
+          for x, w, b in zip(xs, step._rep(m.kernel), biases)]
+    return [y.narrow(dim, s * lo, y.shape[dim] - s * (lo + hi)) for y in ys]
+
+
 def _unet(step: ShardedStep, m: UNet, xs: Shards) -> Shards:
-    """``UNet.forward`` over the shards (no ``concat_x``, no
-    ``more_layers``, an upsample-and-conv up path)."""
+    """``UNet.forward`` over the shards: the ``concat_x`` input pyramid,
+    the ``more_layers`` levels, an upsample-and-conv or deconv up path."""
     nxt = _children(m)
-    h = _unet_conv(step, nxt(), xs)
+    pyramid = [xs]
+    for _ in range(4 + m.more_layers if m.concat_x else 0):
+        pyramid.append([_pool(t, "avg") for t in pyramid[-1]])
+
+    def maybe_cat(h: Shards, i: int) -> Shards:
+        return _cat(step, [h, pyramid[i]]) if m.concat_x else h
+
+    def up(h: Shards) -> Shards:
+        if m.upsample_mode == "deconv":
+            return _deconv(step, nxt(), h)
+        conv = nxt()
+        return step._conv(conv, step._upsample(h, m.upsample_mode))
+
+    h = maybe_cat(_unet_conv(step, nxt(), xs), 0)
     skips = [h]
-    for _ in range(1, 5):
+    for i in range(1, 5):
         h = step._drop(m.drop, [_pool(t, "max") for t in h])
-        h = step._drop(m.drop, _unet_conv(step, nxt(), h))
+        h = maybe_cat(step._drop(m.drop, _unet_conv(step, nxt(), h)), i)
         skips.append(h)
-    up = skips[-1]
+    for j in range(m.more_layers):
+        h = [_pool(t, "max") for t in h]
+        h = maybe_cat(_unet_conv(step, nxt(), h), 5 + j)
+        skips.append(h)
+    h = skips[-1]
+    for j in range(m.more_layers):
+        u = up(h)   # its child comes before the UNetConv's
+        h = _unet_conv(step, nxt(), _cat(step, [u, skips[-(2 + j)]]))
     for i in range(4, 0, -1):
-        up = step._conv(nxt(), step._upsample(up, m.upsample_mode))
-        up = _unet_conv(step, nxt(), _cat(step, [up, skips[i - 1]]))
-        up = step._drop(m.drop, up)
-    return [m.last_act(t) for t in step._conv(nxt(), up)]
+        u = up(h)
+        h = step._drop(m.drop, _unet_conv(step, nxt(), _cat(step, [u, skips[i - 1]])))
+    return [m.last_act(t) for t in step._conv(nxt(), h)]
 
 
 # -- the partial-conv U-Net --------------------------------------------------
@@ -343,3 +397,175 @@ def _attention(step: ShardedStep, m: AttMulResUnet, xs: Shards) -> Shards:
         h = step._multires(nxt(), h)
         feats[-(i + 1)] = h
     return [m.last_act(t) for t in step._conv(nxt(), h)]
+
+
+# -- CBAM and the CBAM U-Net -------------------------------------------------
+
+def _dense(step: ShardedStep, m, vs: Shards) -> Shards:
+    """flax's ``nn.Dense`` (``blocks.Dense``) on each shard's copy of a
+    vector, with that shard's replicated parameters."""
+    biases = step._rep(m.bias) if m.bias is not None else [None] * len(vs)
+    out = []
+    for v, w, b in zip(vs, step._rep(m.kernel), biases):
+        dt = _promoted(v)
+        out.append(F.linear(v.to(dt), w.to(dt), None if b is None else b.to(dt)))
+    return out
+
+
+def _channel_gate(step: ShardedStep, m: ChannelGate, xs: Shards) -> Shards:
+    """``ChannelGate.forward`` over the shards: the whole volume's max
+    (``all_max``) and mean (the shards' sums all-reduced in float32, or
+    float64 for float64 shards, over the voxel count, in the input's
+    dtype), each through the shared MLP on every shard."""
+    nxt = _children(m)
+    d0, d1 = nxt(), nxt()
+    axes = tuple(range(2, xs[0].ndim))
+    count = float(sum(x[0, 0].numel() for x in xs))
+    maxes = [t.flatten(1) for t in all_max(xs, axes)]
+    sums = all_reduce([x.to(torch.promote_types(x.dtype, torch.float32)).sum(dim=axes)
+                       for x in xs])
+    means = [(t / count).to(x.dtype) for t, x in zip(sums, xs)]
+
+    def mlp(vs: Shards) -> Shards:
+        return _dense(step, d1, [F.relu(h) for h in _dense(step, d0, vs)])
+    gates = [torch.sigmoid(a + b) for a, b in zip(mlp(maxes), mlp(means))]
+    return [x * g.view(g.shape + (1,) * len(axes)) for x, g in zip(xs, gates)]
+
+
+def _spatial_gate(step: ShardedStep, m: SpatialGate, xs: Shards) -> Shards:
+    """``SpatialGate.forward`` over the shards: the channel max and mean are
+    local, the 7 x 7 conv takes a zero halo of 3 planes, the Norm the
+    volume's statistics."""
+    nxt = _children(m)
+    pooled = [torch.cat([torch.amax(x, dim=1, keepdim=True), torch.mean(x, dim=1, keepdim=True)],
+                        1) for x in xs]
+    conv = nxt()
+    g = step._norm(nxt(), step._conv(conv, pooled))
+    return [x * torch.sigmoid(t) for x, t in zip(xs, g)]
+
+
+def _cbam(step: ShardedStep, m: CBAM, xs: Shards) -> Shards:
+    nxt = _children(m)
+    xs = _channel_gate(step, nxt(), xs)
+    return _spatial_gate(step, nxt(), xs)
+
+
+def _attention_unet(step: ShardedStep, m: AttentionUnet, xs: Shards) -> Shards:
+    """``AttentionUnet.forward`` over the shards: its 2x max pools are
+    local on whole blocks, its bilinear upsamples take the resize's
+    replicate halo; with ``att != "cbam"`` the same walk without gates."""
+    nxt = _children(m)
+
+    def att(h: Shards) -> Shards:
+        return _cbam(step, nxt(), h) if m.att == "cbam" else h
+
+    def block(h: Shards) -> Shards:
+        for _ in range(2):
+            h = step._cna(nxt(), h)
+        return h
+
+    def pool(h: Shards) -> Shards:
+        return [F.max_pool2d(t, 2, 2) for t in h]
+
+    d1 = att(block(xs))
+    d2 = att(block(pool(d1)))
+    d3 = att(block(pool(d2)))
+    d4 = att(block(pool(d3)))
+    up = step._upsample(block(pool(d4)), "bilinear")
+    for skip in (d4, d3, d2):
+        up = step._upsample(att(block(_cat(step, [skip, up]))), "bilinear")
+    h = att(block(_cat(step, [d1, up])))
+    return step._conv(nxt(), h)
+
+
+# -- the ConvGRU ensemble ----------------------------------------------------
+
+def _conv_norm(step: ShardedStep, nxt, xs: Shards) -> Shards:
+    conv = nxt()
+    return step._norm(nxt(), step._conv(conv, xs))
+
+
+def _resnet_block(step: ShardedStep, m: ResNetBasicBlock, xs: Shards) -> Shards:
+    """``ResNetBasicBlock.forward``: its stride-2 convs on even-start shards
+    (the 1 x 1 projection is local), its Norms over the whole volume."""
+    nxt = _children(m)
+    h = [F.relu(t) for t in _conv_norm(step, nxt, xs)]
+    h = _conv_norm(step, nxt, h)
+    if m.stride != 1 or xs[0].shape[1] != m.features:
+        xs = _conv_norm(step, nxt, xs)
+    return [F.relu(a + b) for a, b in zip(xs, h)]
+
+
+def _stem_pool(step: ShardedStep, xs: Shards) -> Shards:
+    """``F.max_pool2d(h, 3, 2, padding=1)`` on even-start shards: one plane
+    of the left neighbour (-inf at the volume's start), unpadded along the
+    axis, padded by one along the other."""
+    ax = step.layout.axis
+    xs = halo_exchange(xs, ax, 1, 0, "-inf")
+    return [F.max_pool2d(x, 3, 2, padding=tuple(0 if d == ax else 1 for d in range(2)))
+            for x in xs]
+
+
+def _encoder(step: ShardedStep, m: Encoder, xs: Shards) -> Shards:
+    """``Encoder.forward``: the 7 x 7 stride-2 stem over a (3, 2) zero
+    halo, the stem pool, the 16 basic blocks."""
+    nxt = _children(m)
+    h = [F.relu(t) for t in _conv_norm(step, nxt, xs)]
+    h = _stem_pool(step, h)
+    for _ in range(16):
+        h = _resnet_block(step, nxt(), h)
+    return h
+
+
+def _gru(step: ShardedStep, m: ConvGRUCell, xs: Shards, state: Shards) -> Shards:
+    """``ConvGRUCell.forward``: its three flax convs over a zero halo."""
+    nxt = _children(m)
+    stacked = [torch.cat([x, s], 1) for x, s in zip(xs, state)]
+    update = [torch.sigmoid(t) for t in _flax_conv(step, nxt(), stacked)]
+    reset = [torch.sigmoid(t) for t in _flax_conv(step, nxt(), stacked)]
+    out = [torch.tanh(t) for t in _flax_conv(step, nxt(), [
+        torch.cat([x, s * r], 1) for x, s, r in zip(xs, state, reset)])]
+    return [s * (1 - u) + o * u for s, u, o in zip(state, update, out)]
+
+
+def _decoder(step: ShardedStep, m: Decoder, xs: Shards) -> Shards:
+    nxt = _children(m)
+    for _ in range(5):
+        xs = step._upsample(step._cna(nxt(), xs), m.upsample_mode)
+    xs = step._cna(nxt(), xs)
+    return step._conv(nxt(), xs)
+
+
+def _ensemble(step: ShardedStep, m: Ensemble, xs: Shards) -> Shards:
+    """``Ensemble.forward`` over the shards: the encoder once, then the
+    shared step (GRU update, decode) a frame, the frames stacked on the
+    batch dim."""
+    nxt = _children(m)
+    feature = _encoder(step, nxt(), xs)
+    state = [torch.zeros((f.shape[0], m.hidden) + f.shape[2:], dtype=f.dtype, device=f.device)
+             for f in feature]
+    rollout, outs = nxt(), []
+    for _ in range(m.num_frames):
+        parts = _children(rollout)
+        state = _gru(step, parts(), feature, state)
+        outs.append(_decoder(step, parts(), state))
+    return [torch.cat(frames, 0) for frames in zip(*outs)]
+
+
+# the walk of each class a sharded solve covers (the MulResUnet's is
+# ``ShardedStep``'s own); a library block given to the solver alone is
+# walked as the nets walk it. The blocks whose output never has the input's
+# planes (the encoder, the decoder, a transposed conv) or that take two
+# inputs are refused before (``engine.solver.check_net_output``)
+_WALKS = {
+    SkipNet: _skip, UNet: _unet, PartialUNet: _partial, AttMulResUnet: _attention,
+    AttentionUnet: _attention_unet, Ensemble: _ensemble,
+    CBAM: _cbam, ChannelGate: _channel_gate, SpatialGate: _spatial_gate,
+    Conv: lambda step, m, xs: step._conv(m, xs),
+    ConvNormAct: lambda step, m, xs: step._cna(m, xs),
+    Norm: lambda step, m, xs: step._norm(m, xs),
+    FlaxConv: _flax_conv,
+    MultiResBlock: lambda step, m, xs: step._multires(m, xs),
+    ResPath: lambda step, m, xs: step._respath(m, xs),
+    UNetConv: _unet_conv, ResNetBasicBlock: _resnet_block,
+}

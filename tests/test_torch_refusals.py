@@ -1,9 +1,10 @@
-"""What the port refuses: every feature it does not serve yet (a net given
-to a spatially sharded solve that no walk covers, ROADMAP A.13c item 12)
-raises NotImplementedError naming its ROADMAP item, a sharded axis that is
-not a whole number of the net's blocks and a canvas of the wrong shape are
-rejected; the solver options, nets and conv formulations it serves (phase
-space, tapmm and the zoo nets over shards among them) build and run."""
+"""What the port refuses: every feature it does not serve yet (a module of
+the caller's own given to a spatially sharded solve, which no walk covers,
+ROADMAP A.13c item 13) raises NotImplementedError naming its ROADMAP item,
+a sharded axis that is not a whole number of the net's blocks and a canvas
+of the wrong shape are rejected; the solver options, nets and conv
+formulations it serves (phase space, tapmm and the zoo nets over shards
+among them) build and run."""
 import os
 
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 from deep_prior_interpolation_tpu_torch import Config, DIPSolver, cli
 from deep_prior_interpolation_tpu_torch.data import dataset_path
 from deep_prior_interpolation_tpu_torch.io import completed_patches, load_params
-from deep_prior_interpolation_tpu_torch.models import AttentionUnet
+from deep_prior_interpolation_tpu_torch.models import Conv
 
 torch.set_num_threads(1)
 LINES = os.path.dirname(dataset_path("lines/original.npy"))
@@ -40,13 +41,25 @@ def test_unported_features_raise(kw, tmp_path):
     assert completed_patches(out) == ["0"]
 
 
+class Mine(torch.nn.Module):
+    """A module of the caller's own: one library conv."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = Conv(4, 1, 3)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
 def test_cli_and_weights_refusals(tmp_path):
     """A sharded ``--net part`` run (with tapmm, which the shards serve) on
     the lines gather, padded to the JAX package's multiple of 2, is refused
     with ValueError: its 100 planes along axis 1 are not whole 32-plane
     blocks of the net's five stride-2 steps; a net given to the solver that
-    no walk covers is refused naming ROADMAP A.13c item 12 (with an
-    optimised canvas, which the shards serve); a mesh longer than the
+    no walk covers, a module of the caller's own, is refused naming ROADMAP
+    A.13c item 13 (with an optimised canvas, which the shards serve); a
+    mesh longer than the
     sharded axis's blocks is a ValueError; a weights file that is not
     msgpack is refused with its offset."""
     with pytest.raises(ValueError, match="not a whole number of 32-plane blocks"):
@@ -54,9 +67,10 @@ def test_cli_and_weights_refusals(tmp_path):
                           net="part"), str(tmp_path), device="cpu")
     img = np.zeros((16, 8, 1), np.float32)
     mesh = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match=r"AttentionUnet: ROADMAP A.13c item 12"):
-        DIPSolver(tiny_cfg(opt_over="net,input", net="attmultiunet"), device="cpu",
-                  model=AttentionUnet(4)).solve(img, img, spatial_mesh=mesh)
+    with pytest.raises(NotImplementedError, match=r"of Mine \(a module no sharded walk "
+                                                  r"covers\): ROADMAP A.13c item 13"):
+        DIPSolver(tiny_cfg(opt_over="net,input"), device="cpu",
+                  model=Mine()).solve(img, img, spatial_mesh=mesh)
     with pytest.raises(ValueError, match="at most 4 shards"):
         DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=mesh * 4)
     bad = tmp_path / "weights.msgpack"

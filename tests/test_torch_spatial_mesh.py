@@ -1,7 +1,7 @@
 """The port's spatial mesh, shard boundaries, state placement and
 collectives (parallel/spatial.py) on the CPU, and what a sharded solve
-refuses for now (ROADMAP A.13c item 12: a net given as ``model=`` that no
-walk covers).
+refuses (a net given as ``model=`` whose output does not fit the solve,
+and, for now, a module of the caller's own: ROADMAP A.13c item 13).
 
 * ``make_spatial_mesh`` raises past the devices that exist (the JAX one
   truncates) and takes a list of one repeated device (``[cpu] * 8``, as the
@@ -20,8 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from deep_prior_interpolation_tpu_torch import Config, DIPSolver
-from deep_prior_interpolation_tpu_torch.models import (CBAM, AttentionUnet, Ensemble,
-                                                      GridAttentionBlock, SkipNet, UNet)
+from deep_prior_interpolation_tpu_torch.models import CBAM, Ensemble, GridAttentionBlock, SkipNet
 from deep_prior_interpolation_tpu_torch.models.blocks import upsample
 from deep_prior_interpolation_tpu_torch.ops.conv_vjp import conv_halo
 from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh, shard_solver_state
@@ -169,41 +168,40 @@ def test_a_halo_conv_and_the_linear_upsample_on_shards_are_the_whole_ones():
                                rtol=1e-12, atol=1e-12)
 
 
-# what a sharded solve refuses: ROADMAP A.13c item 12, a net given to the
-# solver (``model=``) with a constructor option ``get_net`` never sets, or
-# of a class it never builds, alone and under options the shards serve
+# what a sharded solve refuses when it starts, under options the shards
+# serve: a net given to the solver (``model=``) whose output is not the
+# tracked (1, outchannel, *padded), or that takes two inputs, with the
+# unsharded solve's TypeError; a module of the caller's own (a subclass of
+# a walked net among them), which no walk covers, naming ROADMAP A.13c
+# item 13
+MySkip = type("MySkip", (SkipNet,), {})
 REFUSED = [
-    (lambda: SkipNet(4, filters=(4, 8), skip=(4,), pad="reflection"), {},
-     r"SkipNet\(pad='reflection'\)"),
-    (lambda: SkipNet(4, filters=(4, 8), skip=(4,), downsample_mode="lanczos2"),
-     {"opt_over": "net,input"}, r"SkipNet\(downsample_mode='lanczos2'\)"),
     (lambda: SkipNet(4, filters=(4, 8), skip=(4,), filter_size_down=[3, 4]),
-     {"vmap_conv_mode": "tapmm", "remat": True},
-     r"SkipNet\(filter_size_down=\[3, 4\], filter_size_up=3, filter_skip_size=1\)"),
-    (lambda: UNet(4, filters=(4, 8, 8, 8, 8), upsample_mode="deconv"), {},
-     r"UNet\(upsample_mode='deconv'\)"),
-    (lambda: UNet(4, filters=(8, 8, 8, 8, 8), concat_x=True),
-     {"opt_over": "input", "pocs": True}, r"UNet\(concat_x=True, more_layers=0\)"),
-    (lambda: UNet(4, filters=(4, 8, 8, 8, 8), more_layers=1), {},
-     r"UNet\(concat_x=False, more_layers=1\)"),
-    (lambda: AttentionUnet(4), {"vmap_conv_mode": "tapmm"}, "AttentionUnet"),
-    (lambda: CBAM(4), {}, "CBAM"),
-    (lambda: Ensemble(4, hidden=16), {"dropout": 0.1}, "Ensemble"),
-    (lambda: GridAttentionBlock(4), {"phase_space": True, "phase_levels": 1},
-     "GridAttentionBlock"),
+     {"vmap_conv_mode": "tapmm", "remat": True}, TypeError,
+     r"output is \(1, 1, 28, 28\) .* tracked output's \(1, 1, 32, 32\)"),
+    (lambda: CBAM(4), {}, TypeError, r"output is \(1, 4, 32, 32\)"),
+    (lambda: Ensemble(4, hidden=16), {"dropout": 0.1}, TypeError,
+     r"output is \(4, 1, 32, 32\)"),
+    (lambda: GridAttentionBlock(4), {"phase_space": True, "phase_levels": 1}, TypeError,
+     "missing 1 required positional argument"),
+    (lambda: MySkip(4, filters=(4, 8), skip=(4,), pad="reflection"),
+     {"opt_over": "net,input"}, NotImplementedError,
+     r"MySkip \(a module no sharded walk covers\): ROADMAP A.13c item 13"),
+    (lambda: torch.nn.Conv2d(4, 1, 3, padding=1), {}, NotImplementedError,
+     r"Conv2d \(a module no sharded walk covers\): ROADMAP A.13c item 13"),
 ]
 
 
 def test_each_a13c_item_is_refused_when_the_solve_starts(monkeypatch):
-    img = np.zeros((8, 16, 1), np.float32)
+    img = np.zeros((32, 32, 1), np.float32)
     drawn = []
     real = S.SpatialLayout.__init__
     monkeypatch.setattr(S.SpatialLayout, "__init__",
                         lambda self, *a, **k: drawn.append(1) or real(self, *a, **k))
-    for model, kw, what in REFUSED:
+    for model, kw, error, what in REFUSED:
         cfg = Config(**{**dict(datadim="2d", epochs=2, inputdepth=4, filters=[4, 8], skip=[4]),
                         **kw})
-        with pytest.raises(NotImplementedError, match=f"{what}: ROADMAP A.13c item 12"):
+        with pytest.raises(error, match=what):
             DIPSolver(cfg, device="cpu", model=model()).solve(img, img,
                                                               spatial_mesh=[CPU] * 2)
     assert not drawn
