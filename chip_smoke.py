@@ -302,14 +302,39 @@ Phases, each of which ends the run with a non-zero exit code on failure:
        bit-equal beside the plain version and the atomic backward, the
        fused loss on 15b's 2D shard outputs.
 
+16. a module of the caller's own over spatial shards (the sharded walker
+   of ``parallel/spatial_custom.py``): ``Caller3D``, the flagship
+   MulResUnet as a child with glue around it (a 3 x 3 x 3 ``nn.Conv3d``
+   64 -> 8 in the canvas's dtype, a spatial mean into an ``nn.Linear``
+   gate, a 2 x 2 x 2 average pool, the port's trilinear x2 ``upsample``, a
+   1 x 1 x 1 ``nn.Conv3d`` head in float32 and a scalar ``scale``: a
+   library child, a halo conv, a spatial reduction feeding a replicated
+   op, a local pool and a linear upsample), given to the solver as
+   ``model=``, its weights made from seed 0:
+   a. at the flagship volume, widths and flags (bf16, trilinear, the fused
+      loss, the wgrad kernel), unsharded and over [cuda:0] x 2 and x 4
+      along H, 6 iterations in chunks of 3, the launch counters set to 0
+      just before each solve and read just after: fused N x iterations
+      forward and backward, wgrad N x the unsharded solve's,
+      ``upsample_bwd`` N x 5 an iteration (the body's 4, the glue's 1), the
+      iteration-0 loss within 1e-4 of the unsharded solve's, s/iteration
+      and peak beside it;
+   b. two 3-iteration solves over 2 shards with deterministic cuDNN:
+      bit-equal;
+   c. the same module flipping its pooled map along H (outside the
+      walker's vocabulary): ``NotImplementedError`` naming the op and
+      ROADMAP A.13c item 13, every launch counter still 0;
+   d. each kernel at the new shard shapes (the glue's upsample, any wgrad
+      shape no earlier phase held), as 15d.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 15; every one must pass.
+   after phase 16; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, and in phase 14; each kernel with
-its rows at 10a's, 12a's, the zoo's and phase 15's shard shapes), the
-``{"phase15": ...}``, ``{"phase14": ...}``,
+11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, 16a, and in phase 14; each kernel
+with its rows at 10a's, 12a's, the zoo's and phases 15's and 16's shard
+shapes), the ``{"phase16": ...}``, ``{"phase15": ...}``, ``{"phase14": ...}``,
 ``{"phase13": ...}``,
 ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
 ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
@@ -3650,17 +3675,18 @@ def zoo15_net(label: str, inputdepth: int):
     raise ValueError(label)
 
 
-def zoo15_solve(dev, label: str, cfg, inputdepth: int, img, mask, mesh=None) -> dict:
-    """One phase-15 net through ``DIPSolver(model=...).solve``, unsharded
-    or over ``mesh`` along axis 1, traced: launches, wgrad and upsample
-    shapes, losses (and POCS terms), steady s/iteration (median of chunks
-    2..), peak; fails on a non-finite loss or an ``out_best`` not of the
-    image's shape."""
+def zoo15_solve(dev, label: str, cfg, inputdepth: int, img, mask, mesh=None,
+                make=None, tag: str = "15") -> dict:
+    """One phase-15 net (or the module ``make()`` returns) through
+    ``DIPSolver(model=...).solve``, unsharded or over ``mesh`` along axis
+    1, traced: launches, wgrad and upsample shapes, losses (and POCS
+    terms), steady s/iteration (median of chunks 2..), peak; fails on a
+    non-finite loss or an ``out_best`` not of the image's shape."""
     from deep_prior_interpolation_tpu_torch import DIPSolver
 
     set_kernels(True)
-    solver = DIPSolver(cfg, outchannel=img.shape[-1], device=dev,
-                       model=zoo15_net(label, inputdepth))
+    model = zoo15_net(label, inputdepth) if make is None else make()
+    solver = DIPSolver(cfg, outchannel=img.shape[-1], device=dev, model=model)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3671,15 +3697,16 @@ def zoo15_solve(dev, label: str, cfg, inputdepth: int, img, mask, mesh=None) -> 
     loss = np.asarray(res.history.loss)
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
     n = 1 if mesh is None else len(mesh)
-    log(f"15 {label} over {n} shard(s): losses {loss.tolist()}; launches {counts}, upsample "
+    log(f"{tag} {label} over {n} shard(s): losses {loss.tolist()}; launches {counts}, upsample "
         f"by kernel {kinds}; chunk seconds {res.chunk_seconds}, steady s/iteration "
         f"{steady:.4f}, peak {peak / 2**30:.2f} GiB")
     fields = ("loss", "df", "reg", "eps") if cfg.pocs else ("loss",)
     if not (len(loss) == cfg.epochs
             and all(np.all(np.isfinite(getattr(res.history, f))) for f in fields)):
-        fail(f"15 {label} over {n} shard(s): the loss is not finite for {cfg.epochs} iterations")
+        fail(f"{tag} {label} over {n} shard(s): the loss is not finite for {cfg.epochs} "
+             f"iterations")
     if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
-        fail(f"15 {label} over {n} shard(s): out_best has shape {res.out_best.shape} or is "
+        fail(f"{tag} {label} over {n} shard(s): out_best has shape {res.out_best.shape} or is "
              f"not finite")
     del solver
     return {"shards": n, "launches": counts, "upsample_kernels": kinds,
@@ -3692,34 +3719,37 @@ def zoo15_solve(dev, label: str, cfg, inputdepth: int, img, mask, mesh=None) -> 
 
 
 def zoo15_sharded(dev, label: str, cfg, inputdepth: int, img, mask, ups: int,
-                  shards) -> dict:
-    """A net unsharded and over [dev] x N for each N of ``shards``: each
-    sharded solve launches fused N x iterations (forward and backward),
-    wgrad N x the unsharded solve's and ``upsample_bwd`` N x its linear
-    upsamples an iteration; its iteration-0 loss within the precision's
-    tolerance of the unsharded one's."""
+                  shards, make=None, tag: str = "15", tol=None,
+                  predicted: str = PREDICTED_15) -> dict:
+    """A net (or the module ``make()`` returns) unsharded and over
+    [dev] x N for each N of ``shards``: each sharded solve launches fused
+    N x iterations (forward and backward), wgrad N x the unsharded solve's
+    and ``upsample_bwd`` N x its linear upsamples an iteration; its
+    iteration-0 loss within the precision's tolerance (or ``tol``) of the
+    unsharded one's."""
     iters = cfg.epochs
-    tol = LOSS0_TOL_15_CBAM if label == "cbam_unet" else LOSS0_TOL_15[cfg.dtype]
-    ref = zoo15_solve(dev, label, cfg, inputdepth, img, mask)
+    if tol is None:
+        tol = LOSS0_TOL_15_CBAM if label == "cbam_unet" else LOSS0_TOL_15[cfg.dtype]
+    ref = zoo15_solve(dev, label, cfg, inputdepth, img, mask, make=make, tag=tag)
     if ref["launches"]["upsample_bwd"] != ups * iters:
-        fail(f"15 {label}: {ref['launches']['upsample_bwd']} upsample_bwd launches unsharded, "
-             f"not {ups} an iteration")
+        fail(f"{tag} {label}: {ref['launches']['upsample_bwd']} upsample_bwd launches "
+             f"unsharded, not {ups} an iteration")
     out = {"1": ref}
     for n in shards:
-        r = zoo15_solve(dev, label, cfg, inputdepth, img, mask, [dev] * n)
+        r = zoo15_solve(dev, label, cfg, inputdepth, img, mask, [dev] * n, make, tag)
         want = {"fused_loss": n * iters, "fused_loss_grad": n * iters,
                 "wgrad3d": n * ref["launches"]["wgrad3d"], "upsample_bwd": n * ups * iters}
         r["loss0_rel_err"] = _rel(r["losses"][0], ref["losses"][0])
-        log(f"15 {label} over {n} shards: launches {r['launches']} (expected {want}); "
+        log(f"{tag} {label} over {n} shards: launches {r['launches']} (expected {want}); "
             f"iteration-0 loss {r['losses'][0]:.7g} against unsharded {ref['losses'][0]:.7g}, "
             f"rel err {r['loss0_rel_err']:.3e} (tol {tol:g}); s/iteration {r['s_per_iter']:.4f} "
             f"against {ref['s_per_iter']:.4f}, peak {r['peak_bytes'] / 2**30:.2f} against "
-            f"{ref['peak_bytes'] / 2**30:.2f} GiB (predicted: {PREDICTED_15})")
+            f"{ref['peak_bytes'] / 2**30:.2f} GiB (predicted: {predicted})")
         if r["launches"] != want:
-            fail(f"15 {label} over {n} shards: launch counts {r['launches']}, not {want}")
+            fail(f"{tag} {label} over {n} shards: launch counts {r['launches']}, not {want}")
         if not r["loss0_rel_err"] <= tol:
-            fail(f"15 {label} over {n} shards: the iteration-0 loss differs from the unsharded "
-                 f"solve's by more than {tol:g}")
+            fail(f"{tag} {label} over {n} shards: the iteration-0 loss differs from the "
+                 f"unsharded solve's by more than {tol:g}")
         out[str(n)] = r
         torch.cuda.empty_cache()
     return out
@@ -3825,6 +3855,153 @@ def zoo15_kernels(dev, p15: dict, done_wgrad: set, done_upsample: set) -> dict:
             ups.append(upsample_shard_row(dev, c, sp, ndim, dt, k, g, "15d"))
     fused = [fused_shard_row(dev, (1, 1, 170, 50), torch.float32, g, "15d", ZOO_2D_SHARDS)]
     return {"wgrad": rows, "upsample": ups, "fused": fused}
+
+
+# ----------------------------------------------------------------------
+# phase 16: a module of the caller's own over spatial shards
+# ----------------------------------------------------------------------
+
+# what was predicted before the first card run of phase 16 (PERF.md)
+PREDICTED_16 = ("16a s/iteration at N = 1 / 2 / 4: 0.14-0.20 / 0.25-0.40 / 0.40-0.65, peak "
+                "13.6-14.5 / 15.4-16.5 / 15.4-16.5 GiB; iteration-0 losses within 3e-5 of the "
+                "unsharded one's; 16d: no new wgrad shape, the glue's upsample at 3 new shapes, "
+                "50-80 % of its bound")
+# the linear upsamples of an iteration: the body's 4, the glue's 1
+CALLER16_UPS = 5
+LOSS0_TOL_16 = 1e-4
+
+
+def caller16(refused: bool = False):
+    """``Caller3D``, a module of the caller's own at the flagship's volume
+    and widths, made from seed 0: the flagship MulResUnet as its child
+    ``body``, and glue in the canvas's dtype: a 3 x 3 x 3 ``nn.Conv3d``
+    (64 -> 8), a spatial mean into an ``nn.Linear`` gate, a 2 x 2 x 2
+    average pool, the port's trilinear x2 ``upsample``, a 1 x 1 x 1
+    ``nn.Conv3d`` head in float32 and a scalar ``scale``. With ``refused``
+    the glue flips the pooled map along H, an op outside the sharded
+    walker's vocabulary."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    from deep_prior_interpolation_tpu_torch.models import get_net
+    from deep_prior_interpolation_tpu_torch.models.blocks import upsample
+
+    class Caller3D(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.body = get_net(flagship_config(), 1)
+            self.pre = nn.Conv3d(64, 8, 3, padding=1)
+            self.gate = nn.Linear(8, 8)
+            self.head = nn.Conv3d(8, 1, 1)
+            self.scale = nn.Parameter(torch.tensor(0.1))
+
+        def forward(self, x):
+            dt = x.dtype
+            h = F.conv3d(x, self.pre.weight.to(dt), self.pre.bias.to(dt), padding=1)
+            h = F.leaky_relu(h, 0.2)
+            g = torch.sigmoid(self.gate(h.mean(dim=(2, 3, 4)).float()))
+            h = F.avg_pool3d(h * g.to(dt)[:, :, None, None, None], 2)
+            if refused:
+                h = h.flip(3)
+            h = upsample(h, 2, "trilinear")
+            return self.body(x) + (self.scale * self.head(h.float())).to(dt)
+
+    torch.manual_seed(0)
+    return Caller3D()
+
+
+def custom16(dev) -> dict:
+    """16a: ``Caller3D`` through ``DIPSolver(model=...)`` at the flagship
+    volume and flags, unsharded and over [cuda:0] x 2 and x 4 along H, 6
+    iterations in chunks of 3: launches N x the unsharded solve's, the
+    iteration-0 loss within 1e-4 of the unsharded solve's."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=6, scan_chunk=3)
+    return zoo15_sharded(dev, "caller3d", cfg, 64, img, mask, CALLER16_UPS, SPATIAL_SHARDS,
+                         make=caller16, tag="16a", tol=LOSS0_TOL_16, predicted=PREDICTED_16)
+
+
+def custom16_exactness(dev) -> dict:
+    """16b: ``Caller3D`` over 2 shards, two 3-iteration solves with
+    deterministic cuDNN (the wgrad grids 16a tuned): history and
+    ``out_best`` bit-equal."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=3, scan_chunk=3)
+    set_kernels(True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [DIPSolver(cfg, device=dev, model=caller16()).solve(
+            img, mask, seed=0, spatial_mesh=[dev] * 2, spatial_axis=SPATIAL_AXIS)
+            for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = (np.array_equal(runs[0].history.loss, runs[1].history.loss)
+            and np.array_equal(runs[0].out_best, runs[1].out_best))
+    log(f"16b: Caller3D over 2 shards, losses {list(runs[0].history.loss)}; two solves "
+        f"bit-equal {same}")
+    if not same:
+        fail("16b: two sharded Caller3D solves from one seed are not bit-equal")
+    return {"two_runs_bit_equal": same, "losses": list(runs[0].history.loss)}
+
+
+def custom16_refused(dev) -> dict:
+    """16c: ``Caller3D`` flipping its pooled map along H over 2 shards:
+    ``NotImplementedError`` naming the op and ROADMAP A.13c item 13 from
+    the walker's meta pass, with every launch counter still 0."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=3, scan_chunk=3)
+    set_kernels(True)
+    reset_counts()
+    try:
+        DIPSolver(cfg, device=dev, model=caller16(refused=True)).solve(
+            img, mask, seed=0, spatial_mesh=[dev] * 2, spatial_axis=SPATIAL_AXIS)
+    except NotImplementedError as e:
+        message = str(e)
+    else:
+        fail("16c: a Caller3D that flips along the sharded axis ran over 2 shards")
+    counts = read_counts()
+    log(f"16c: refused with {message!r}; launches {counts}")
+    if any(counts.values()) or not ("Tensor.flip along the sharded dim" in message
+                                    and "ROADMAP A.13c item 13" in message):
+        fail(f"16c: the refusal {message!r} does not name the op and A.13c item 13, or "
+             f"kernels launched first ({counts})")
+    return {"message": message, "launches": counts}
+
+
+def custom16_kernels(dev, p16: dict, done_wgrad: set, done_upsample: set) -> dict:
+    """16d: each kernel at phase 16's shapes that no earlier phase held
+    against its plain version, as 15d: wgrad at any shard shape of 16a not
+    in ``done_wgrad`` (the body's are 10a's), ``upsample_bwd`` at 16a's
+    upsample shapes not in ``done_upsample`` (the glue's, unsharded and
+    sharded); the fused loss's shard shapes are 10a's."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    rows, seen = [], set(done_wgrad)
+    for n in SPATIAL_SHARDS:
+        for ci, co, xs, k in p16["16a"][str(n)]["wgrad_shapes"]:
+            if (ci, co, tuple(xs), "bfloat16") in seen:
+                continue
+            seen.add((ci, co, tuple(xs), "bfloat16"))
+            sp = (xs[0], (xs[1] - 2) * n, xs[2])
+            rows.append(spatial_wgrad_row(dev, ci, co, sp, xs[1] - 2, n, k // n, g, True,
+                                          "16d", torch.bfloat16))
+    ups, seen = [], set(done_upsample)
+    for n in ("1",) + tuple(str(n) for n in SPATIAL_SHARDS):
+        for c, sp, k in p16["16a"][n]["upsample_shapes"]:
+            if (c, tuple(sp), "bfloat16") in seen:
+                continue
+            seen.add((c, tuple(sp), "bfloat16"))
+            ups.append(upsample_shard_row(dev, c, sp, 3, torch.bfloat16, k, g, "16d"))
+    log(f"16d: {len(rows)} new wgrad shapes, {len(ups)} new upsample shapes")
+    return {"wgrad": rows, "upsample": ups}
 
 
 # kernel families of the profile, by the first pattern a kernel name holds
@@ -4038,6 +4215,19 @@ def main() -> None:
                                        done_wgrad, done_upsample)
         seconds["15_total"] = time.time() - t15
         log(f"phase 15: {seconds['15_total']:.1f} s")
+        t16 = time.time()
+        phase16 = {"16a": phase("16a_custom_module", custom16, dev),
+                   "16b": phase("16b_custom_exactness", custom16_exactness, dev),
+                   "16c": phase("16c_custom_refused", custom16_refused, dev)}
+        rows15 = phase15["15d_kernels"]
+        done_wgrad |= {(r["ci"], r["co"], tuple(r["x_shape"]), r["dtype"])
+                       for r in rows15["wgrad"]}
+        done_upsample |= {(r["channels"], tuple(r["input"]), r["dtype"])
+                          for r in rows15["upsample"]}
+        phase16["16d_kernels"] = phase("16d_custom_kernels", custom16_kernels, dev, phase16,
+                                       done_wgrad, done_upsample)
+        seconds["16_total"] = time.time() - t16
+        log(f"phase 16: {seconds['16_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -4116,12 +4306,24 @@ def main() -> None:
         entry["spatial_zoo_options_launches"] = {
             part: {f"{label} {n}": r["launches"][key] for label, runs in phase15[part].items()
                    for n, r in runs.items()} for part in ("15a", "15b")}
-    rows15 = phase15["15d_kernels"]
     fused["spatial_shapes"] += rows15["fused"]
     wgrad["spatial_shapes"] += rows15["wgrad"]
     upsample["spatial_shapes"] += rows15["upsample"]
     for entry, rows in ((fused, rows15["fused"]), (wgrad, rows15["wgrad"])):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+    phase16["seconds"] = {k: v for k, v in seconds.items() if k.startswith("16")}
+    log(json.dumps({"phase16": {k: v for k, v in phase16.items() if k != "16d_kernels"}}))
+    # phase 16's launches: Caller3D unsharded ("1") and by shard count, and
+    # its rows at the new shapes (16d)
+    for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
+                       (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
+        entry["spatial_custom_launches"] = {"16a": {n: r["launches"][key]
+                                                    for n, r in phase16["16a"].items()}}
+    rows16 = phase16["16d_kernels"]
+    wgrad["spatial_shapes"] += rows16["wgrad"]
+    upsample["spatial_shapes"] += rows16["upsample"]
+    wgrad["max_abs_err"] = max([wgrad["max_abs_err"]] + [r["max_abs_err"]
+                                                          for r in rows16["wgrad"]])
     lanes = lane_entries(survey8, kernels8)
     for entry in lanes:
         entry["convergence_launches"] = {k: phase14[f"{k}_{g}"]["launches"][entry["name"]]

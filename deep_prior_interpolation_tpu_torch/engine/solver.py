@@ -55,7 +55,8 @@ and every tracker is a (B,) tensor. Lane i computes what a solve with seed
 ``cfg.seed + i`` computes, but for the rounding of the batched ops. And it
 serves one patch split along a spatial axis over several shards
 (``spatial_mesh``, ``parallel/spatial.py``): the net walked over the
-shards, the canvas, data and outputs split, everything else whole, each
+shards (a module of the caller's own by ``parallel/spatial_custom.py``'s
+walker), the canvas, data and outputs split, everything else whole, each
 draw made whole and split, and the POCS term taken on the gathered
 output.
 
@@ -192,16 +193,20 @@ def net_multiple(cfg: Config) -> int:
     return mult
 
 
-def shard_block(cfg: Config, model: torch.nn.Module) -> int:
+def shard_block(cfg: Config, model: torch.nn.Module, walked: Optional[int] = None) -> int:
     """The planes a spatial shard of ``model``'s padded volume holds a
     whole number of: 2^S for the net's S stride-2 steps (the skip net one a
     filter, the U-Net 4 + ``more_layers``, the partial-conv U-Net 5, the
     attention MultiRes U-Net one a filter but the first, the CBAM U-Net 4,
     the ConvGRU ensemble 5), so every level
-    halves each shard exactly; the MulResUnet's ``net_multiple``. It can be
+    halves each shard exactly; the MulResUnet's ``net_multiple``; for a
+    module no walk covers, the block the walker's meta pass found
+    (``walked``, from ``parallel.spatial.check_supported``). It can be
     wider than ``pad_multiple_for``'s (which mirrors the JAX package's
     padding): a padded axis that is not a whole number of blocks is
     refused (``parallel.spatial.shard_bounds``)."""
+    if walked is not None:
+        return walked
     if isinstance(model, SkipNet):
         return 2 ** len(model.filters)
     if isinstance(model, UNet):
@@ -219,16 +224,17 @@ def shard_block(cfg: Config, model: torch.nn.Module) -> int:
 
 def check_net_output(model: torch.nn.Module, input_shape: Tuple[int, ...],
                      want: Tuple[int, ...], takes_mask: bool = False) -> None:
-    """Build ``model`` where it is a library net that makes its children at
-    its first call and has not been built (a ``Compact``), at the canvas's
-    shape on the CPU, as flax's ``init`` builds a module; then raise
+    """Build ``model`` where it is, or holds, a library net that makes its
+    children at its first call and has not been built (a ``Compact``), at
+    the canvas's shape on the CPU, as flax's ``init`` builds a module (the
+    sharded walks read a built net's children); then raise
     ``TypeError`` naming both shapes where its output for an input of
     ``input_shape`` (and the mask, for a net that takes it) is not ``want``,
     ``(1, outchannel, *padded)``: the shape of the output the solver
     tracks. The output's shape comes from a forward on the meta device."""
     inputs = (input_shape, input_shape) if takes_mask else (input_shape,)
-    if isinstance(model, Compact) and not model._built:
-        model.build(*(torch.zeros(sh) for sh in inputs))
+    if any(isinstance(m, Compact) and not m._built for m in model.modules()):
+        Compact.build(model, *(torch.zeros(sh) for sh in inputs))
     out = meta_forward(model, *inputs)
     got = tuple(out.shape) if isinstance(out, torch.Tensor) else type(out).__name__
     if got != tuple(want):
@@ -888,9 +894,11 @@ class DIPSolver:
         sums; a checkpoint holds whole tensors and resumes on the same mesh.
         A net given as ``model`` whose output is not ``(1, outchannel,
         *padded)`` raises ``TypeError`` (``check_net_output``), sharded or
-        not, and one of a class no sharded walk covers (a module of the
-        caller's own) ``NotImplementedError`` (ROADMAP A.13c item 13), both
-        before anything is drawn.
+        not. A module of the caller's own, which no library walk covers,
+        runs its forward over the shards on the walker of
+        ``parallel/spatial_custom.py``; an op outside its vocabulary
+        raises ``NotImplementedError`` naming the op (ROADMAP A.13c item
+        13). Both are found before anything is drawn.
         """
         args = (img, mask, seed, init_params, noise, verbose)
         if not checkpoint_path:
@@ -927,9 +935,11 @@ class DIPSolver:
         layout = None
         if spatial_mesh is not None:
             from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported
-            check_supported(self.model)
+            walked = check_supported(
+                self.model, s.input_shape, len(spatial_mesh), spatial_axis, s.takes_mask,
+                torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
             layout = SpatialLayout(spatial_mesh, spatial_axis, padded, spatial,
-                                   shard_block(cfg, self.model))
+                                   shard_block(cfg, self.model, walked))
 
         gens = _generators(seed, dev)
         canvas_start = gens["canvas"].get_state()

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.overrides import handle_torch_function, has_torch_function
 
 from ..ops import phase_space as ps
 from ..ops.conv_vjp import conv_same
@@ -205,7 +206,10 @@ def upsample(x: torch.Tensor, factor: int = 2, mode: str = "nearest") -> torch.T
     """Upsample the spatial dims by ``factor``: 'nearest' duplicates samples;
     'bilinear'/'trilinear'/'linear' is a half-pixel linear resize, by 2 in 2D
     and 3D through ``linear_upsample2x`` (its backward a gather in a fixed
-    order, so a card run repeats bit for bit)."""
+    order, so a card run repeats bit for bit). A list of spatial shards
+    (``__torch_function__``) takes its own route."""
+    if has_torch_function((x,)):
+        return handle_torch_function(upsample, (x,), x, factor, mode)
     ndim = x.ndim - 2
     if mode == "nearest":
         for ax in range(2, x.ndim):
@@ -270,6 +274,8 @@ def lanczos_downsample(x: torch.Tensor, factor: int, support: int = 2) -> torch.
     """Separable Lanczos anti-aliased downsample of the spatial dims of an
     (N, C, *spatial) tensor: per dim, edge padding and a stride-``factor``
     correlation with the 1-D taps (``lanczos_pass``)."""
+    if has_torch_function((x,)):
+        return handle_torch_function(lanczos_downsample, (x,), x, factor, support)
     for ax in range(2, x.ndim):
         x = lanczos_pass(x, ax, factor, support)
     return x

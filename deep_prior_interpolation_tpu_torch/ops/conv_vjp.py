@@ -55,6 +55,7 @@ from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from .wgrad import wgrad3d, wgrad3d_lanes, wgrad_supported
 
@@ -516,5 +517,10 @@ def conv_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
               padding: Padding = 0) -> torch.Tensor:
     """Zero-padded conv (N, C, *spatial) x (O, I, *window), one stride for
     every spatial dim; ``padding`` one int for every side, or a (lo, hi)
-    pair a spatial dim. Runs as the calling thread's ``conv_impl``."""
+    pair a spatial dim. Runs as the calling thread's ``conv_impl``. A
+    tensor with ``__torch_function__`` (a list of spatial shards,
+    ``parallel/spatial_custom.py``) takes its own route before the autograd
+    Function, which would not reach it."""
+    if has_torch_function((x, w)):
+        return handle_torch_function(conv_same, (x, w), x, w, stride, padding)
     return _ConvSame.apply(x, w, stride, _pairs(padding, w.ndim - 2), current_conv_impl())

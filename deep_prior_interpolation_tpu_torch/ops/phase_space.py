@@ -45,6 +45,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = [
     "space_to_depth", "depth_to_space", "phase_pad", "phase_kernel",
@@ -72,6 +73,8 @@ def phase_channels(c_phase: int, d: int) -> int:
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     """(N, C, D1..Dd) -> (N, C*2^d, D1/2..Dd/2), channel-major."""
+    if has_torch_function((x,)):
+        return handle_torch_function(space_to_depth, (x,), x)
     n, c, *sp = x.shape
     d = len(sp)
     shp = [n, c]
@@ -83,6 +86,8 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
 
 def depth_to_space(x: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`space_to_depth`."""
+    if has_torch_function((x,)):
+        return handle_torch_function(depth_to_space, (x,), x)
     n, cb, *sp = x.shape
     d = len(sp)
     c = cb // 2 ** d
@@ -278,6 +283,8 @@ def upsample_into_phase(x: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
     tensor (N, C*2^d, *sp) of the upsampled one: 'nearest' repeats each
     channel 2^d times; 'linear' is the half-pixel-centre linear resize, a
     separable edge-clamped 2-tap stencil (1/4, 3/4) a dim."""
+    if has_torch_function((x,)):
+        return handle_torch_function(upsample_into_phase, (x,), x, mode)
     n, c, *sp = x.shape
     d = len(sp)
     b = 2 ** d

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from . import _build
 
@@ -284,7 +285,10 @@ class _LinearUpsample2x(torch.autograd.Function):
 
 def linear_upsample2x(x: torch.Tensor) -> torch.Tensor:
     """The x2 half-pixel linear resize of an (N, C, H, W) or (N, C, D, H, W)
-    tensor, with a deterministic backward."""
+    tensor, with a deterministic backward; a list of spatial shards
+    (``__torch_function__``) takes its own route."""
+    if has_torch_function((x,)):
+        return handle_torch_function(linear_upsample2x, (x,), x)
     if x.dim() - 2 not in _MODES:
         raise ValueError(f"linear_upsample2x takes 2 or 3 spatial dims, got {tuple(x.shape)}")
     return _LinearUpsample2x.apply(x)

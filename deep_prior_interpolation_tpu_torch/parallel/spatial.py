@@ -73,20 +73,26 @@ solver alone); nearest and linear upsampling, bfloat16 and
 float32, both conv formulations (cuDNN and tapmm), the fused and the plain
 loss, snapshots, checkpoints, POCS, remat (the MulResUnet's; ``get_net``
 gives it to no other net), dropout, parameter noise, data forgetting, a
-shaped, a virtual or an optimised canvas. ``check_supported`` refuses a
-net given to the solver (``DIPSolver(model=...)``) of a class no walk
-covers, a module of the caller's own (ROADMAP A.13c item 13).
+shaped, a virtual or an optimised canvas. A net given to the solver
+(``DIPSolver(model=...)``) of a class no walk covers, a module of the
+caller's own, runs its forward over the shards on the walker of
+``parallel/spatial_custom.py``, which maps each op onto a stated
+vocabulary and dispatches the library nets it calls to their walks;
+``check_supported`` runs its meta pass before anything is drawn, which
+refuses an op outside the vocabulary (ROADMAP A.13c item 13) and finds
+the shard block.
 """
 from __future__ import annotations
 
 import bisect
+import copy
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..models.blocks import Conv, Dropout, Norm, _bcast, _lanes, upsample
+from ..models.blocks import Compact, Conv, Dropout, Norm, _bcast, _lanes, upsample
 from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath, recomputed
 from ..ops import losses as L
 from ..ops.conv_vjp import conv_halo, conv_same
@@ -435,16 +441,23 @@ class _Replicate(torch.autograd.Function):
         return (None, *(_sum_in_order(gs[j::n_p], ctx.devices[j]) for j in range(n_p)))
 
 
-def check_supported(model: torch.nn.Module) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP A.13c item 13 for a net
-    of a class no sharded walk covers (``spatial_zoo.uncovered``): a module
-    of the caller's own. Every net ``get_net`` builds, and every library
-    net and block with any of its constructor options, is covered."""
+def check_supported(model: torch.nn.Module, input_shape: Optional[Sequence[int]] = None,
+                    n: int = 1, axis: int = 0, takes_mask: bool = False,
+                    dtype: torch.dtype = torch.float32) -> Optional[int]:
+    """None for a net of a class a sharded walk covers (every net
+    ``get_net`` builds, every library net and block with any of its
+    constructor options, and a subclass that keeps its base's forward).
+    For any other module (a module of the caller's own) with the canvas's
+    ``input_shape``, the walker's meta pass (``spatial_custom.meta_pass``)
+    over ``n`` meta shards along spatial ``axis``: it raises
+    ``NotImplementedError`` naming the op and ROADMAP A.13c item 13 for an
+    op outside the walker's vocabulary, before anything is drawn, and
+    returns the shard block it found."""
     from .spatial_zoo import uncovered
-    what = uncovered(model)
-    if what is not None:
-        raise NotImplementedError(f"a spatially sharded solve of {what} (a module no sharded "
-                                  f"walk covers): ROADMAP A.13c item 13")
+    if uncovered(model) is None or input_shape is None:
+        return None
+    from .spatial_custom import meta_pass
+    return meta_pass(model, input_shape, n, axis, takes_mask, dtype)
 
 
 def _each(fn, xs: List[torch.Tensor], times: int = 1) -> List[torch.Tensor]:
@@ -519,27 +532,48 @@ class ShardedStep:
                  masks: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
         """The net's output shards for the input shards ``xs`` (and, for a
         net that takes the mask, its shards ``masks``). Each call
-        replicates the parameters once; their gradients come back summed."""
-        m = self.model
-        zoo = type(m) is not MulResUnet
-        if not zoo:
-            m.check_phase_dims(self.layout.padded)
+        replicates the parameters once (their gradients come back summed)
+        and the buffers (a copy a device)."""
         reps = _Replicate.apply(tuple(self.layout.mesh), *self._params)
         n_p = len(self._params)
         self._reps = {id(p): list(reps[j::n_p]) for j, p in enumerate(self._params)}
+        for b in self.model.buffers():
+            self._reps[id(b)] = [b if b.device == d else b.to(d) for d in self.layout.mesh]
         try:
-            if zoo:
-                from .spatial_zoo import walk
-                return walk(self, list(xs), None if masks is None else list(masks))
-            in_dtype = xs[0].dtype
-            if m.dtype is not None:
-                xs = [x.to(m.dtype) for x in xs]
-            x = self._block(m.get_submodule(m.block0), 0, xs)
-            x = self._level(1, x)
-            x = _each(depth_to_space, self._conv(m.get_submodule(m.head), x), m.pdepth(0))
-            return [m.last_act(t).to(in_dtype) for t in x]
+            return self.walk(list(xs), None if masks is None else list(masks))
         finally:
             self._reps = {}
+
+    def walk(self, xs: List[torch.Tensor],
+             masks: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
+        """The net's output shards, its parameters replicated: the
+        MulResUnet's walk, a zoo net's or library block's
+        (``spatial_zoo.walk``), or for a module of the caller's own the
+        walker's run of its forward (``spatial_custom.run``)."""
+        from .spatial_zoo import covered_class, walk
+        m, cls = self.model, covered_class(self.model)
+        if cls is None:
+            from .spatial_custom import run
+            return run(self, xs, masks)
+        if cls is not MulResUnet:
+            return walk(self, xs, masks)
+        spatial = list(xs[0].shape[2:])
+        spatial[self.layout.axis] = sum(x.shape[self.layout.dim] for x in xs)
+        m.check_phase_dims(spatial)
+        in_dtype = xs[0].dtype
+        if m.dtype is not None:
+            xs = [x.to(m.dtype) for x in xs]
+        x = self._block(m.get_submodule(m.block0), 0, xs)
+        x = self._level(1, x)
+        x = _each(depth_to_space, self._conv(m.get_submodule(m.head), x), m.pdepth(0))
+        return [m.last_act(t).to(in_dtype) for t in x]
+
+    def child(self, model: torch.nn.Module) -> "ShardedStep":
+        """The step of a library net met inside a module of the caller's
+        own: the same layout and replicated parameters."""
+        sub = copy.copy(self)
+        sub.model = model
+        return sub
 
     def _rep(self, p: torch.Tensor) -> List[torch.Tensor]:
         return self._reps[id(p)]
@@ -551,7 +585,7 @@ class ShardedStep:
         call's replicated parameters and dropout masks."""
         walk = self._respath if isinstance(m, ResPath) else self._multires
         net = self.model
-        if not net.remats(level):
+        if not net.remats(level) or Compact.building:   # a meta pass recomputes nothing
             return walk(m, xs)
         reps = self._reps
 
@@ -566,8 +600,9 @@ class ShardedStep:
     def _drop(self, m: Dropout, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         """``blocks.Dropout`` over the shards: one keep mask at the volume's
         shape at this level, drawn on the generator's device where the
-        unsharded step draws it, split as the shards lie."""
-        if m.rate <= 0.0 or m.rate >= 1.0:
+        unsharded step draws it, split as the shards lie; in a meta pass
+        (``Compact.building``) none."""
+        if m.rate <= 0.0 or m.rate >= 1.0 or Compact.building:
             return [m(x) for x in xs]
         dim = self.layout.dim
         shape = list(xs[0].shape)

@@ -43,8 +43,10 @@ What is new beside the MulResUnet's pieces:
   * the ensemble's stem max pool (3, stride 2, padding 1) takes one plane
     on the left, -inf at the volume's start.
 
-``uncovered`` names a net of a class no walk covers: a module of the
-caller's own (ROADMAP A.13c item 13). Every constructor option of the
+``covered_class`` names the class whose walk covers a net (a subclass that
+keeps its base's forward takes its base's walk); a module of the caller's
+own runs on ``spatial_custom``'s walker, which dispatches the library nets
+it calls to these walks. Every constructor option of the
 library's nets is covered; a net whose output is not the solver's
 ``(1, outchannel, *padded)`` (a skip net with even kernel sizes, an
 ensemble of several frames) is refused, sharded or not, by
@@ -75,23 +77,30 @@ __all__ = ["uncovered", "walk"]
 Shards = List[torch.Tensor]
 
 
+def covered_class(model: nn.Module) -> Optional[type]:
+    """The class whose sharded walk covers ``model``: its own, or the
+    nearest base with a walk whose ``forward`` it keeps (a subclass that
+    does not override it); None for any other module, a module of the
+    caller's own (``spatial_custom`` runs its forward on the shards)."""
+    for cls in type(model).__mro__:
+        if cls is MulResUnet or cls in _WALKS:
+            return cls if type(model).forward is cls.forward else None
+    return None
+
+
 def uncovered(model: nn.Module) -> Optional[str]:
-    """The class of ``model`` where no sharded walk covers it (a module of
-    the caller's own: ROADMAP A.13c item 13); None where one does."""
-    if type(model) is MulResUnet or type(model) in _WALKS:
-        return None
-    return type(model).__name__
+    """The class of ``model`` where no walk covers it (a module of the
+    caller's own, which ``spatial_custom``'s walker runs); None where one
+    does."""
+    return None if covered_class(model) is not None else type(model).__name__
 
 
 def walk(step: ShardedStep, xs: Shards, masks: Optional[Shards] = None) -> Shards:
-    """The output shards of ``step.model``, a zoo net or a library block,
-    for the input shards ``xs`` (and the partial-conv U-Net's mask shards
-    ``masks``)."""
+    """The output shards of ``step.model``, a zoo net or a library block
+    (or a subclass that keeps its forward), for the input shards ``xs``
+    (and the partial-conv U-Net's mask shards ``masks``)."""
     m = step.model
-    fn = _WALKS.get(type(m))
-    if fn is None:
-        raise NotImplementedError(f"a spatially sharded solve of {type(m).__name__}: "
-                                  f"ROADMAP A.13c item 13")
+    fn = _WALKS[covered_class(m)]
     if isinstance(m, PartialUNet):
         return fn(step, m, xs, masks)
     return fn(step, m, xs)

@@ -1,6 +1,7 @@
-"""What the port refuses: every feature it does not serve yet (a module of
-the caller's own given to a spatially sharded solve, which no walk covers,
-ROADMAP A.13c item 13) raises NotImplementedError naming its ROADMAP item,
+"""What the port refuses: every feature it does not serve yet (an op
+outside the sharded walker's vocabulary in a module of the caller's own
+given to a spatially sharded solve, ROADMAP A.13c item 13) raises
+NotImplementedError naming its ROADMAP item,
 a sharded axis that is not a whole number of the net's blocks and a canvas
 of the wrong shape are rejected; the solver options, nets and conv
 formulations it serves (phase space, tapmm and the zoo nets over shards
@@ -42,24 +43,25 @@ def test_unported_features_raise(kw, tmp_path):
 
 
 class Mine(torch.nn.Module):
-    """A module of the caller's own: one library conv."""
+    """A module of the caller's own: one library conv, its output rolled by
+    one plane along the last dim."""
 
     def __init__(self):
         super().__init__()
         self.conv = Conv(4, 1, 3)
 
     def forward(self, x):
-        return self.conv(x)
+        return torch.roll(self.conv(x), 1, dims=-1)
 
 
 def test_cli_and_weights_refusals(tmp_path):
     """A sharded ``--net part`` run (with tapmm, which the shards serve) on
     the lines gather, padded to the JAX package's multiple of 2, is refused
     with ValueError: its 100 planes along axis 1 are not whole 32-plane
-    blocks of the net's five stride-2 steps; a net given to the solver that
-    no walk covers, a module of the caller's own, is refused naming ROADMAP
-    A.13c item 13 (with an optimised canvas, which the shards serve); a
-    mesh longer than the
+    blocks of the net's five stride-2 steps; a module of the caller's own
+    that rolls along the sharded axis (outside the sharded walker's
+    vocabulary) is refused naming the op and ROADMAP A.13c item 13 (with an
+    optimised canvas, which the shards serve); a mesh longer than the
     sharded axis's blocks is a ValueError; a weights file that is not
     msgpack is refused with its offset."""
     with pytest.raises(ValueError, match="not a whole number of 32-plane blocks"):
@@ -67,8 +69,8 @@ def test_cli_and_weights_refusals(tmp_path):
                           net="part"), str(tmp_path), device="cpu")
     img = np.zeros((16, 8, 1), np.float32)
     mesh = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match=r"of Mine \(a module no sharded walk "
-                                                  r"covers\): ROADMAP A.13c item 13"):
+    with pytest.raises(NotImplementedError, match=r"torch.roll along the sharded dim .*: "
+                                                  r"ROADMAP A.13c item 13"):
         DIPSolver(tiny_cfg(opt_over="net,input"), device="cpu",
                   model=Mine()).solve(img, img, spatial_mesh=mesh)
     with pytest.raises(ValueError, match="at most 4 shards"):

@@ -1,7 +1,8 @@
 """The port's spatial mesh, shard boundaries, state placement and
 collectives (parallel/spatial.py) on the CPU, and what a sharded solve
 refuses (a net given as ``model=`` whose output does not fit the solve,
-and, for now, a module of the caller's own: ROADMAP A.13c item 13).
+and a module of the caller's own whose forward uses an op outside the
+sharded walker's vocabulary: ROADMAP A.13c item 13).
 
 * ``make_spatial_mesh`` raises past the devices that exist (the JAX one
   truncates) and takes a list of one repeated device (``[cpu] * 8``, as the
@@ -168,13 +169,27 @@ def test_a_halo_conv_and_the_linear_upsample_on_shards_are_the_whole_ones():
                                rtol=1e-12, atol=1e-12)
 
 
+class Rolled(torch.nn.Module):
+    """A module of the caller's own that moves its conv's output one plane
+    along the last dim, by a slice and a cat or by ``torch.roll``."""
+
+    def __init__(self, by_slices: bool):
+        super().__init__()
+        self.conv, self.by_slices = torch.nn.Conv2d(4, 1, 3, padding=1), by_slices
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.by_slices:
+            return torch.cat([y[..., 1:], y[..., :1]], -1)
+        return torch.roll(y, 1, dims=-1)
+
+
 # what a sharded solve refuses when it starts, under options the shards
 # serve: a net given to the solver (``model=``) whose output is not the
 # tracked (1, outchannel, *padded), or that takes two inputs, with the
-# unsharded solve's TypeError; a module of the caller's own (a subclass of
-# a walked net among them), which no walk covers, naming ROADMAP A.13c
-# item 13
-MySkip = type("MySkip", (SkipNet,), {})
+# unsharded solve's TypeError; a module of the caller's own whose forward
+# slices or rolls along the sharded dim (ops outside the sharded walker's
+# vocabulary), naming the op and ROADMAP A.13c item 13
 REFUSED = [
     (lambda: SkipNet(4, filters=(4, 8), skip=(4,), filter_size_down=[3, 4]),
      {"vmap_conv_mode": "tapmm", "remat": True}, TypeError,
@@ -184,11 +199,10 @@ REFUSED = [
      r"output is \(4, 1, 32, 32\)"),
     (lambda: GridAttentionBlock(4), {"phase_space": True, "phase_levels": 1}, TypeError,
      "missing 1 required positional argument"),
-    (lambda: MySkip(4, filters=(4, 8), skip=(4,), pad="reflection"),
-     {"opt_over": "net,input"}, NotImplementedError,
-     r"MySkip \(a module no sharded walk covers\): ROADMAP A.13c item 13"),
-    (lambda: torch.nn.Conv2d(4, 1, 3, padding=1), {}, NotImplementedError,
-     r"Conv2d \(a module no sharded walk covers\): ROADMAP A.13c item 13"),
+    (lambda: Rolled(by_slices=True), {"opt_over": "net,input"}, NotImplementedError,
+     r"Tensor.__getitem__ along the sharded dim .*: ROADMAP A.13c item 13"),
+    (lambda: Rolled(by_slices=False), {}, NotImplementedError,
+     r"torch.roll along the sharded dim .*: ROADMAP A.13c item 13"),
 ]
 
 
