@@ -144,10 +144,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    b. BENCH_2D.json's configuration on the lines gather (MulResUnet 2D,
       filters [16..256], inputdepth 64, bf16, fused loss) through
       ``solve_patches_batched``, B lanes with B decimation masks from seeds
-      0..B-1, 3 chunks of 25 iterations: the one-lane solver (no vmap),
-      then B = 1, 32 with tapmm, 32 grouped, 64 with tapmm; s / 1000
-      iterations a patch beside the reference's V100 47 s, 75 / 75 lane
-      fused-loss launches whatever B is;
+      0..B-1, 2 chunks of 25 iterations (3 before PR 17): the one-lane
+      solver (no vmap), then B = 1, 32 with tapmm, 32 grouped, 64 with
+      tapmm; s / 1000 iterations a patch beside the reference's V100 47 s,
+      50 / 50 lane fused-loss launches whatever B is;
    c. the lane kernels against their plain versions: the fused loss at
       (32, 170 x 100) and (8, 128 x 64 x 64), bf16 and float32 ``out``, each
       lane bit-equal to a one-lane launch, CUDA-graph times beside the
@@ -221,8 +221,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
     sharded solve traced as 10a (launch counters set to 0 just before and
     read just after):
     a. ``--net skip`` and ``--net unet`` (bf16) at 6e's configuration (the
-       flagship volume and flags) over [cuda:0] x 2 and x 4 along H, 6
-       iterations in chunks of 3: launches fused N / N, wgrad N x 6e's
+       flagship volume and flags) over [cuda:0] x 2 and x 4 along H, 4
+       iterations in chunks of 2 (6 in chunks of 3 before PR 17): launches
+       fused N / N, wgrad N x 6e's
        admitted convs and ``upsample_bwd`` N x the net's linear upsamples
        (5, 4) an iteration, the wgrad hook's shapes 6e's split over the
        shards (each shard's planes with a halo plane on each side), the
@@ -284,8 +285,8 @@ Phases, each of which ends the run with a non-zero exit code on failure:
     an iteration, the iteration-0 loss within 1e-3 (bf16) or 1e-5
     (float32; the CBAM U-Net 1e-4, its own conditioning) of the unsharded
     solve's, s/iteration and peak beside it:
-    a. at the flagship volume and widths, 6 iterations in chunks of 3,
-       over [cuda:0] x 2 and x 4: the skip net with reflection padding and
+    a. at the flagship volume and widths, 4 iterations in chunks of 2 (6
+       in chunks of 3 before PR 17), over [cuda:0] x 2 and x 4: the skip net with reflection padding and
        Lanczos downsampling (bf16, trilinear), the U-Net with its deconv up
        path and ``more_layers=1`` (float32: its transposed convs compute in
        float32), the U-Net with ``concat_x`` (bf16, trilinear, 8 input
@@ -327,14 +328,36 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    d. each kernel at the new shard shapes (the glue's upsample, any wgrad
       shape no earlier phase held), as 15d.
 
+17. a mesh of the devices there are, and spatial shards that do not lie on
+   the net's blocks (``parallel/spatial.py``'s uneven layout):
+   a. ``make_spatial_mesh(cards + 1)`` gives the cards there are and warns;
+      the README's lines command through ``cli.run`` with
+      ``--spatial_shards 2 --net part`` (on one card a one-device mesh)
+      against 6f's unsharded ``--net part`` run, and with
+      ``--batch_patches 2 --mesh_shape 2`` against the command without
+      ``--mesh_shape``: bundles written, the fused loss launched on each
+      shard or lane, the iteration-0 losses to rel 1e-5;
+   b. the flagship (phase 4's configuration) over [cuda:0] x 10 along H,
+      3 iterations: 128 planes as 16 x 6 + 8 x 4 (8 of its 16-plane
+      blocks), its deepest level's 8 planes one a shard with two shards
+      empty; launches and wgrad / upsample shapes computed from the layout,
+      the iteration-0 loss within 1e-4 of phase 4's, s/iteration, peak and
+      the layout at each level printed;
+   c. the skip net (bf16, the flagship's widths) on (256, 112, 128), 3.5 of
+      its 32-plane blocks, unsharded and over [cuda:0] x 2 and x 4, 4
+      iterations: launches and shapes from the layout, iteration-0 losses
+      within 1e-4 of the unsharded one's, two 2-shard solves bit-equal;
+   d. each kernel at the new shard shapes, as 16d.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 16; every one must pass.
+   after phase 17; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, 16a, and in phase 14; each kernel
-with its rows at 10a's, 12a's, the zoo's and phases 15's and 16's shard
-shapes), the ``{"phase16": ...}``, ``{"phase15": ...}``, ``{"phase14": ...}``,
+11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, 16a, 17a-17c, and in phase 14; each
+kernel with its rows at 10a's, 12a's, the zoo's and phases 15's, 16's and
+17's shard shapes), the ``{"phase17": ...}``, ``{"phase16": ...}``,
+``{"phase15": ...}``, ``{"phase14": ...}``,
 ``{"phase13": ...}``,
 ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
 ``{"phase8": ...}``, ``{"phase7": ...}``, ``{"phase6": ...}``, ``{"cli": ...}``
@@ -1816,7 +1839,7 @@ BATCH_UPSAMPLE_SHAPES = [(BATCH_LANES * c, _H[_L.index(sp)]) for c, sp in UPSAMP
 LINES_2D = dict(datadim="2d", loss="mae", lr=1e-3, inputdepth=64,
                 filters=[16, 32, 64, 128, 256], skip=[16, 32, 64, 128], upsample="nearest",
                 gain=1.0, reg_noise_std=0.03, dtype="bfloat16", fused_loss=True,
-                epochs=75, scan_chunk=25)
+                epochs=50, scan_chunk=25)
 V100_S_PER_1000 = 47.0   # the reference's V100 figure for the lines patch (README.md)
 
 
@@ -1978,7 +2001,7 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
 
 def lines_batches(dev) -> dict:
     """8b: BENCH_2D.json's configuration on the lines gather, B patches with
-    B decimation masks (seeds 0..B-1) through ``solve_patches_batched``, 3
+    B decimation masks (seeds 0..B-1) through ``solve_patches_batched``, 2
     chunks of 25 iterations each: B = 1, 32 (tapmm and grouped), 64
     (tapmm), after lane 0's patch through the one-lane solver; steady
     s/1000 iterations a patch beside the reference's V100."""
@@ -1999,8 +2022,9 @@ def lines_batches(dev) -> dict:
     per = statistics.median(solo.chunk_seconds[1:]) / cfg.scan_chunk * 1000.0
     log(f"8b solo (DIPSolver.solve): chunk seconds {solo.chunk_seconds}, {per:.3f} s / 1000 "
         f"iterations ({V100_S_PER_1000 / per:.2f}x the reference's V100), launches {counts}")
-    if counts["fused_loss"] != 75 or counts["fused_loss_grad"] != 75:
-        fail(f"8b solo: launches {counts}, not 75 / 75")
+    iters = LINES_2D["epochs"]
+    if counts["fused_loss"] != iters or counts["fused_loss_grad"] != iters:
+        fail(f"8b solo: launches {counts}, not {iters} / {iters}")
     runs = {"solo": {"s_per_1000_per_patch": per, "chunk_seconds": solo.chunk_seconds}}
     for b, mode in ((1, "grouped"), (32, "tapmm"), (32, "grouped"), (64, "tapmm")):
         masks = [np.repeat((np.random.RandomState(i).rand(1, nx) > 0.66).astype(np.float32),
@@ -2020,11 +2044,11 @@ def lines_batches(dev) -> dict:
         log(f"8b {label}: chunk seconds {chunks}, {per:.3f} s / 1000 iterations a patch "
             f"({V100_S_PER_1000 / per:.2f}x the reference's V100 {V100_S_PER_1000} s), peak "
             f"{peak / 2**30:.2f} GiB, launches {counts}, lane 0 loss {loss[0, ::25].tolist()}")
-        if counts["fused_loss_lanes"] != 75 or counts["fused_loss_grad_lanes"] != 75 \
+        if counts["fused_loss_lanes"] != iters or counts["fused_loss_grad_lanes"] != iters \
                 or counts["one_lane"] != 0:
-            fail(f"8b {label}: launches {counts}, not 75 / 75 lane launches")
-        if loss.shape != (b, 75) or not np.all(np.isfinite(loss)):
-            fail(f"8b {label}: the losses are not {b} x 75 finite values")
+            fail(f"8b {label}: launches {counts}, not {iters} / {iters} lane launches")
+        if loss.shape != (b, iters) or not np.all(np.isfinite(loss)):
+            fail(f"8b {label}: the losses are not {b} x {iters} finite values")
         runs[label] = {"s_per_1000_per_patch": per, "chunk_seconds": chunks,
                        "peak_memory_bytes": peak, "launches": counts}
     return runs
@@ -3153,8 +3177,8 @@ def zoo_solve(mesh, cfg, img, mask, label: str, ref: dict, ups: int) -> dict:
 def zoo_sharded(dev, zoo: dict) -> dict:
     """13a and 13b: ``--net skip``, ``unet`` (bf16) and ``part`` (float32,
     TF32 off) at 6e's configuration (the flagship volume and flags) over
-    [cuda:0] x 2 and x 4 along H, 6 iterations in chunks of 3 (part: 4 in
-    chunks of 2), traced by ``zoo_solve``; the iteration-0 loss against
+    [cuda:0] x 2 and x 4 along H, 4 iterations in chunks of 2, traced by
+    ``zoo_solve``; the iteration-0 loss against
     6e's (bf16 rel 1e-3, float32 rel 1e-5)."""
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
     from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
@@ -3162,7 +3186,7 @@ def zoo_sharded(dev, zoo: dict) -> dict:
     img, mask = flagship_problem(256, 128, 128)
     out = {}
     for net, dtype, ups in ZOO_3D:
-        depth = dict(epochs=4, scan_chunk=2) if net == "part" else dict(epochs=6, scan_chunk=3)
+        depth = dict(epochs=4, scan_chunk=2)
         tol = LOSS0_TOL_13 if dtype == "float32" else LOSS0_TOL_BF16
         for n in SPATIAL_SHARDS:
             label = f"13{'b' if net == 'part' else 'a'} --net {net} ({dtype}) {n} shards"
@@ -3757,7 +3781,7 @@ def zoo15_sharded(dev, label: str, cfg, inputdepth: int, img, mask, ups: int,
 
 def zoo15_3d(dev) -> dict:
     """15a: ``ZOO15_3D`` at the flagship volume, unsharded and over
-    [cuda:0] x 2 and x 4 along H, 6 iterations in chunks of 3; the deconv
+    [cuda:0] x 2 and x 4 along H, 4 iterations in chunks of 2; the deconv
     U-Net in float32 (TF32 off), as its ``ConvTranspose`` computes in
     float32 and both packages refuse a bfloat16 carry that turns float32;
     the U-Net's wgrad launches at least one a shard an admitted conv."""
@@ -3766,7 +3790,7 @@ def zoo15_3d(dev) -> dict:
     img, mask = flagship_problem(256, 128, 128)
     out = {}
     for label, depth, dtype, ups in ZOO15_3D:
-        cfg = flagship_config(inputdepth=depth, dtype=dtype, epochs=6, scan_chunk=3)
+        cfg = flagship_config(inputdepth=depth, dtype=dtype, epochs=4, scan_chunk=2)
         out[label] = zoo15_sharded(dev, label, cfg, depth, img, mask, ups, SPATIAL_SHARDS)
         if label.startswith("unet") and out[label]["1"]["launches"]["wgrad3d"] == 0:
             fail(f"15a {label}: no conv reached the wgrad kernel")
@@ -4004,6 +4028,322 @@ def custom16_kernels(dev, p16: dict, done_wgrad: set, done_upsample: set) -> dic
     return {"wgrad": rows, "upsample": ups}
 
 
+# ----------------------------------------------------------------------
+# phase 17: a mesh of the devices there are, and spatial shards that do
+# not lie on the net's blocks
+# ----------------------------------------------------------------------
+
+# what was predicted before the first card run of phase 17 (PERF.md)
+PREDICTED_17 = ("17b s/iteration 0.9-1.6 over 10 shards (host-bound), peak 16-22 GiB; 17c "
+                "skip net s/iteration 0.05-0.09 / 0.12-0.25 / 0.20-0.45 at N = 1 / 2 / 4, peak "
+                "within 2 GiB of the unsharded one's; iteration-0 losses within 3e-5 of the "
+                "unsharded ones; phase 17 under 90 s")
+# 17b: the flagship's 128 planes along H (8 of its 16-plane blocks) over 10
+# shards of the card: 16 and 8 planes, 1 or none at its deepest level
+UNEVEN_SHARDS = 10
+# 17c: the skip net (32-plane blocks) on 112 planes along H, 3.5 blocks
+SKIP17_VOLUME = (256, 112, 128)
+SKIP17_SHARDS = (2, 4)
+SKIP17_UPS = 5
+LOSS0_TOL_17 = 1e-4
+
+
+def level_bounds(bounds, levels: int) -> list:
+    """The shard bounds along the sharded axis at each of ``levels`` + 1
+    levels of a net whose stride-2 steps give each shard the output planes
+    whose first input plane it holds (``parallel.spatial.owned``), each
+    level's extent the last one's halved and rounded up."""
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import owned
+    out = [list(bounds)]
+    for _ in range(levels):
+        n = out[-1][-1][1]
+        out.append(owned(out[-1], 2, -(-n // 2)))
+    return out
+
+
+def uneven_expect(wgrad_calls, up_calls, levels, onto_skip: bool) -> tuple:
+    """The wgrad and upsample shapes of one iteration over the shards of
+    ``levels`` (``level_bounds``), from the unsharded ones (``wgrad_calls``:
+    (Ci, Co, the level's spatial, launches); ``up_calls``: (C, the input's
+    spatial, launches)): a conv once on each shard that holds planes at its
+    level, x its planes and a halo plane on each side; an upsample once on
+    each shard whose output holds planes, its input the planes that output
+    reads and one more on each side, the output on the bounds of the level
+    above (``onto_skip``: the MulResUnet's) or on its input's doubled."""
+    ext = [lv[-1][1] for lv in levels]
+    wg, up = collections.Counter(), collections.Counter()
+    for ci, co, sp, k in wgrad_calls:
+        for a, b in levels[ext.index(sp[1])]:
+            if b > a:
+                wg[(ci, co, (sp[0], b - a + 2, sp[2]))] += k
+    for c, sp, k in up_calls:
+        lv = ext.index(sp[1])
+        if onto_skip:
+            for lo, hi in levels[lv - 1]:
+                if hi > lo:
+                    up[(c, (sp[0], -(-hi // 2) - lo // 2 + 2, sp[2]))] += k
+        else:
+            for a, b in levels[lv]:
+                if b > a:
+                    up[(c, (sp[0], b - a + 2, sp[2]))] += k
+    return wg, up
+
+
+def _shapes_list(counter, iters: int) -> list:
+    return [[*key[:-1], list(key[-1]), k // iters] for key, k in sorted(counter.items())]
+
+
+def cli17(dev, tmp: str, zoo_2d: dict) -> dict:
+    """17a: ``make_spatial_mesh`` past the cards that exist (the cards
+    there are, and a warning), then the README's lines command through
+    ``cli.run`` with ``--spatial_shards 2 --net part`` (one shard a card
+    that exists: on one card a one-device mesh) against 6f's unsharded
+    ``--net part`` run, and with ``--batch_patches 2 --mesh_shape 2`` (the
+    lanes on the cards that exist) against the same command without
+    ``--mesh_shape``: each writes its bundle, launches the fused loss on
+    every shard or lane, and holds its iteration-0 loss to rel 1e-5
+    (float32 sums in another order)."""
+    import warnings
+
+    from deep_prior_interpolation_tpu_torch import cli
+    from deep_prior_interpolation_tpu_torch.io import load_run
+    from deep_prior_interpolation_tpu_torch.parallel import make_spatial_mesh
+
+    cards = torch.cuda.device_count()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mesh = make_spatial_mesh(cards + 1)
+    said = [str(w.message) for w in caught]
+    log(f"17a: make_spatial_mesh({cards + 1}) on {cards} card(s): {mesh}; warnings {said}")
+    if mesh != [torch.device("cuda", i) for i in range(cards)] or not any(
+            f"{cards + 1} devices asked for, {cards} exist" in s for s in said):
+        fail(f"17a: make_spatial_mesh({cards + 1}) gave {mesh} and warned {said}")
+    set_kernels(True)
+    out = {"mesh": [str(d) for d in mesh], "warnings": said}
+    runs = (("spatial_part", ("--net", "part", "--spatial_shards", "2"), None, min(2, cards)),
+            ("batch_mesh", ("--batch_patches", "2", "--mesh_shape", "2"),
+             ("--batch_patches", "2"), 1))
+    for label, flags, ref_flags, shards in runs:
+        if ref_flags is None:
+            ref = [float(v) for v in zoo_2d["part"]["loss"]]
+        else:
+            r = cli.run(lines_config(f"17a_{label}_ref", *ref_flags), results_root=tmp)
+            ref = [float(v) for v in load_run(os.path.join(r, "0_run.npz"))["history"]["loss"]]
+        reset_lane_counts()
+        path = cli.run(lines_config(f"17a_{label}", *flags), results_root=tmp)
+        counts = {**read_counts(), **read_lane_counts()}
+        bundle = load_run(os.path.join(path, "0_run.npz"))
+        loss = [float(v) for v in bundle["history"]["loss"]]
+        fused = counts["fused_loss_lanes"] + counts["one_lane"]
+        rel = _rel(loss[0], ref[0])
+        log(f"17a cli.run {' '.join(flags)}: losses {loss}; against {ref[:3]}..., iteration-0 "
+            f"rel err {rel:.3e} (tol {LOSS0_TOL_13:g}); launches {counts}; bundle keys "
+            f"{sorted(bundle)}")
+        if not (len(loss) == 9 and np.all(np.isfinite(loss))):
+            fail(f"17a {label}: the run's loss is not 9 finite iterations")
+        if label == "spatial_part" and (counts["one_lane"] != 2 * 9 * shards):
+            fail(f"17a {label}: launches {counts}, not the fused loss 9 / 9 on each of "
+                 f"{shards} shards")
+        if label == "batch_mesh" and not (counts["fused_loss_lanes"] == 9
+                                          and counts["fused_loss_grad_lanes"] == 9):
+            fail(f"17a {label}: launches {counts}, not 9 / 9 lane launches")
+        if not rel <= LOSS0_TOL_13:
+            fail(f"17a {label}: the iteration-0 loss differs from the unsharded run's")
+        out[label] = {"losses": loss, "launches": counts, "loss0_rel_err": rel,
+                      "fused_launches": fused, "reference_losses": ref}
+    return out
+
+
+def flagship17(dev, main: dict) -> dict:
+    """17b: the flagship (phase 4's configuration) over [cuda:0] x 10 along
+    H, 3 iterations in chunks of 1, traced: its 128 planes split 16 x 6 and
+    8 x 4 (16-plane blocks would give 8 shards), its deepest level's 8
+    planes 1 a shard with 2 shards empty; the launches and the wgrad and
+    upsample shapes those the layout gives (``uneven_expect``), the
+    iteration-0 loss against phase 4's (same seed) to 1e-4."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import shard_bounds
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=3, scan_chunk=1)
+    n, iters = UNEVEN_SHARDS, cfg.epochs
+    levels = level_bounds(shard_bounds(128, n, 16), 4)
+    set_kernels(True)
+    solver = DIPSolver(cfg, outchannel=1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, seen, seen_up = traced_solve(solver, img, mask, spatial_mesh=[dev] * n,
+                                              spatial_axis=SPATIAL_AXIS)
+    peak = torch.cuda.max_memory_allocated()
+    loss = np.asarray(res.history.loss)
+    steady = statistics.median(res.chunk_seconds[1:])
+    wg, up = uneven_expect(WGRAD_SHAPES, [(c, sp, 1) for c, sp in UPSAMPLE_SHAPES], levels,
+                           True)
+    want = {"fused_loss": n * iters, "fused_loss_grad": n * iters,
+            "wgrad3d": iters * sum(wg.values()), "upsample_bwd": iters * sum(up.values())}
+    rel = _rel(loss[0], main["loss0"])
+    log(f"17b: layout along H by level {[[b - a for a, b in lv] for lv in levels]}")
+    log(f"17b flagship over {n} shards: losses {loss.tolist()}; chunk seconds "
+        f"{res.chunk_seconds}; steady s/iteration {steady:.4f} against phase 4's "
+        f"{main['s_per_iter']:.4f}; peak {peak / 2**30:.2f} GiB against phase 4's "
+        f"{main['peak_bytes'] / 2**30:.2f} (predicted: {PREDICTED_17})")
+    log(f"17b: launches {counts} (expected from the layout {want}); iteration-0 loss "
+        f"{loss[0]:.7g} against phase 4's {main['loss0']:.7g}, rel err {rel:.3e} (tol "
+        f"{LOSS0_TOL_17:g})")
+    if not (len(loss) == iters and np.all(np.isfinite(loss))):
+        fail(f"17b: the loss is not finite for {iters} iterations")
+    if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+        fail(f"17b: out_best has shape {res.out_best.shape} or is not finite")
+    if counts != want:
+        fail(f"17b: launch counts {counts}, not the layout's {want}")
+    if dict(seen) != {k: iters * v for k, v in wg.items()}:
+        fail(f"17b: the wgrad shapes {dict(seen)} are not the layout's {dict(wg)}")
+    if dict(seen_up) != {k: iters * v for k, v in up.items()}:
+        fail(f"17b: the upsample shapes {dict(seen_up)} are not the layout's {dict(up)}")
+    if not rel <= LOSS0_TOL_17:
+        fail("17b: the iteration-0 loss differs from phase 4's")
+    del solver
+    return {"shards": n, "layout": [[list(b) for b in lv] for lv in levels],
+            "launches": counts, "expected_launches": want, "losses": loss.tolist(),
+            "loss0_rel_err": rel, "s_per_iter": steady, "chunk_seconds": res.chunk_seconds,
+            "peak_bytes": peak, "wgrad_shapes": _shapes_list(seen, iters),
+            "upsample_shapes": _shapes_list(seen_up, iters)}
+
+
+def skip17(dev) -> dict:
+    """17c: the skip net at the flagship's widths and flags (bf16) on
+    (256, 112, 128), unsharded and over [cuda:0] x 2 and x 4 along H, 4
+    iterations in chunks of 2: the 112 planes are 3.5 of its 32-plane
+    blocks, so the shards lie on 16-plane blocks (64 + 48; 32 x 3 + 16),
+    its concats crop along H (its deepest level's 4 planes upsampled to 8
+    for the 7 above) and its level of 7 planes splits 4 + 3; launches and
+    shapes those the layout gives from the unsharded run's, the
+    iteration-0 losses against the unsharded one's to 1e-4, and a second
+    2-shard solve bit-equal to the first (deterministic cuDNN, the wgrad
+    grids the first tuned)."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.parallel.spatial import shard_bounds
+
+    img, mask = flagship_problem(*SKIP17_VOLUME)
+    cfg = flagship_config(net="skip", epochs=4, scan_chunk=2)
+    iters = cfg.epochs
+    set_kernels(True)
+    out = {}
+
+    def solve(n: int, deterministic: bool = False) -> dict:
+        solver = DIPSolver(cfg, outchannel=1, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kw = {} if n == 1 else {"spatial_mesh": [dev] * n, "spatial_axis": SPATIAL_AXIS}
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            res, counts, seen, seen_up = traced_solve(solver, img, mask, **kw)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        loss = np.asarray(res.history.loss)
+        r = {"shards": n, "launches": counts, "losses": loss.tolist(),
+             "s_per_iter": statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk,
+             "chunk_seconds": res.chunk_seconds, "peak_bytes": torch.cuda.max_memory_allocated(),
+             "seen": seen, "seen_up": seen_up, "out_best": res.out_best}
+        log(f"17c skip net on {SKIP17_VOLUME} over {n} shard(s): losses {loss.tolist()}; "
+            f"launches {counts}; chunk seconds {res.chunk_seconds}, steady s/iteration "
+            f"{r['s_per_iter']:.4f}, peak {r['peak_bytes'] / 2**30:.2f} GiB")
+        if not (len(loss) == iters and np.all(np.isfinite(loss))):
+            fail(f"17c over {n} shard(s): the loss is not finite for {iters} iterations")
+        if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
+            fail(f"17c over {n} shard(s): out_best has shape {res.out_best.shape} or is not "
+                 f"finite")
+        del solver
+        return r
+
+    ref = solve(1)
+    if ref["launches"]["upsample_bwd"] != SKIP17_UPS * iters:
+        fail(f"17c: {ref['launches']} unsharded, not {SKIP17_UPS} upsamples an iteration")
+    wcalls = [(ci, co, sp, k // iters) for (ci, co, sp), k in ref["seen"].items()]
+    ucalls = [(c, sp, k // iters) for (c, sp), k in ref["seen_up"].items()]
+    for n in SKIP17_SHARDS:
+        r = solve(n, deterministic=n == 2)
+        levels = level_bounds(shard_bounds(SKIP17_VOLUME[1], n, 32), 5)
+        wg, up = uneven_expect(wcalls, ucalls, levels, False)
+        want = {"fused_loss": n * iters, "fused_loss_grad": n * iters,
+                "wgrad3d": iters * sum(wg.values()), "upsample_bwd": iters * sum(up.values())}
+        r["loss0_rel_err"] = _rel(r["losses"][0], ref["losses"][0])
+        log(f"17c over {n} shards: layout along H by level "
+            f"{[[b - a for a, b in lv] for lv in levels]}; launches {r['launches']} (expected "
+            f"from the layout {want}); iteration-0 rel err {r['loss0_rel_err']:.3e} (tol "
+            f"{LOSS0_TOL_17:g}); s/iteration {r['s_per_iter']:.4f} against "
+            f"{ref['s_per_iter']:.4f}, peak {r['peak_bytes'] / 2**30:.2f} against "
+            f"{ref['peak_bytes'] / 2**30:.2f} GiB (predicted: {PREDICTED_17})")
+        if r["launches"] != want:
+            fail(f"17c over {n} shards: launch counts {r['launches']}, not the layout's {want}")
+        if dict(r["seen"]) != {k: iters * v for k, v in wg.items()} or \
+                dict(r["seen_up"]) != {k: iters * v for k, v in up.items()}:
+            fail(f"17c over {n} shards: the wgrad / upsample shapes {dict(r['seen'])} / "
+                 f"{dict(r['seen_up'])} are not the layout's {dict(wg)} / {dict(up)}")
+        if not r["loss0_rel_err"] <= LOSS0_TOL_17:
+            fail(f"17c over {n} shards: the iteration-0 loss differs from the unsharded one's")
+        r["layout"] = [[list(b) for b in lv] for lv in levels]
+        out[str(n)] = r
+    again = solve(2, deterministic=True)
+    same = (np.array_equal(again["losses"], out["2"]["losses"])
+            and np.array_equal(again["out_best"], out["2"]["out_best"]))
+    log(f"17c: two 2-shard solves from one seed bit-equal {same}")
+    if not same:
+        fail("17c: two 2-shard skip net solves from one seed are not bit-equal")
+    out["1"] = ref
+    out["two_runs_bit_equal"] = same
+    for r in out.values():
+        if isinstance(r, dict):
+            r["wgrad_shapes"] = _shapes_list(r.pop("seen"), iters)
+            r["upsample_shapes"] = _shapes_list(r.pop("seen_up"), iters)
+            r.pop("out_best")
+    return out
+
+
+def uneven17_kernels(dev, p17: dict, done_wgrad: set, done_upsample: set) -> dict:
+    """17d: each kernel at phase 17's shard shapes that no earlier phase
+    held against its plain version, as 16d: wgrad (bf16) at every shard
+    shape of 17b and 17c not in ``done_wgrad``, ``upsample_bwd`` at every
+    one of their upsample shapes not in ``done_upsample``, the fused loss
+    on their new shard outputs (bf16), each timed beside its bound and the
+    library call."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    runs = [("17b", UNEVEN_SHARDS, p17["17b"])] + [
+        ("17c", n, p17["17c"][str(n)]) for n in SKIP17_SHARDS]
+    rows, seen = [], set(done_wgrad)
+    for label, n, r in runs:
+        per_iter = 0.0
+        for ci, co, xs, k in r["wgrad_shapes"]:
+            key = (ci, co, tuple(xs), "bfloat16")
+            if key in seen:
+                continue
+            seen.add(key)
+            row = spatial_wgrad_row(dev, ci, co, tuple(xs), xs[1] - 2, 1, k, g, False, "17d",
+                                    torch.bfloat16)
+            row["run"] = label
+            rows.append(row)
+            per_iter += row["ms"] * k
+        log(f"17d {label} over {n} shards: wgrad ms/iteration over its new shard shapes "
+            f"{per_iter:.4f}")
+    ups, seen = [], set(done_upsample)
+    for label, n, r in runs:
+        for c, sp, k in r["upsample_shapes"]:
+            if (c, tuple(sp), "bfloat16") in seen:
+                continue
+            seen.add((c, tuple(sp), "bfloat16"))
+            ups.append(upsample_shard_row(dev, c, sp, 3, torch.bfloat16, k, g, "17d"))
+    fused = [fused_shard_row(dev, (1, 1, 256, h, 128), torch.bfloat16, g, "17d", n)
+             for h, n in ((16, UNEVEN_SHARDS), (8, UNEVEN_SHARDS), (48, 2), (16, 4))]
+    log(f"17d: {len(rows)} new wgrad shapes, {len(ups)} new upsample shapes, "
+        f"{len(fused)} fused-loss shard shapes")
+    return {"wgrad": rows, "upsample": ups, "fused": fused}
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -4228,6 +4568,19 @@ def main() -> None:
                                        done_wgrad, done_upsample)
         seconds["16_total"] = time.time() - t16
         log(f"phase 16: {seconds['16_total']:.1f} s")
+        t17 = time.time()
+        phase17 = {"17a": phase("17a_cli_devices", cli17, dev, tmp, zoo_2d),
+                   "17b": phase("17b_uneven_flagship", flagship17, dev, main),
+                   "17c": phase("17c_uneven_skip", skip17, dev)}
+        rows16 = phase16["16d_kernels"]
+        done_wgrad |= {(r["ci"], r["co"], tuple(r["x_shape"]), r["dtype"])
+                       for r in rows16["wgrad"]}
+        done_upsample |= {(r["channels"], tuple(r["input"]), r["dtype"])
+                          for r in rows16["upsample"]}
+        phase17["17d_kernels"] = phase("17d_uneven_kernels", uneven17_kernels, dev, phase17,
+                                       done_wgrad, done_upsample)
+        seconds["17_total"] = time.time() - t17
+        log(f"phase 17: {seconds['17_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -4319,11 +4672,28 @@ def main() -> None:
                        (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
         entry["spatial_custom_launches"] = {"16a": {n: r["launches"][key]
                                                     for n, r in phase16["16a"].items()}}
-    rows16 = phase16["16d_kernels"]
-    wgrad["spatial_shapes"] += rows16["wgrad"]
-    upsample["spatial_shapes"] += rows16["upsample"]
     wgrad["max_abs_err"] = max([wgrad["max_abs_err"]] + [r["max_abs_err"]
                                                           for r in rows16["wgrad"]])
+    phase17["seconds"] = {k: v for k, v in seconds.items() if k.startswith("17")}
+    log(json.dumps({"phase17": {k: v for k, v in phase17.items() if k != "17d_kernels"}}))
+    # phase 17's launches: the CLI runs on the cards there are (17a), the
+    # flagship over 10 uneven shards (17b), the skip net unsharded ("1") and
+    # over uneven shards (17c); its rows at the new shard shapes (17d)
+    for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
+                       (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
+        entry["spatial_uneven_launches"] = {  # by shard count
+            "17a": {k: phase17["17a"][k]["launches"][key]
+                    + phase17["17a"][k]["launches"].get(f"{key}_lanes", 0)
+                    for k in ("spatial_part", "batch_mesh")},
+            "17b": {UNEVEN_SHARDS: phase17["17b"]["launches"][key]},
+            "17c": {n: phase17["17c"][n]["launches"][key]
+                    for n in ("1",) + tuple(str(n) for n in SKIP17_SHARDS)}}
+    rows17 = phase17["17d_kernels"]
+    fused["spatial_shapes"] += rows17["fused"]
+    wgrad["spatial_shapes"] += rows16["wgrad"] + rows17["wgrad"]
+    upsample["spatial_shapes"] += rows16["upsample"] + rows17["upsample"]
+    for entry, rows in ((fused, rows17["fused"]), (wgrad, rows17["wgrad"])):
+        entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in rows])
     lanes = lane_entries(survey8, kernels8)
     for entry in lanes:
         entry["convergence_launches"] = {k: phase14[f"{k}_{g}"]["launches"][entry["name"]]

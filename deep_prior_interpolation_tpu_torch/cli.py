@@ -24,14 +24,16 @@ the CPU; with no CUDA and no device it raises.
 (``parallel.solve_patches_batched``: one lane a patch, seeded ``seed + i``
 within its group) and writes each patch's bundle, snapshots and model as
 the sequential run does; ``--mesh_shape M`` lays each group's lanes over M
-CUDA devices. As in the JAX package, a batch solves every patch of its
+CUDA devices (those that exist where fewer do: on one card every lane is
+on it). As in the JAX package, a batch solves every patch of its
 group (an all-corrupted one too) and takes no ``--netdir``; with
 ``--start_from_prev`` the patches are solved one after another whatever
 ``--batch_patches`` says. ``--spatial_shards N`` (N > 1) splits each
 patch's volume along ``--spatial_axis`` over N shards
-(``parallel.make_spatial_mesh``: the first N cards, or N shards on the CPU
-for ``device="cpu"``). ``--netdir`` takes a ``<name>_model.msgpack`` of
-either package, or a ``.pt`` state dict.
+(``parallel.make_spatial_mesh``: the first N cards, those that exist
+where fewer do, or N shards on the CPU for ``device="cpu"``). ``--netdir``
+takes a ``<name>_model.msgpack`` of either package, or a ``.pt`` state
+dict.
 """
 from __future__ import annotations
 
@@ -99,9 +101,11 @@ def run(cfg: Config, results_root: str = "./results",
     if sharded:
         from .parallel import make_spatial_mesh
         n = cfg.spatial_shards
+        # a CPU run's shards on the CPU; a card run's over the cards that
+        # exist, as many as asked at most
         spatial_mesh = make_spatial_mesh(n, [dev] * n if dev.type == "cpu" else None)
-        _log(f"Spatial sharding: each patch over {n} devices along spatial axis "
-             f"{cfg.spatial_axis}")
+        _log(f"Spatial sharding: each patch over {len(spatial_mesh)} devices along spatial "
+             f"axis {cfg.spatial_axis}")
 
     prev_params = None
     for i, patch in enumerate(patches):
@@ -154,12 +158,19 @@ def _run_batched(cfg: Config, solver: DIPSolver, patches: List[dict], outpath: s
     """The patches not done yet, ``--batch_patches`` at a time, each group
     through ``solve_patches_batched``; the files of each patch as the
     sequential run writes them."""
-    from .parallel import solve_patches_batched
+    from .parallel import make_mesh, solve_patches_batched
 
+    mesh = None
+    if cfg.mesh_shape and cfg.mesh_shape > 1:
+        # a CPU run's lanes on CPU shards; a card run's over the cards that
+        # exist, as many as asked at most
+        n = cfg.mesh_shape
+        mesh = make_mesh(n, [dev] * n if dev.type == "cpu" else None)
+        _log(f"Patch mesh: each group's lanes over {len(mesh)} devices")
     todo = [p for p in patches if p["name"] not in done]
     for start in range(0, len(todo), cfg.batch_patches):
         group = todo[start:start + cfg.batch_patches]
-        for patch, res in zip(group, solve_patches_batched(cfg, solver, group)):
+        for patch, res in zip(group, solve_patches_batched(cfg, solver, group, mesh=mesh)):
             name = patch["name"]
             save_run(outpath, name, res.history, patch["mask"], patch["image"], res.out_best,
                      elapsed=res.elapsed, noise=res.noise, pocs=res.pocs, device=dev)

@@ -182,7 +182,7 @@ def net_multiple(cfg: Config) -> int:
     """What the net's levels need its spatial dims to be multiples of: 2^L
     for L downsamplings, with phase space what its phased levels need
     (resolution r at depth q: 2^(r+q)). A spatial shard holds a whole
-    number of such blocks."""
+    number of such blocks where the axis allows (``shard_block``)."""
     mult = 2 ** (len(cfg.filters) - 1)
     if cfg.phase_space:
         levels = len(cfg.filters) if cfg.phase_levels < 0 else cfg.phase_levels
@@ -194,17 +194,18 @@ def net_multiple(cfg: Config) -> int:
 
 
 def shard_block(cfg: Config, model: torch.nn.Module, walked: Optional[int] = None) -> int:
-    """The planes a spatial shard of ``model``'s padded volume holds a
-    whole number of: 2^S for the net's S stride-2 steps (the skip net one a
-    filter, the U-Net 4 + ``more_layers``, the partial-conv U-Net 5, the
-    attention MultiRes U-Net one a filter but the first, the CBAM U-Net 4,
-    the ConvGRU ensemble 5), so every level
-    halves each shard exactly; the MulResUnet's ``net_multiple``; for a
-    module no walk covers, the block the walker's meta pass found
-    (``walked``, from ``parallel.spatial.check_supported``). It can be
-    wider than ``pad_multiple_for``'s (which mirrors the JAX package's
-    padding): a padded axis that is not a whole number of blocks is
-    refused (``parallel.spatial.shard_bounds``)."""
+    """The planes a spatial shard of ``model``'s padded volume preferably
+    holds a whole number of: 2^S for the net's S stride-2 steps (the skip
+    net one a filter, the U-Net 4 + ``more_layers``, the partial-conv U-Net
+    5, the attention MultiRes U-Net one a filter but the first, the CBAM
+    U-Net 4, the ConvGRU ensemble 5), so every level halves each shard
+    exactly; the MulResUnet's ``net_multiple``; for a module no walk
+    covers, the block the walker's meta pass found (``walked``, from
+    ``parallel.spatial.check_supported``). It can be wider than
+    ``pad_multiple_for``'s (which mirrors the JAX package's padding): a
+    padded axis that is not a whole number of at least N blocks is split
+    on a narrower power-of-two block (``parallel.spatial.shard_bounds``),
+    and the sharded walks map each level's uneven bounds."""
     if walked is not None:
         return walked
     if isinstance(model, SkipNet):
@@ -890,8 +891,10 @@ class DIPSolver:
         ``spatial_mesh`` (``parallel.make_spatial_mesh``: a list of devices,
         repeats allowed) splits the patch's volume along ``spatial_axis``
         (0 = the first spatial dim) over its shards
-        (``parallel/spatial.py``): the same solve up to the order of its
-        sums; a checkpoint holds whole tensors and resumes on the same mesh.
+        (``parallel/spatial.py``), evenly or not: the same solve up to the
+        order of its sums; a checkpoint holds whole tensors and resumes on
+        the same mesh. An axis shorter than the mesh raises ``ValueError``,
+        as the JAX package asserts.
         A net given as ``model`` whose output is not ``(1, outchannel,
         *padded)`` raises ``TypeError`` (``check_net_output``), sharded or
         not. A module of the caller's own, which no library walk covers,

@@ -21,8 +21,8 @@ one step, as the JAX package's ``jax.vmap`` of its step does:
     reads each device once a chunk. No collective runs in the loop: the one
     cross-device step is the assembly, :func:`overlap_add_sharded`.
 
-``make_mesh`` raises where fewer devices exist than asked (the JAX package
-takes as many as there are).
+``make_mesh`` takes the devices that exist where fewer exist than asked,
+as the JAX package does, and warns naming the cut.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,24 +53,23 @@ Mesh = List[torch.device]
 def make_mesh(n_devices: int = 0,
               devices: Optional[Sequence[torch.device]] = None) -> Mesh:
     """The devices of a 1-D patch mesh: the first ``n_devices`` CUDA devices
-    (all of them for 0), or the first ``n_devices`` of ``devices``. Raises
-    where fewer exist than asked."""
+    (all of them for 0), or the first ``n_devices`` of ``devices``, which
+    may repeat one device. Where fewer exist than asked it takes those that
+    exist, as the JAX package's ``devs[:n]`` does, and warns naming the
+    cut; with no CUDA device (and no ``devices``) it raises
+    ``RuntimeError``: a CPU mesh is asked for by passing CPU devices."""
     if devices is not None:
-        devs = [torch.device(d) for d in devices]
+        devs, what = [torch.device(d) for d in devices], "given"
     else:
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if n_devices > count:
-            raise RuntimeError(f"a mesh of {n_devices} CUDA devices was asked for and "
-                               f"{count} exist")
-        devs = [torch.device("cuda", i) for i in range(n_devices or count)]
-    if n_devices and n_devices > 0:
-        if n_devices > len(devs):
-            raise RuntimeError(f"a mesh of {n_devices} devices was asked for and "
-                               f"{len(devs)} were given")
-        devs = devs[:n_devices]
+        devs, what = [torch.device("cuda", i) for i in range(count)], "exist"
     if not devs:
-        raise RuntimeError("a mesh needs at least one device")
-    return devs
+        raise RuntimeError("a mesh needs at least one device" + (
+            ": no CUDA device exists" if devices is None else ""))
+    if n_devices and n_devices > len(devs):
+        warnings.warn(f"{n_devices} devices asked for, {len(devs)} {what}: the mesh takes "
+                      f"{len(devs)}", RuntimeWarning, stacklevel=2)
+    return devs[:n_devices] if n_devices and n_devices > 0 else devs
 
 
 def overlap_add_sharded(patches, image_shape: Sequence[int], dim: Sequence[int],
@@ -229,8 +229,8 @@ def solve_patches_batched(cfg: Config, solver: DIPSolver, patches: List[dict],
 
     The lanes run on the solver's device; with ``cfg.mesh_shape > 1`` (or
     an explicit ``mesh``) they are laid over the mesh's devices (over the
-    first ``mesh_shape`` CUDA devices, or for a CPU solver over as many
-    shards on the CPU), the batch
+    first ``mesh_shape`` CUDA devices, or as many as exist, or for a CPU
+    solver over as many shards on the CPU), the batch
     padded to a multiple of its size by repeating the last patch. Lane i
     is seeded ``cfg.seed + i``; ``init_params`` and ``noises`` (one a
     patch) are handed to :func:`setup_patch_batch`. Returns a ``SolveResult`` for each real
@@ -243,7 +243,9 @@ def solve_patches_batched(cfg: Config, solver: DIPSolver, patches: List[dict],
         assert tuple(p["image"].shape[:-1]) == spatial, \
             "batched patches must share a shape; group by shape upstream"
     if mesh is None and cfg.mesh_shape and cfg.mesh_shape > 1:
-        # a CPU solver's shards run on the CPU, one after another
+        # a CPU solver's shards run on the CPU, one after another; a CUDA
+        # solver's over the cards that exist (all lanes on one card where
+        # there is one)
         cpu = solver.device.type == "cpu"
         mesh = make_mesh(cfg.mesh_shape, [solver.device] * cfg.mesh_shape if cpu else None)
     devices = list(mesh) if mesh is not None else [solver.device]

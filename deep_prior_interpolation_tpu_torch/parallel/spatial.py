@@ -8,45 +8,60 @@ list of shards itself, from one process, as JAX's single controller does:
 
   * a mesh is a list of devices, repeats allowed: ``[cpu] * 8`` stands for
     JAX's 8 virtual CPU devices, ``[cuda:0] * N`` runs N shards on one card;
+    ``make_spatial_mesh`` takes the devices that exist where fewer exist
+    than asked, as the JAX package does;
   * the shard boundaries lie on multiples of the net's block of the padded
-    volume (``engine.solver.shard_block``: 2^S planes for S stride-2 steps,
-    2^(r + q) for a phase level r at depth q), so each shard halves exactly
-    at every level, blocks exactly at every phase depth, and every halo is
-    a few planes of its own level;
+    volume where the axis is a whole number of at least N of them
+    (``engine.solver.shard_block``: 2^S planes for S stride-2 steps, 2^(r +
+    q) for a phase level r at depth q), so each shard halves exactly at
+    every level; elsewhere, as GSPMD shards unevenly, on the largest
+    power-of-two block that gives N (single planes at worst). Any axis at
+    least as long as the mesh is served: a shard list's bounds are its
+    shards' extents, each op maps them (``windows``: a stride-s op's shard
+    owns the output planes whose first input plane it holds, and reads the
+    window those planes need; an upsample lands on the bounds its consumer
+    needs; ``relayout`` moves a list onto other bounds, a concat's crop
+    included), and at a level with fewer planes than shards a shard may
+    hold none: it is carried through the walk and launches nothing;
   * four collectives, autograd Functions whose sums run on one device in
     shard order, so a sharded step repeats bit for bit: ``_AllReduce`` (N
     tensors in, N copies of their sum out; its backward the same),
     ``_AllMax`` (the volume's max, whose backward splits the cotangent over
-    the tied voxels of every shard), ``_HaloExchange`` (each shard gets the
-    planes of any width around it from whichever shards hold them, and past
-    the volume's ends zeros, copies of the end plane, its mirror or -inf;
-    its backward adds each halo plane's gradient into the plane it was
-    copied from) and ``_Replicate`` (a parameter to every shard's device;
+    the tied voxels of every shard), ``_Relayout`` (each shard gets any
+    interval of the volume's planes from whichever shards hold them, and
+    past the volume's ends zeros, copies of the end plane, its mirror or
+    -inf: a halo of any width, a crop, another list's bounds; its backward
+    adds each plane's gradient into the plane it was copied from) and
+    ``_Replicate`` (a parameter to every shard's device;
     its backward sums the shards' gradients, the all-reduce before Adam);
   * ``ShardedStep`` walks the net's own modules and parameters over the
     shards (so parameters, checkpoints and weights files are the plain
     net's): a same-pad conv exchanges a zero halo and convolves unpadded
     along the axis (``conv_halo``, whose weight gradient runs on the wgrad
-    kernel); a stride-2 down conv of k = 3 takes a left halo of one plane
-    (each shard starts on an even plane); ``Norm`` all-reduces its float32 sums
-    and divides by the volume's voxel count; the linear x2 upsample takes a
-    one-plane halo that copies the edge plane at the volume's ends (the
-    resize's clamp) and crops two output planes on each side; concats,
-    activations, adds and casts are local;
+    kernel); a stride-2 down conv of k = 3 reads the window of its own
+    output planes (one plane on the left of an even start, none of an odd
+    one); ``Norm`` all-reduces its float32 sums and divides by the
+    volume's voxel count; the linear x2 upsample reads the input planes its
+    target planes need, one more on each side (copies of the edge plane at
+    the volume's ends: the resize's clamp), and crops the output planes
+    those alone decide; concats, activations, adds and casts are local;
   * a phase net (``ops/phase_space.py``) is walked piece by piece on its
     phase tensors, whose phase grid splits as the plain grid does: the
-    entry conv (plain -> phase: stride 2, kernel k + 1) over a zero halo of
-    (k - 1) / 2 plain planes on each side, the folded phase -> phase conv
-    through ``conv_halo`` as a plain conv, the exit conv (phase -> plain at
+    entry conv (plain -> phase: stride 2, kernel k + 1) over its window,
+    its output on whole phase blocks where ``space_to_depth`` follows,
+    the folded phase -> phase conv through ``conv_halo`` as a plain conv,
+    the exit conv (phase -> plain at
     half resolution: kernel 2, padding (1, 0)) over one phase plane on the
     left only, ``upsample_into_phase``'s linear stencil over the resize's
-    one-plane clamped halo (one output plane cropped on each side), and a
+    one-plane clamped halo (one output plane cropped on each side, its
+    output on the bounds of the phase tensor it joins), and a
     phase ``Norm`` pools each channel's lanes after its all-reduce; each
     weight transform is made on each shard from its replicated weight, and
     the layout changes (``space_to_depth``, ``depth_to_space``) are local.
-    The crop to the unpadded volume maps onto the shards (only the first
-    and last lose planes) and the loss is the shards' sums all-reduced
-    (one fused-loss launch a shard). Each Dropout draws one mask at the
+    The net's output comes back on its input's bounds. The crop to the
+    unpadded volume maps onto the shards (a shard of padding alone keeps
+    none) and the loss is the shards' sums all-reduced (one fused-loss
+    launch a shard whose crop holds planes). Each Dropout draws one mask at the
     volume's shape of its level, and splits it; remat checkpoints a walked
     block over its list of shards, collectives included, so the recompute
     exchanges the halos again.
@@ -105,6 +120,8 @@ from .mesh import Mesh, make_mesh
 __all__ = ["ShardedStep", "SpatialLayout", "check_supported", "make_spatial_mesh",
            "shard_bounds", "shard_solver_state"]
 
+Bounds = List[Tuple[int, int]]
+
 # data entries shaped as the padded canvas, and as the unpadded volume; the
 # POCS weights stay whole, beside the whole-volume projection
 _PADDED_KEYS = frozenset({"base_input", "forget_data", "net_mask"})
@@ -117,29 +134,59 @@ def make_spatial_mesh(n_devices: int = 0,
                       devices: Optional[Sequence[torch.device]] = None) -> Mesh:
     """The devices of a 1-D spatial mesh: the first ``n_devices`` CUDA
     devices (all of them for 0), or the first ``n_devices`` of ``devices``,
-    which may repeat one device. Raises where fewer exist than asked (the
-    JAX package takes as many as there are)."""
+    which may repeat one device; where fewer exist than asked, those that
+    exist, with a warning naming the cut, as the JAX package takes them
+    (``mesh.make_mesh``, which raises where no CUDA device exists)."""
     return make_mesh(n_devices, devices)
 
 
-def shard_bounds(extent: int, n: int, block: int) -> List[Tuple[int, int]]:
+def shard_bounds(extent: int, n: int, block: int = 1) -> Bounds:
     """``[start, stop)`` of each of ``n`` shards of an axis of ``extent``
-    planes, each a whole number of ``block``-plane blocks, as even as the
-    blocks allow (the first shards take one block more)."""
-    if extent % block:
-        raise ValueError(f"a sharded axis of {extent} planes is not a whole number of "
-                         f"{block}-plane blocks (the net's levels and phase depths)")
-    blocks = extent // block
-    if blocks < n:
-        raise ValueError(f"a sharded axis of {extent} planes holds {blocks} blocks of {block} "
-                         f"planes: a mesh of at most {blocks} shards fits it, not {n}")
-    base, extra = divmod(blocks, n)
+    planes, as even as whole blocks allow (the first shards take one block
+    more): blocks of ``block`` planes (the net's) where the axis is a whole
+    number of at least ``n`` of them, else of the largest power of two that
+    divides the axis into at least ``n`` (single planes at worst), as GSPMD
+    shards an axis the mesh does not divide. Raises ``ValueError`` for an
+    axis shorter than the mesh, as the JAX package asserts."""
+    if extent < n:
+        raise ValueError(f"a sharded axis of {extent} planes is shorter than the mesh of {n} "
+                         f"shards: pick a longer axis or a smaller mesh")
+    if extent % block or extent // block < n:
+        block = max(1 << k for k in range(extent.bit_length())
+                    if extent % (1 << k) == 0 and extent >> k >= n)
+    base, extra = divmod(extent // block, n)
     bounds, a = [], 0
     for i in range(n):
         b = a + (base + (i < extra)) * block
         bounds.append((a, b))
         a = b
     return bounds
+
+
+def bounds_of(xs: Sequence[torch.Tensor], dim: int) -> Bounds:
+    """The planes of the whole that each shard of a list holds along
+    ``dim``: its shards' extents laid end to end."""
+    out, a = [], 0
+    for x in xs:
+        out.append((a, a + x.shape[dim]))
+        a += x.shape[dim]
+    return out
+
+
+def owned(bounds: Bounds, stride: int, n_out: int) -> Bounds:
+    """The output planes of a stride-``stride`` op (``n_out`` of them) that
+    each shard of ``bounds`` owns: those whose first input plane it holds
+    (output o reads from input plane stride * o on), so shard ``[a, b)``
+    owns ``[ceil(a / stride), ceil(b / stride))``, clamped to ``n_out``."""
+    return [(min(-(-a // stride), n_out), min(-(-b // stride), n_out)) for a, b in bounds]
+
+
+def rounded(bounds: Bounds, m: int) -> Bounds:
+    """``bounds`` with each boundary moved to the nearest multiple of ``m``
+    (whole blocks of ``m`` planes; a shard may come out empty)."""
+    def r(v: int) -> int:
+        return m * ((2 * v + m) // (2 * m))
+    return [(r(a), r(b)) for a, b in bounds]
 
 
 class SpatialLayout:
@@ -156,15 +203,17 @@ class SpatialLayout:
         self.mesh = [torch.device(d) for d in mesh]
         self.axis, self.dim = axis, 2 + axis
         self.padded, self.spatial = tuple(padded), tuple(spatial)
+        if spatial[axis] < len(self.mesh):
+            raise ValueError(f"a sharded axis of {spatial[axis]} planes is shorter than the "
+                             f"mesh of {len(self.mesh)} shards: pick a longer axis or a "
+                             f"smaller mesh")
         self.bounds = shard_bounds(padded[axis], len(self.mesh), block)
         off, n = (padded[axis] - spatial[axis]) // 2, spatial[axis]
+        # a shard of padding planes alone keeps none
         self.crops = [(min(max(a - off, 0), n), min(max(b - off, 0), n)) for a, b in self.bounds]
-        if any(hi == lo for lo, hi in self.crops):
-            raise ValueError(f"a shard of {self.bounds} holds padding planes alone (the "
-                             f"volume's {n} planes start at {off}): use fewer shards")
         # each shard's crop in its own planes of the net's output
-        self.local_crops = [(lo + off - a, hi - lo) for (a, _), (lo, hi)
-                            in zip(self.bounds, self.crops)]
+        self.local_crops = [(min(max(lo + off - a, 0), b - a), hi - lo)
+                            for (a, b), (lo, hi) in zip(self.bounds, self.crops)]
 
     def split(self, t: torch.Tensor, cropped: bool = False) -> List[torch.Tensor]:
         """An (N, C, *spatial) tensor as shards on their devices, each
@@ -211,14 +260,14 @@ def shard_solver_state(mesh: Sequence[torch.device], spatial_axis: int,
                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Split a solve's volume entries over ``mesh`` along ``spatial_axis``:
     the canvas-shaped data entries (``base_input``, ``forget_data``,
-    ``net_mask``) at boundaries on multiples of ``block`` planes (the net's
-    block, ``engine.solver.net_multiple``), the volume-shaped ones (``img``,
+    ``net_mask``) at ``shard_bounds(..., block)`` (``block`` the net's,
+    ``engine.solver.shard_block``), the volume-shaped ones (``img``,
     ``mask``) and the state's ``out_best``/``out_last`` at the same
     boundaries cropped to the unpadded volume. Each shard is a contiguous
     tensor on its device;
     the rest (parameters, Adam, trackers, the POCS weights) stays whole.
     Returns ``(data, state)``; raises ``ValueError`` for an axis that is not
-    spatial or too short for the mesh."""
+    spatial or shorter than the mesh."""
     spatial = tuple(data["img"].shape[2:])
     padded = next((tuple(data[k].shape[2:]) for k in sorted(_PADDED_KEYS)
                    if data.get(k) is not None), spatial)
@@ -261,12 +310,13 @@ class _AllMax(torch.autograd.Function):
     order and splits the sum evenly over every voxel of the whole volume
     that equals the max, counted over all shards: ``torch.amax``'s rule
     (and ``jax.lax.reduce_max``'s), which a max of per-shard maxes would
-    break under ties on two shards."""
+    break under ties on two shards. A shard without planes has no max."""
 
     @staticmethod
     def forward(ctx, dims: Tuple[int, ...], *xs):
-        top = torch.amax(xs[0], dim=dims, keepdim=True)
-        for x in xs[1:]:
+        live = [x for x in xs if x.numel()]
+        top = torch.amax(live[0], dim=dims, keepdim=True)
+        for x in live[1:]:
             top = torch.maximum(top, torch.amax(x, dim=dims, keepdim=True).to(top.device))
         ctx.dims = dims
         ctx.save_for_backward(top, *xs)
@@ -287,25 +337,26 @@ def all_max(xs: Sequence[torch.Tensor], dims: Sequence[int]) -> List[torch.Tenso
     return list(_AllMax.apply(tuple(dims), *xs))
 
 
-class _HaloExchange(torch.autograd.Function):
-    """Each shard with the ``lo`` planes before it and the ``hi`` planes
-    after it along dim 2 + ``axis``, each taken from whichever shard holds
-    it, however far away; planes past the volume's ends follow ``edge``
-    (``_source``): zeros, copies of the end plane (``"replicate"``), the
-    mirror without the end plane (``"reflect"``, as ``F.pad`` and
-    ``jnp.pad`` reflect) or -inf (``"-inf"``, a max pool's padding). The
-    backward adds each halo plane's gradient into the plane it was copied
-    from, in a fixed order: into each shard its own gradient, then the
-    other shards' halos that copied it in shard order, then the edge
-    planes mapped onto it in shard order (a run of copies of one plane
-    summed first)."""
+class _Relayout(torch.autograd.Function):
+    """Shard i of the output holds the planes ``targets[i] = (s, e)`` of the
+    whole along dim 2 + ``axis``, each taken from whichever input shard
+    holds it, however far away (an empty interval: no planes); planes past
+    the volume's ends follow ``edge`` (``_source``): zeros, copies of the
+    end plane (``"replicate"``), the mirror without the end plane
+    (``"reflect"``, as ``F.pad`` and ``jnp.pad`` reflect) or -inf
+    (``"-inf"``, a max pool's padding). Shard i's output lives on input
+    shard i's device. The backward adds each copied plane's gradient into
+    the plane it was copied from, in a fixed order: into each shard the
+    gradient of its own planes in its own output, then the copies in the
+    other shards' outputs in shard order, then the edge planes mapped onto
+    it in shard order (a run of copies of one plane summed first)."""
 
     @staticmethod
-    def forward(ctx, axis: int, lo: int, hi: int, edge: str, *xs):
+    def forward(ctx, axis: int, targets: Tuple[Tuple[int, int], ...], edge: str, *xs):
         dim = 2 + axis
         sizes = [x.shape[dim] for x in xs]
-        runs = _halo_runs(sizes, lo, hi, edge)
-        ctx.dim, ctx.lo, ctx.sizes, ctx.runs = dim, lo, sizes, runs
+        runs = _halo_runs(sizes, targets, edge)
+        ctx.dim, ctx.shapes, ctx.runs = dim, [x.shape for x in xs], runs
         outs = []
         for x, rs in zip(xs, runs):
             parts = []
@@ -323,14 +374,26 @@ class _HaloExchange(torch.autograd.Function):
                 else:
                     piece = xs[j].narrow(dim, start, count)
                 parts.append(piece.to(x.device))
-            outs.append(torch.cat(parts, dim) if len(parts) > 1 else parts[0].clone())
+            if not parts:
+                outs.append(x.new_empty([0 if d == dim else e for d, e in enumerate(x.shape)]))
+            else:
+                outs.append(torch.cat(parts, dim) if len(parts) > 1 else parts[0].clone())
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        dim, lo, sizes = ctx.dim, ctx.lo, ctx.sizes
-        dxs = [g.narrow(dim, lo, s).clone() for g, s in zip(gs, sizes)]
-        # halo planes that copied a plane inside the volume, then edge planes
+        dim = ctx.dim
+        dxs = []
+        for i, (g, shape) in enumerate(zip(gs, ctx.shapes)):
+            own = [r for r in ctx.runs[i] if r[2] == i and not r[5]]
+            if len(own) == 1 and own[0][1] == shape[dim]:   # the whole shard, in one run
+                dxs.append(g.narrow(dim, own[0][0], shape[dim]).clone())
+                continue
+            dx = g.new_zeros(shape)
+            for pos, count, _, start, _, _ in own:
+                dx.narrow(dim, start, count).copy_(g.narrow(dim, pos, count))
+            dxs.append(dx)
+        # planes copied into the other shards' outputs, then edge planes
         for edge_pass in (False, True):
             for i, dx in enumerate(dxs):
                 for k, (g, rs) in enumerate(zip(gs, ctx.runs)):
@@ -344,7 +407,22 @@ class _HaloExchange(torch.autograd.Function):
                             dx.narrow(dim, start - count + 1, count).add_(piece.flip(dim))
                         else:
                             dx.narrow(dim, start, count).add_(piece)
-        return (None, None, None, None, *dxs)
+        return (None, None, None, *dxs)
+
+
+class _HaloExchange(_Relayout):
+    """``_Relayout`` onto each shard's planes with the ``lo`` planes before
+    and the ``hi`` after it (a shard without planes gets none)."""
+
+    @staticmethod
+    def forward(ctx, axis: int, lo: int, hi: int, edge: str, *xs):
+        targets = tuple((a - lo, b + hi) if b > a else (a, a)
+                        for a, b in bounds_of(xs, 2 + axis))
+        return _Relayout.forward(ctx, axis, targets, edge, *xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *_Relayout.backward(ctx, *gs))
 
 
 def _source(g: int, n: int, edge: str) -> Optional[int]:
@@ -365,20 +443,23 @@ def _source(g: int, n: int, edge: str) -> Optional[int]:
     raise ValueError(f"edge is 'zero', 'replicate', 'reflect' or '-inf', got {edge!r}")
 
 
-def _halo_runs(sizes: Sequence[int], lo: int, hi: int, edge: str) -> List[list]:
-    """Each shard's planes ``[a - lo, b + hi)`` as runs ``(pos, count, j,
-    start, step, at_edge)``: ``count`` planes from position ``pos`` of the
-    extended shard copy shard ``j``'s planes ``start, start + step, ...``
-    (``step`` 1, -1 for a mirror, 0 for copies of one plane; ``j`` None for
-    a constant run); ``at_edge`` marks planes past the volume's ends."""
+def _halo_runs(sizes: Sequence[int], targets: Sequence[Tuple[int, int]],
+               edge: str) -> List[list]:
+    """Each shard's target planes ``[s, e)`` of the whole as runs ``(pos,
+    count, j, start, step, at_edge)``: ``count`` planes from position
+    ``pos`` of the shard's output copy shard ``j``'s planes ``start, start
+    + step, ...`` (``step`` 1, -1 for a mirror, 0 for copies of one plane;
+    ``j`` None for a constant run); ``at_edge`` marks planes past the
+    volume's ends. A plane's source shard is the last whose first plane is
+    at or before it, so a shard without planes is never one."""
     offsets = [0]
     for s in sizes:
         offsets.append(offsets[-1] + s)
     n = offsets[-1]
     out = []
-    for i in range(len(sizes)):
+    for lo_g, hi_g in targets:
         runs: list = []
-        for pos, g in enumerate(range(offsets[i] - lo, offsets[i + 1] + hi)):
+        for pos, g in enumerate(range(lo_g, hi_g)):
             src, at_edge = _source(g, n, edge), not 0 <= g < n
             j = None if src is None else bisect.bisect_right(offsets, src) - 1
             local = None if src is None else src - offsets[j]
@@ -398,12 +479,69 @@ def _halo_runs(sizes: Sequence[int], lo: int, hi: int, edge: str) -> List[list]:
     return out
 
 
+def relayout(xs: Sequence[torch.Tensor], axis: int, targets: Sequence[Tuple[int, int]],
+             edge: str = "zero") -> List[torch.Tensor]:
+    """Shard i with the planes ``targets[i]`` of the whole along spatial
+    ``axis``, past the volume's ends as ``F.pad`` with ``edge`` would give
+    them (``_Relayout``); the shards as they are where each target is its
+    own planes."""
+    targets = tuple((int(a), int(b)) if b > a else (int(a), int(a)) for a, b in targets)
+    if all(t == b or (t[0] == t[1] and b[0] == b[1])
+           for t, b in zip(targets, bounds_of(xs, 2 + axis))):
+        return list(xs)
+    return list(_Relayout.apply(axis, targets, edge, *xs))
+
+
 def halo_exchange(xs: Sequence[torch.Tensor], axis: int, lo: int, hi: int,
                   edge: str = "zero") -> List[torch.Tensor]:
     """Each shard extended by ``lo`` planes before it and ``hi`` after it
     along spatial ``axis``, as ``F.pad`` of the whole volume with ``edge``
-    (``_HaloExchange``) would give it, at any width."""
+    would give it, at any width (``_HaloExchange``); a shard without
+    planes stays without."""
+    if not (lo or hi):
+        return list(xs)
     return list(_HaloExchange.apply(axis, lo, hi, edge, *xs))
+
+
+def windows(xs: Sequence[torch.Tensor], axis: int, k: int, stride: int, lo: int,
+            edge: str = "zero", n_out: Optional[int] = None,
+            out: Optional[Bounds] = None) -> Tuple[List[torch.Tensor], Bounds]:
+    """The input window of each shard's output planes under a window op of
+    ``k`` planes at ``stride`` along spatial ``axis``, padded by ``lo``
+    planes before the volume (output o reads input planes ``[stride * o -
+    lo, stride * o - lo + k)``, past the ends as ``edge`` pads): the
+    planes ``out`` gives each shard (by default those it owns, ``owned``,
+    of ``n_out`` outputs, ceil(n / stride) by default). Returns the
+    windows, ``relayout``'s of the shards (the shards themselves where each
+    window is its own planes), and the output bounds; the op unpadded along
+    the axis on a window gives the shard's output planes, and a shard that
+    owns none gets an empty window."""
+    dim = 2 + axis
+    bounds = bounds_of(xs, dim)
+    n = bounds[-1][1]
+    if out is None:
+        out = owned(bounds, stride, -(-n // stride) if n_out is None else n_out)
+    targets = []
+    for c, d in out:
+        e = stride * (d - 1) - lo + k
+        if k < stride:   # the stride's last planes too, where they exist
+            e = max(e, min(stride * d - lo, n))
+        targets.append((stride * c - lo, e) if d > c else (stride * c, stride * c))
+    return relayout(xs, axis, targets, edge), list(out)
+
+
+def on_shards(fn, xs: Sequence[torch.Tensor], dim: int,
+              sizes: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """``fn(x, i)`` for each shard ``i`` whose output holds planes along
+    ``dim`` (``sizes``; by default its input's extent); for the others,
+    which launch nothing, an empty tensor of the outputs' shape on their
+    shard's device."""
+    sizes = [x.shape[dim] for x in xs] if sizes is None else sizes
+    ys = [fn(x, i) if size else None for i, (x, size) in enumerate(zip(xs, sizes))]
+    like = next(y for y in ys if y is not None)
+    shape = [0 if d == dim else e for d, e in enumerate(like.shape)]
+    return [like.new_zeros(shape, device=x.device) if y is None else y
+            for x, y in zip(xs, ys)]
 
 
 class _Gather(torch.autograd.Function):
@@ -513,8 +651,9 @@ class ShardedStep:
                             f"{out_dtype}")
         outs = self.layout.crop(outs)
         imgs, masks = data["img"], data["mask"]
-        if s.fused_loss:
-            sums = all_reduce([fused_loss_sums(o, t, m) for o, t, m in zip(outs, imgs, masks)])
+        if s.fused_loss:   # a shard whose crop holds no planes has no sums
+            sums = all_reduce([fused_loss_sums(o, t, m) for o, t, m in zip(outs, imgs, masks)
+                               if o.numel()])
             main, mets = metrics_from_sums(sums[0], float(sum(o.numel() for o in outs)), s.loss)
             ys = {"snr": mets["snr"].detach(), "pcorr": mets["pcorr"].detach()}
         else:
@@ -554,9 +693,20 @@ class ShardedStep:
         m, cls = self.model, covered_class(self.model)
         if cls is None:
             from .spatial_custom import run
-            return run(self, xs, masks)
-        if cls is not MulResUnet:
-            return walk(self, xs, masks)
+            ys = run(self, xs, masks)
+        elif cls is not MulResUnet:
+            ys = walk(self, xs, masks)
+        else:
+            ys = self._mulresunet(xs)
+        # an output of the input's planes on the input's bounds (a phase
+        # net's blocks may have moved them)
+        dim = self.layout.dim
+        if bounds_of(ys, dim)[-1][1] != bounds_of(xs, dim)[-1][1]:
+            return ys
+        return relayout(ys, self.layout.axis, bounds_of(xs, dim))
+
+    def _mulresunet(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        m = self.model
         spatial = list(xs[0].shape[2:])
         spatial[self.layout.axis] = sum(x.shape[self.layout.dim] for x in xs)
         m.check_phase_dims(spatial)
@@ -616,23 +766,27 @@ class ShardedStep:
         replicated weight: a stride-1 conv (the plain one, or a phase ->
         phase conv with the folded kernel) over a zero halo of (k - 1) / 2
         planes, unpadded along the axis (``conv_halo``); a stride-2 down
-        conv (k odd, p = (k - 1) / 2) over p planes on the left and p - 1 on
-        the right (one on the left for k = 3), as each shard starts on an
-        even plane; the
-        phase entry (stride 2, kernel k + 1) over p planes on each side; the
-        phase exit (kernel 2, padding (1, 0)) over one plane on the left."""
+        conv (k odd, p = (k - 1) / 2) over the window of the output planes
+        each shard owns (``windows``); the phase entry (stride 2, kernel k +
+        1) over its window, its output planes on whole blocks of the phase
+        depth where ``space_to_depth`` follows; the phase exit (kernel 2,
+        padding (1, 0)) over one plane on the left."""
         dt = m.dtype if m.dtype is not None else xs[0].dtype
         k = m.kernel_size
         xs = [x.to(dt) for x in xs]
         ws = [w.to(dt) for w in self._rep(m.kernel)]
         if m.phase_out and not m.phase_in:      # plain -> phase
-            p = (k - 1) // 2
+            p, dim = (k - 1) // 2, self.layout.dim
+            out = None
+            if m.phase_depth > 1:   # whole phase blocks for space_to_depth
+                n = bounds_of(xs, dim)[-1][1]
+                out = rounded(owned(bounds_of(xs, dim), 2, n // 2), 2 ** (m.phase_depth - 1))
             ys = _each(space_to_depth, self._halo_conv(
-                xs, [entry_kernel(w) for w in ws], 2, (p, p), (p, p)), m.phase_depth - 1)
+                xs, [entry_kernel(w) for w in ws], 2, (p, p), out), m.phase_depth - 1)
         elif m.phase_in and not m.phase_out:    # phase -> plain at half resolution
             pads = phase_paddings(k, 2)
             ys = self._halo_conv(_each(depth_to_space, xs, m.phase_depth - 1),
-                                 [phase_kernel(w, 2) for w in ws], 1, pads, pads)
+                                 [phase_kernel(w, 2) for w in ws], 1, pads)
         elif m.pad == "reflection" and k > 1:
             ys = self._reflect_conv(xs, ws, m.stride, (k - 1) // 2)
         elif m.stride == 1:
@@ -640,13 +794,14 @@ class ShardedStep:
                 ws = [phase_kernel(w, 1) for w in ws]
             p, ax = (ws[0].shape[2] - 1) // 2, self.layout.axis
             if p:
-                ys = [conv_halo(x, w, ax, p)
-                      for x, w in zip(halo_exchange(xs, ax, p, p, "zero"), ws)]
+                ys = on_shards(lambda x, i: conv_halo(x, ws[i], ax, p),
+                               halo_exchange(xs, ax, p, p, "zero"), self.layout.dim,
+                               [x.shape[self.layout.dim] for x in xs])
             else:
-                ys = [conv_same(x, w, 1, 0) for x, w in zip(xs, ws)]
-        else:   # a stride-2 down conv, k odd: each shard starts on an even plane
+                ys = on_shards(lambda x, i: conv_same(x, ws[i], 1, 0), xs, self.layout.dim)
+        else:   # a stride-2 down conv, k odd
             p = (k - 1) // 2
-            ys = self._halo_conv(xs, ws, 2, (p, p), (p, max(p - 1, 0)))
+            ys = self._halo_conv(xs, ws, 2, (p, p))
         if m.bias is not None:
             lanes = 2 ** ((ys[0].ndim - 2) * m.phase_depth) if m.phase_out else 1
             ys = [y + _bcast(_lanes(b.to(dt), lanes), y.ndim)
@@ -656,29 +811,35 @@ class ShardedStep:
     def _reflect_conv(self, xs: List[torch.Tensor], ws: List[torch.Tensor], stride: int,
                       p: int) -> List[torch.Tensor]:
         """A reflection-padded conv (``Conv(pad="reflection")``: ``F.pad``
-        reflect by p, then unpadded) on the shards: a reflect halo of p
-        planes along the axis (p and p - 1 at stride 2, each shard starting
-        on an even plane), ``F.pad`` reflect along the others, unpadded;
-        like the plain net's, its weight gradient never takes the wgrad
-        kernel, whose gate admits same-padded convs only."""
-        ax = self.layout.axis
-        xs = halo_exchange(xs, ax, p, p if stride == 1 else p - 1, "reflect")
+        reflect by p, then unpadded) on the shards: each shard's window
+        along the axis over a reflect edge (``windows``), ``F.pad`` reflect
+        along the others, unpadded; like the plain net's, its weight
+        gradient never takes the wgrad kernel, whose gate admits same-padded
+        convs only."""
+        ax, dim = self.layout.axis, self.layout.dim
+        k = ws[0].shape[2 + ax]
+        n = bounds_of(xs, dim)[-1][1]
+        xs, out = windows(xs, ax, k, stride, p, "reflect", (n + 2 * p - k) // stride + 1)
         nd = xs[0].dim() - 2
         spec = [p] * (2 * nd)
         spec[2 * (nd - 1 - ax)] = spec[2 * (nd - 1 - ax) + 1] = 0
-        return [conv_same(F.pad(x, spec, mode="reflect"), w, stride, 0)
-                for x, w in zip(xs, ws)]
+        return on_shards(lambda x, i: conv_same(F.pad(x, spec, mode="reflect"), ws[i], stride, 0),
+                         xs, dim, [d - c for c, d in out])
 
     def _halo_conv(self, xs: List[torch.Tensor], ws: List[torch.Tensor], stride: int,
-                   pad: Tuple[int, int], halo: Tuple[int, int]) -> List[torch.Tensor]:
-        """``conv_same`` of each shard over a zero halo of ``halo`` (lo, hi)
-        planes along the axis, unpadded there, ``pad`` on the other axes."""
-        ax = self.layout.axis
-        if any(halo):
-            xs = halo_exchange(xs, ax, *halo, "zero")
+                   pad: Tuple[int, int], out: Optional[Bounds] = None) -> List[torch.Tensor]:
+        """``conv_same`` of each shard's window (``windows``: the output
+        planes it owns, or ``out``'s, over a zero edge) at ``stride``,
+        unpadded along the axis, ``pad`` (lo, hi) on the other axes."""
+        ax, dim = self.layout.axis, self.layout.dim
+        k = ws[0].shape[2 + ax]
+        n = bounds_of(xs, dim)[-1][1]
+        xs, out = windows(xs, ax, k, stride, pad[0], "zero",
+                          (n + pad[0] + pad[1] - k) // stride + 1, out)
         pads = [pad] * (xs[0].dim() - 2)
         pads[ax] = (0, 0)
-        return [conv_same(x, w, stride, pads) for x, w in zip(xs, ws)]
+        return on_shards(lambda x, i: conv_same(x, ws[i], stride, pads), xs, dim,
+                         [d - c for c, d in out])
 
     def _norm(self, m: Norm, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         """``blocks.Norm`` of the whole volume: the shards' float32 sums
@@ -709,22 +870,36 @@ class ShardedStep:
         return [m.act(y) for y in self._norm(m.Norm_0, self._conv(m.Conv_0, xs))]
 
     def _upsample(self, xs: List[torch.Tensor], mode: Optional[str] = None,
-                  into_phase: bool = False) -> List[torch.Tensor]:
+                  into_phase: bool = False, out: Optional[Bounds] = None
+                  ) -> List[torch.Tensor]:
         """The x2 upsample of ``mode`` (the model's ``upsample_mode`` by
-        default), or with ``into_phase`` ``upsample_into_phase``: 'nearest'
-        is local; a linear mode upsamples each shard with one
-        plane of each neighbour (a copy of its own edge plane at the
-        volume's ends, as the resize clamps there) and crops the output
-        planes on each side those planes alone decide (two of the resize,
-        one of the phase stencil, whose output grid is its input's)."""
+        default), or with ``into_phase`` ``upsample_into_phase`` (whose
+        output grid is its input's), its output on the bounds ``out`` (the
+        input's doubled, or its own with ``into_phase``, by default): each
+        shard reads the input planes its output planes need ('nearest'),
+        and for a linear mode one plane more on each side (a copy of the
+        edge plane at the volume's ends, as the resize clamps there), and
+        its output is cropped to its own planes: those cropped away at
+        either end are the ones its outer planes alone decide."""
         mode = self.model.upsample_mode if mode is None else mode
-        if mode == "nearest":
-            return [upsample_into_phase(x, mode) if into_phase else upsample(x, 2, mode)
-                    for x in xs]
-        dim, crop = self.layout.dim, 1 if into_phase else 2
-        ys = [upsample_into_phase(e, "linear") if into_phase else upsample(e, 2, mode)
-              for e in halo_exchange(xs, self.layout.axis, 1, 1, "replicate")]
-        return [y.narrow(dim, crop, y.shape[dim] - 2 * crop) for y in ys]
+        ax, dim = self.layout.axis, self.layout.dim
+        f = 1 if into_phase else 2
+        if out is None:
+            out = [(f * a, f * b) for a, b in bounds_of(xs, dim)]
+        halo = 0 if mode == "nearest" else 1
+        starts = [c // f - halo for c, _ in out]
+        xs = relayout(xs, ax, [(a, -(-d // f) + halo) if d > c else (a, a)
+                               for a, (c, d) in zip(starts, out)], "replicate")
+
+        def up(x: torch.Tensor, i: int) -> torch.Tensor:
+            if into_phase:
+                y = upsample_into_phase(x, "nearest" if mode == "nearest" else "linear")
+            else:
+                y = upsample(x, 2, mode)
+            c, d = out[i]
+            lo = c - f * starts[i]
+            return y if (lo, d - c) == (0, y.shape[dim]) else y.narrow(dim, lo, d - c)
+        return on_shards(up, xs, dim, [d - c for c, d in out])
 
     def _multires(self, m: MultiResBlock, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         out1 = self._cna(m.ConvNormAct_0, xs)
@@ -760,9 +935,13 @@ class ShardedStep:
         if i < len(m.filters) - 1:
             d = self._level(i + 1, d)
         d = _each(depth_to_space, d, m.pdepth(i))
-        if m.phased(i - 1):   # the x2 upsample lands in phase layout
-            d = _each(space_to_depth, self._upsample(d, into_phase=True), m.pdepth(i - 1) - 1)
+        # the x2 upsample lands on the bounds of the level's input
+        hb = bounds_of(hs, self.layout.dim)
+        if m.phased(i - 1):   # in phase layout: its depth-1 grid is d's
+            q = m.pdepth(i - 1) - 1
+            d = _each(space_to_depth, self._upsample(
+                d, into_phase=True, out=[(a << q, b << q) for a, b in hb]), q)
         else:
-            d = self._upsample(d)
+            d = self._upsample(d, out=hb)
         y = [torch.cat([a, b], dim=1) for a, b in zip(s, d)] if s is not None else d
         return self._block(m.get_submodule(names["dec"]), i, y)

@@ -17,21 +17,25 @@ what its unsharded form launches:
     child step, so its parameters, halos, dropout draws and kernel launches
     are those of today's walks;
   * local ops: elementwise ops and activations, casts, ``where``,
-    ``clamp``, ``cat``/``stack``, slicing and splits along the other dims,
+    ``clamp``, ``cat``/``stack`` (two shard lists of one extent along the
+    sharded dim but other bounds: the second relaid onto the first's,
+    ``spatial.relayout``), slicing and splits along the other dims,
     reductions, ``softmax`` and ``F.linear`` over them, reshapes that keep
     the sharded dim whole and its own, permutations, ``F.pad`` along the
     other dims, nearest ``F.interpolate`` by an integer, pools whose kernel
     is their stride;
-  * halo ops (``halo_exchange``): ``F.conv*`` with zero padding (an int, a
-    tuple or ``'same'``) whose output along the axis is its input over the
-    stride, run unpadded along the axis through cuDNN's autograd, as the
+  * window ops (``spatial.windows``: each shard owns the output planes
+    whose first input plane it holds and reads their window, a halo or a
+    crop): ``F.conv*`` with zero padding (an int, a tuple or ``'same'``)
+    whose output along the axis is its input over the stride (rounded up
+    or down), run unpadded along the axis through cuDNN's autograd, as the
     unsharded module runs it; ``F.pad`` reflect, replicate or zero along
     the axis, kept pending on the list and taken by the next unpadded conv
-    or pool as that edge's halo; padded or overlapping max pools (a -inf
-    halo) and avg pools (a zero halo); linear ``F.interpolate`` by an
-    integer (the resize's replicate halo: one plane, two for bicubic,
-    the output planes they alone decide cropped); ``F.conv_transpose*``
-    whose output is its input times the stride (``_deconv``'s halo);
+    or pool as that edge's padding; pools (-inf padding for the max, zeros
+    for the avg); linear ``F.interpolate`` by an integer (the resize's
+    replicate halo: one plane, two for bicubic, the output planes they
+    alone decide cropped); ``F.conv_transpose*`` whose output is its input
+    times the stride (``_deconv``'s halo);
   * spatial reductions: ``sum``/``mean`` over dims that hold the sharded
     one all-reduce the shards' float32 (float64) partial sums in shard
     order, ``amax``/``amin``/``max``/``min`` take ``all_max``, ``var``,
@@ -64,7 +68,10 @@ gradients, a pending pad used otherwise. ``meta_pass`` runs the forward
 once over meta shards before anything is drawn: it meets every refusal and
 finds the shard block, the largest product of the strides met along the
 axis on any path (a dispatched child's own block scaled by the factor at
-its call), so that every stride divides every shard.
+its call): the shards lie on it where the axis holds at least one block a
+shard, so every stride halves every shard, and elsewhere they need not. A
+shard that holds no planes (at a deep level of a fine split) launches
+nothing.
 """
 from __future__ import annotations
 
@@ -88,7 +95,8 @@ from ..ops import phase_space as ps
 from ..ops.conv_vjp import _pairs, conv_halo, conv_same
 from ..ops.upsample import linear_upsample2x
 from . import spatial_zoo
-from .spatial import ShardedStep, all_max, all_reduce, halo_exchange, shard_bounds
+from .spatial import (ShardedStep, all_max, all_reduce, bounds_of, halo_exchange, on_shards,
+                      relayout, rounded, shard_bounds, windows)
 
 __all__ = ["ShardList", "meta_pass", "run"]
 
@@ -102,29 +110,21 @@ def _refuse(what: str):
                               f"vocabulary: {ITEM}")
 
 
-class _Short(Exception):
-    """A meta pass met a stride that does not divide a shard."""
-
-
 class _Walk:
     """One run of a caller's forward over the shards: its step, whether it
-    needs gradients, and the shard block its strides need."""
+    needs gradients, and the shard block its strides prefer."""
 
-    def __init__(self, step: ShardedStep, meta: bool):
-        self.step, self.meta = step, meta
+    def __init__(self, step: ShardedStep):
+        self.step = step
         self.mesh = step.layout.mesh
         self.grad = torch.is_grad_enabled()
         self.block = 1
 
     def need(self, x: "ShardList", stride: int) -> None:
-        """Record that ``stride`` divides each shard of ``x``: ``stride``
-        planes of ``x`` are ``stride * scale`` planes of the volume."""
+        """Record that a shard of ``x`` halves exactly under ``stride`` where
+        it holds whole blocks of ``stride * scale`` planes of the volume
+        (``stride`` planes of ``x``): the preferred shard block."""
         self.block = math.lcm(self.block, (Fraction(stride) * x._scale).numerator)
-        if any(e % stride for e in x._extents()):
-            if self.meta:
-                raise _Short()
-            raise RuntimeError(f"a shard of {x._extents()} planes is not a whole number of "
-                               f"a stride of {stride}: the shard block misses it")
 
     def place(self, t: torch.Tensor, i: int) -> torch.Tensor:
         """A plain tensor on shard ``i``'s device: a parameter's or buffer's
@@ -320,32 +320,27 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def _halo(x: ShardList, lo: int, hi: int, edge: str) -> Shards:
-    if lo or hi:
-        return halo_exchange(x._parts, x._sdim - 2, lo, hi, edge)
-    return list(x._parts)
-
-
 def _windowed(walk: _Walk, x: ShardList, k: int, s: int, pad: Tuple[int, int], edge: str,
-              out_ext: int, name: str) -> Tuple[Shards, int, int, str]:
-    """The parts of ``x`` with the planes a window of ``k`` planes at stride
-    ``s`` reads past each shard: ``lo`` before, its padding (``pad``, whose
-    planes follow ``edge``) or a pending pad's (and its edge); ``hi``
-    after. The op's output along the axis must be its input's over the
-    stride. Returns the parts, ``lo``, ``hi`` and the edge."""
-    ext, lo = x._logical.shape[x._sdim], pad[0]
+              out_ext: int, name: str) -> Tuple[Shards, int, int, str, List[int]]:
+    """Each shard's window of the outputs it owns (``spatial.windows``) of a
+    window of ``k`` planes at stride ``s``: its padding (``pad``, whose
+    planes follow ``edge``) or a pending pad's (and its edge) before and
+    after the volume. The op's output along the axis must be its input's
+    over the stride, rounded up or down. Returns the windows, ``lo``,
+    ``hi``, the edge and each shard's output planes."""
+    ext, (lo, hi) = x._logical.shape[x._sdim], pad
     if x._pad is not None:
         if tuple(pad) != (0, 0):
             _refuse(f"{name} with padding of its own along the sharded dim after a pending "
                     f"pad")
         lo, hi, edge = x._pad
         ext -= lo + hi
-    if ext % s or out_ext != ext // s:
+    if out_ext not in (ext // s, -(-ext // s)):
         _refuse(f"{name} whose output along the sharded dim ({out_ext} planes) is not its "
                 f"input's {ext} over the stride {s}")
     walk.need(x, s)
-    hi = max(k - s - lo, 0)
-    return _halo(x, lo, hi, edge), lo, hi, edge
+    xs, out = windows(x._parts, x._sdim - 2, k, s, lo, edge, out_ext)
+    return xs, lo, hi, edge, [d - c for c, d in out]
 
 
 # -- the vocabulary ------------------------------------------------------------
@@ -372,9 +367,39 @@ def _elementwise(walk: _Walk, func, args, kwargs):
     logical = func(*_logicals(args), **_logicals(kwargs))
     if not isinstance(logical, torch.Tensor):
         _refuse(name)
+    args, kwargs = _onto_first(walk, name, (args, kwargs))
     leaves = [t for t in _leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
     sd, split, scale = _aligned(name, leaves, logical)
     return _out(walk, _per_part(walk, func, args, kwargs, split), logical, sd, scale)
+
+
+def _onto_first(walk: _Walk, name: str, obj):
+    """``obj`` (an op's arguments) with each shard list sharded as the
+    first one but on other bounds relaid onto the first's bounds."""
+    sharded = [t for t in _leaves(obj) if isinstance(t, ShardList) and t._sdim is not None]
+    if not sharded:
+        return obj
+    ref = sharded[0]
+    bounds = bounds_of(ref._parts, ref._sdim)
+    moved = {}
+    for t in sharded[1:]:
+        if t._pad is not None or bounds_of(t._parts, t._sdim) == bounds:
+            continue
+        if t._logical.ndim - t._sdim != ref._logical.ndim - ref._sdim \
+                or bounds_of(t._parts, t._sdim)[-1][1] != bounds[-1][1]:
+            _refuse(f"{name} of shard lists that span the sharded dim otherwise")
+        moved[id(t)] = _wrap(walk, relayout(t._parts, t._sdim - 2, bounds), t._sdim, t._scale,
+                             t._logical)
+
+    def sub(o):
+        if isinstance(o, torch.Tensor):
+            return moved.get(id(o), o)
+        if isinstance(o, (list, tuple)) and not isinstance(o, torch.Size):
+            return type(o)(sub(v) for v in o)
+        if isinstance(o, dict):
+            return {k: sub(v) for k, v in o.items()}
+        return o
+    return sub(obj) if moved else obj
 
 
 def _aligned(name: str, leaves: Sequence[torch.Tensor], out: torch.Tensor):
@@ -575,6 +600,7 @@ def _getitem(walk: _Walk, func, args, kwargs):
 def _cat(walk: _Walk, func, args, kwargs):
     """``cat``/``stack`` along any dim but the sharded one."""
     name = _name(func)
+    args, kwargs = _onto_first(walk, name, (args, kwargs))
     tensors = args[0] if args else kwargs["tensors"]
     d = args[1] if len(args) > 1 else kwargs.get("dim", kwargs.get("axis", 0))
     logical = func(*_logicals(args), **_logicals(kwargs))
@@ -864,19 +890,20 @@ def _conv(walk: _Walk, func, args, kwargs):
     ks, stride, dil = w.shape[2:], _tuple(a["stride"], nd), _tuple(a["dilation"], nd)
     pads = _conv_pads(a["padding"], ks, dil)
     k, s = dil[ax] * (ks[ax] - 1) + 1, stride[ax]
-    xs = _windowed(walk, x, k, s, pads[ax], "zero", logical.shape[x._sdim], name)[0]
+    xs, _, _, _, sizes = _windowed(walk, x, k, s, pads[ax], "zero", logical.shape[x._sdim],
+                                   name)
     pads[ax] = (0, 0)
     if all(p == q for p, q in pads):
         padding, pre = tuple(p for p, _ in pads), None
     else:
         padding, pre = 0, [v for p in reversed(pads) for v in p]
-    ys = []
-    for i, t in enumerate(xs):
+
+    def conv(t: torch.Tensor, i: int) -> torch.Tensor:
         if pre is not None:
             t = F.pad(t, pre)
-        ys.append(func(t, walk.place(w, i), None if b is None else walk.place(b, i),
-                       stride, padding, dil, a["groups"]))
-    return _wrap(walk, ys, x._sdim, x._scale * s, logical)
+        return func(t, walk.place(w, i), None if b is None else walk.place(b, i), stride,
+                    padding, dil, a["groups"])
+    return _wrap(walk, on_shards(conv, xs, x._sdim, sizes), x._sdim, x._scale * s, logical)
 
 
 def _conv_transpose(walk: _Walk, func, args, kwargs):
@@ -902,12 +929,14 @@ def _conv_transpose(walk: _Walk, func, args, kwargs):
         _refuse(f"{name} whose output along the sharded dim is not its input's times the "
                 f"stride")
     rest = {n: a[n] for n in ("stride", "padding", "output_padding", "groups", "dilation")}
-    ys = []
-    for i, (t, e) in enumerate(zip(_halo(x, lo, hi, "zero"), x._extents())):
+    sizes = [s * e for e in x._extents()]
+
+    def deconv(t: torch.Tensor, i: int) -> torch.Tensor:
         y = func(t, walk.place(w, i), None if a["bias"] is None else walk.place(a["bias"], i),
                  **rest)
-        ys.append(y.narrow(x._sdim, s * lo, s * e))
-    return _wrap(walk, ys, x._sdim, x._scale / s, logical)
+        return y.narrow(x._sdim, s * lo, sizes[i])
+    xs = halo_exchange(x._parts, x._sdim - 2, lo, hi, "zero")
+    return _wrap(walk, on_shards(deconv, xs, x._sdim, sizes), x._sdim, x._scale / s, logical)
 
 
 def _pool(walk: _Walk, func, args, kwargs):
@@ -938,12 +967,13 @@ def _pool(walk: _Walk, func, args, kwargs):
     k, s = dil[ax] * (ks[ax] - 1) + 1, st[ax]
     if pd[ax] and not is_max and not a["count_include_pad"]:
         _refuse(f"{name} padded along the sharded dim without counting its padding")
-    xs = _windowed(walk, x, k, s, (pd[ax], pd[ax]), "-inf" if is_max else "zero",
-                   logical.shape[x._sdim], name)[0]
+    xs, _, _, _, sizes = _windowed(walk, x, k, s, (pd[ax], pd[ax]),
+                                   "-inf" if is_max else "zero", logical.shape[x._sdim], name)
     call = {n: a[n] for n in names[1:] if n in a}
     call.update(kernel_size=ks, stride=st, padding=tuple(0 if d == ax else pd[d]
                                                         for d in range(nd)))
-    return _wrap(walk, [func(t, **call) for t in xs], x._sdim, x._scale * s, logical)
+    return _wrap(walk, on_shards(lambda t, i: func(t, **call), xs, x._sdim, sizes), x._sdim,
+                 x._scale * s, logical)
 
 
 def _adaptive_pool(walk: _Walk, func, args, kwargs):
@@ -964,11 +994,9 @@ def _adaptive_pool(walk: _Walk, func, args, kwargs):
     size = list(_tuple(a["output_size"], nd))
     out_ext, ext = logical.shape[x._sdim], x._logical.shape[x._sdim]
     if out_ext == ext:
-        ys = []
-        for p in x._parts:
-            size[ax] = None
-            ys.append(func(p, tuple(size)))
-        return _wrap(walk, ys, x._sdim, x._scale, logical)
+        size[ax] = None
+        return _wrap(walk, on_shards(lambda p, i: func(p, tuple(size)), x._parts, x._sdim),
+                     x._sdim, x._scale, logical)
     if out_ext != 1:
         _refuse(f"{name} to {out_ext} of {ext} planes along the sharded dim")
     if "max" in name:
@@ -1012,15 +1040,17 @@ def _interpolate(walk: _Walk, func, args, kwargs):
     else:
         _refuse(f"{name}(mode={mode!r}, align_corners={a['align_corners']}) along the "
                 f"sharded dim")
-    ys = []
-    for t, e in zip(_halo(x, halo, halo, "replicate"), x._extents()):
+    sizes = [r * e for e in x._extents()]
+
+    def resize(t: torch.Tensor, i: int) -> torch.Tensor:
         size = a["size"]
         if size is not None:
             size = list(_tuple(size, nd))
             size[ax] = t.shape[x._sdim] * r
         y = func(t, size=size, **rest)
-        ys.append(y.narrow(x._sdim, r * halo, r * e) if halo else y)
-    return _wrap(walk, ys, x._sdim, x._scale / r, logical)
+        return y.narrow(x._sdim, r * halo, sizes[i]) if halo else y
+    xs = halo_exchange(x._parts, x._sdim - 2, halo, halo, "replicate")
+    return _wrap(walk, on_shards(resize, xs, x._sdim, sizes), x._sdim, x._scale / r, logical)
 
 
 def _pad(walk: _Walk, func, args, kwargs):
@@ -1100,14 +1130,14 @@ def _conv_same(walk: _Walk, func, args, kwargs):
     ax = _spatial_axis(x, nd, "conv_same")
     pads = list(_pairs(a["padding"], nd))
     k = w.shape[2 + ax]
-    xs, lo, hi, edge = _windowed(walk, x, k, s, pads[ax], "zero", logical.shape[x._sdim],
-                                 "conv_same")
+    xs, lo, hi, edge, sizes = _windowed(walk, x, k, s, pads[ax], "zero",
+                                        logical.shape[x._sdim], "conv_same")
     pads[ax] = (0, 0)
     ws = [walk.place(w, i) for i in range(len(xs))]
     if s == 1 and edge == "zero" and lo == hi == (k - 1) // 2 and lo:
-        ys = [conv_halo(t, v, ax, pads) for t, v in zip(xs, ws)]
+        ys = on_shards(lambda t, i: conv_halo(t, ws[i], ax, pads), xs, x._sdim, sizes)
     else:
-        ys = [conv_same(t, v, s, pads) for t, v in zip(xs, ws)]
+        ys = on_shards(lambda t, i: conv_same(t, ws[i], s, pads), xs, x._sdim, sizes)
     return _wrap(walk, ys, x._sdim, x._scale * s, logical)
 
 
@@ -1134,15 +1164,20 @@ def _upsample(walk: _Walk, func, args, kwargs):
 
 def _repeat_free(walk: _Walk, func, args, kwargs, factor: Fraction):
     """A port op that is local on shards lying on its blocks, its output
-    planes ``factor`` times its input's along the axis."""
+    planes ``factor`` times its input's along the axis: where ``factor`` <
+    1 (``space_to_depth``) the shards are first relaid onto whole blocks
+    (``spatial.rounded``; a shard may come out empty)."""
     x = args[0]
     logical = func(*_logicals(args), **_logicals(kwargs))
     if x._sdim is None:
         return _same(walk, func, args, kwargs)
+    parts = x._parts
     if factor < 1:
         walk.need(x, int(1 / factor))
-    return _wrap(walk, _per_part(walk, func, args, kwargs), x._sdim, x._scale / factor,
-                 logical)
+        parts = relayout(parts, x._sdim - 2, rounded(bounds_of(parts, x._sdim),
+                                                      int(1 / factor)))
+    return _wrap(walk, [func(p, *args[1:], **kwargs) for p in parts], x._sdim,
+                 x._scale / factor, logical)
 
 
 def _linear_upsample2x(walk: _Walk, func, args, kwargs):
@@ -1290,9 +1325,10 @@ _TAKE_PAD = {_conv, _pool, _conv_same}
 # -- dispatch to the library's walks, the run, the meta pass -----------------------
 
 def _child_block(m: nn.Module) -> int:
-    """The planes each shard of a dispatched library net's input holds a
-    whole number of: the MulResUnet's 2^(L-1) (its phased levels' blocks),
-    a zoo net's ``engine.solver.shard_block``, a block's largest stride."""
+    """The planes each shard of a dispatched library net's input preferably
+    holds a whole number of: the MulResUnet's 2^(L-1) (its phased levels'
+    blocks), a zoo net's ``engine.solver.shard_block``, a block's largest
+    stride."""
     cls = spatial_zoo.covered_class(m)
     if cls is MulResUnet:
         n = len(m.filters)
@@ -1371,7 +1407,7 @@ def run(step: ShardedStep, xs: Shards, masks: Optional[Shards] = None) -> Shards
     for the input shards ``xs`` (and, for a module that takes the mask,
     its shards ``masks``): its forward on shard lists, the parameters
     already replicated."""
-    return _run(_Walk(step, meta=False), step.model, xs, masks)
+    return _run(_Walk(step), step.model, xs, masks)
 
 
 class _MetaLayout:
@@ -1382,50 +1418,41 @@ class _MetaLayout:
         self.mesh, self.axis, self.dim = [META] * n, axis, 2 + axis
 
 
-def _widest(extent: int, n: int, need: int = 1) -> Optional[int]:
-    """The widest block (a multiple of ``need``) that splits ``extent``
-    planes into at least ``n`` whole blocks; None where none does."""
-    return next((b for b in range(extent // n, 0, -1) if extent % b == 0 and b % need == 0),
-                None)
+def _widest(extent: int, n: int) -> int:
+    """The widest block that splits ``extent`` planes into at least ``n``
+    whole blocks (1 where the axis is shorter than ``n``)."""
+    return next((b for b in range(extent // n, 0, -1) if extent % b == 0), 1)
 
 
 def meta_pass(model: nn.Module, input_shape: Sequence[int], n: int, axis: int,
               takes_mask: bool = False, dtype: torch.dtype = torch.float32) -> int:
     """Run ``model``'s forward once over ``n`` meta shards of an input of
     ``input_shape`` along spatial ``axis`` (its parameters and buffers as
-    meta tensors, nothing drawn): raise ``NotImplementedError`` for the
-    first op outside the walker's vocabulary, and return the shard block,
-    the planes every shard must hold a whole number of. The shards lie on
-    the widest block that splits the axis (a narrower one where a stride
-    does not divide it); an axis no block fits is left to
+    meta tensors, nothing drawn), the shards on the widest block that
+    splits the axis: raise ``NotImplementedError`` for the first op outside
+    the walker's vocabulary, and return the shard block, the planes a shard
+    holds a whole number of where the axis allows, so that every stride
+    halves every shard. An axis shorter than the mesh is left to
     ``SpatialLayout`` to refuse."""
     shape = tuple(input_shape)
-    if not 0 <= axis < len(shape) - 2:
+    if not 0 <= axis < len(shape) - 2 or shape[2 + axis] < n:
         return 1
     extent = shape[2 + axis]
     meta = {k: torch.empty_like(v, device=META)
             for k, v in itertools.chain(model.named_parameters(), model.named_buffers())}
-    reps = {id(t): [t] * n for t in meta.values()}
-    need = 1
-    while True:
-        block = _widest(extent, n, need)
-        if block is None:
-            return need
-        step = ShardedStep(model, _MetaLayout(n, axis))
-        step._reps = reps
-        walk = _Walk(step, meta=True)
-        xs = []
-        for a, b in shard_bounds(extent, n, block):
-            sh = list(shape)
-            sh[2 + axis] = b - a
-            xs.append(torch.empty(sh, dtype=dtype, device=META))
-        Compact.building = True
-        try:
-            with torch.enable_grad():
-                _run(walk, lambda *a: functional_call(model, meta, a), xs,
-                     xs if takes_mask else None)
-            return walk.block
-        except _Short:
-            need = walk.block
-        finally:
-            Compact.building = False
+    step = ShardedStep(model, _MetaLayout(n, axis))
+    step._reps = {id(t): [t] * n for t in meta.values()}
+    walk = _Walk(step)
+    xs = []
+    for a, b in shard_bounds(extent, n, _widest(extent, n)):
+        sh = list(shape)
+        sh[2 + axis] = b - a
+        xs.append(torch.empty(sh, dtype=dtype, device=META))
+    Compact.building = True
+    try:
+        with torch.enable_grad():
+            _run(walk, lambda *a: functional_call(model, meta, a), xs,
+                 xs if takes_mask else None)
+    finally:
+        Compact.building = False
+    return walk.block

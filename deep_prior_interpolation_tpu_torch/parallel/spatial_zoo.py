@@ -7,14 +7,18 @@ Each walk mirrors its net's ``forward`` over the list of shards with the
 step's shared pieces (``ShardedStep._conv``, ``_norm``, ``_drop``,
 ``_upsample``, ``_multires``) and reads the net's children in the order
 its forward asks for them (``Compact._order``), so the parameters, their
-names and the dropout draws are the plain net's. A shard holds a whole
-number of the net's blocks (``engine.solver.shard_block``: 2^S planes for S
-stride-2 steps), so every level halves each shard exactly and a
-``concat_crop`` or ``_crop_front`` leaves the sharded axis alone: the walks
-check that, and crop the other axes per shard as the plain net crops them.
-A halo may reach past the neighbouring shard (``halo_exchange`` takes each
-plane from whichever shard holds it): at a net's deepest levels a shard
-holds one or two planes.
+names and the dropout draws are the plain net's. Each stride-2 op (a
+strided conv, a pool, a Lanczos pass, the ensemble's stem pool) gives each
+shard the output planes whose first input plane it holds and reads their
+window (``spatial.windows``); an upsample or a deconv doubles its input's
+bounds; a ``concat_crop`` or ``_crop_front`` relays each tensor onto the
+first smallest one's bounds, its crop along the axis included
+(``spatial.relayout``), and crops the other axes per shard as the plain
+net crops them. Where the shards lie on whole blocks of the net
+(``engine.solver.shard_block``: 2^S planes for S stride-2 steps) every
+level halves each shard exactly and no relayout runs. A window may reach
+past the neighbouring shard (each plane comes from whichever shard holds
+it): at a net's deepest levels a shard holds a plane or two, or none.
 
 What is new beside the MulResUnet's pieces:
 
@@ -40,8 +44,8 @@ What is new beside the MulResUnet's pieces:
     sums) and its max (``all_max``, whose backward splits the cotangent
     over the tied voxels of the whole volume); its spatial gate's 7 x 7
     conv a zero halo of 3 planes;
-  * the ensemble's stem max pool (3, stride 2, padding 1) takes one plane
-    on the left, -inf at the volume's start.
+  * the ensemble's stem max pool (3, stride 2, padding 1) reads its window
+    over a -inf edge at the volume's start.
 
 ``covered_class`` names the class whose walk covers a net (a subclass that
 keeps its base's forward takes its base's walk); a module of the caller's
@@ -70,7 +74,8 @@ from ..models.mulresunet import MulResUnet, MultiResBlock, ResPath
 from ..models.partial import PartialBlock, PartialConv, PartialUNet
 from ..models.skip import SkipNet, _per_scale
 from ..models.unet import InstanceNorm, UNet, UNetConv, _pool
-from .spatial import ShardedStep, all_max, all_reduce, halo_exchange
+from .spatial import (ShardedStep, all_max, all_reduce, bounds_of, halo_exchange, on_shards,
+                      relayout, windows)
 
 __all__ = ["uncovered", "walk"]
 
@@ -113,21 +118,34 @@ def _children(m: nn.Module) -> Callable[[], nn.Module]:
     return lambda: getattr(m, next(names))
 
 
-def _whole_axis(step: ShardedStep, groups: Sequence[Shards]) -> None:
-    """Check that each shard of ``groups`` has one extent along the sharded
-    axis: whole blocks leave no level there to crop."""
-    dim = step.layout.dim
-    for ts in zip(*groups):
-        if len({t.shape[dim] for t in ts}) != 1:
-            raise RuntimeError(f"shards of {[tuple(t.shape) for t in ts]} differ along the "
-                               f"sharded axis: a shard holds whole blocks of the net")
+def _onto_smallest(step: ShardedStep, groups: Sequence[Shards], front: bool = False
+                   ) -> List[Shards]:
+    """Each shard list of ``groups`` relaid onto the bounds of the first with
+    the fewest planes along the sharded axis, cropped there as
+    ``center_crop_to`` crops it (from the front with ``front``, as
+    ``_crop_front``)."""
+    ax, dim = step.layout.axis, step.layout.dim
+    extents = [bounds_of(g, dim)[-1][1] for g in groups]
+    n = min(extents)
+    ref = bounds_of(groups[extents.index(n)], dim)
+    return [relayout(g, ax, [(a + off, b + off) for a, b in ref])
+            for g, e in zip(groups, extents) for off in [0 if front else (e - n) // 2]]
 
 
 def _cat(step: ShardedStep, groups: Sequence[Shards]) -> Shards:
-    """``concat_crop`` of each shard's tensors: a plain concat along the
-    sharded axis, the plain net's centre crop along the others."""
-    _whole_axis(step, groups)
-    return [concat_crop(ts) for ts in zip(*groups)]
+    """``concat_crop`` of each shard's tensors: its crop along the sharded
+    axis a relayout onto the first smallest tensor's bounds, the plain net's
+    centre crop along the others."""
+    return [concat_crop(ts) for ts in zip(*_onto_smallest(step, groups))]
+
+
+def _pooled(step: ShardedStep, xs: Shards, factor: int, fn) -> Shards:
+    """A pool of ``factor`` at stride ``factor`` (floor sizes): ``fn`` on each
+    shard's window of the outputs it owns."""
+    dim = step.layout.dim
+    n = bounds_of(xs, dim)[-1][1]
+    xs, out = windows(xs, step.layout.axis, factor, factor, 0, "zero", n // factor)
+    return on_shards(lambda x, i: fn(x), xs, dim, [d - c for c, d in out])
 
 
 def _act_drop(step: ShardedStep, m, act, xs: Shards) -> Shards:
@@ -152,7 +170,7 @@ def _skip(step: ShardedStep, m: SkipNet, xs: Shards) -> Shards:
         h = step._conv(nxt(), h)   # a stride-1 conv, then the downsample
         if down in ("lanczos2", "lanczos3"):
             return _lanczos(step, h, stride, int(down[-1]))
-        return [downsample_pool(t, stride, down) for t in h]
+        return _pooled(step, h, stride, lambda t: downsample_pool(t, stride, down))
 
     def norm(h: Shards) -> Shards:
         return step._norm(nxt(), h)
@@ -178,14 +196,20 @@ def _skip(step: ShardedStep, m: SkipNet, xs: Shards) -> Shards:
 
 def _lanczos(step: ShardedStep, xs: Shards, factor: int, support: int) -> Shards:
     """``lanczos_downsample`` over the shards: its passes in the plain
-    order, the one along the sharded axis over a replicate halo of
-    ``lanczos_halo`` planes (the plain pass's edge padding at the volume's
-    ends), unpadded there; each shard starts on a multiple of ``factor``."""
+    order, the one along the sharded axis on each shard's window of the
+    outputs it owns over a replicate edge (the plain pass's edge padding by
+    ``lanczos_halo`` planes at the volume's ends), unpadded there."""
+    dim = step.layout.dim
+    lo, hi = lanczos_halo(factor, support)
     for ax in range(2, xs[0].ndim):
-        if ax == step.layout.dim:
-            xs = halo_exchange(xs, step.layout.axis, *lanczos_halo(factor, support),
-                               "replicate")
-        xs = [lanczos_pass(x, ax, factor, support, padded=ax != step.layout.dim) for x in xs]
+        sizes = None
+        if ax == dim:
+            n = bounds_of(xs, dim)[-1][1]
+            xs, out = windows(xs, step.layout.axis, lo + hi + factor, factor, lo, "replicate",
+                              n // factor)
+            sizes = [d - c for c, d in out]
+        xs = on_shards(lambda x, i: lanczos_pass(x, ax, factor, support, padded=ax != dim),
+                       xs, dim, sizes)
     return xs
 
 
@@ -225,14 +249,19 @@ def _deconv(step: ShardedStep, m: ConvTranspose, xs: Shards) -> Shards:
     s, p, k = m.stride, m.padding, m.kernel.shape[2]
     lo, hi = (k - 1 - p) // s, (p + s - 1) // s
     dt = _promoted(xs[0])
+    dim = step.layout.dim
+    sizes = [s * x.shape[dim] for x in xs]
     xs = halo_exchange([x.to(dt) for x in xs], step.layout.axis, lo, hi, "zero")
     conv_t = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[xs[0].ndim - 3]
+    ws = step._rep(m.kernel)
     biases = step._rep(m.bias) if m.bias is not None else [None] * len(xs)
-    dim = step.layout.dim
-    ys = [conv_t(x, w.to(dt), None if b is None else b.to(dt), stride=s, padding=p,
-                 output_padding=m.output_padding)
-          for x, w, b in zip(xs, step._rep(m.kernel), biases)]
-    return [y.narrow(dim, s * lo, y.shape[dim] - s * (lo + hi)) for y in ys]
+
+    def deconv(x: torch.Tensor, i: int) -> torch.Tensor:
+        b = biases[i]
+        y = conv_t(x, ws[i].to(dt), None if b is None else b.to(dt), stride=s, padding=p,
+                   output_padding=m.output_padding)
+        return y.narrow(dim, s * lo, y.shape[dim] - s * (lo + hi))
+    return on_shards(deconv, xs, dim, sizes)
 
 
 def _unet(step: ShardedStep, m: UNet, xs: Shards) -> Shards:
@@ -241,7 +270,7 @@ def _unet(step: ShardedStep, m: UNet, xs: Shards) -> Shards:
     nxt = _children(m)
     pyramid = [xs]
     for _ in range(4 + m.more_layers if m.concat_x else 0):
-        pyramid.append([_pool(t, "avg") for t in pyramid[-1]])
+        pyramid.append(_pooled(step, pyramid[-1], 2, lambda t: _pool(t, "avg")))
 
     def maybe_cat(h: Shards, i: int) -> Shards:
         return _cat(step, [h, pyramid[i]]) if m.concat_x else h
@@ -255,11 +284,11 @@ def _unet(step: ShardedStep, m: UNet, xs: Shards) -> Shards:
     h = maybe_cat(_unet_conv(step, nxt(), xs), 0)
     skips = [h]
     for i in range(1, 5):
-        h = step._drop(m.drop, [_pool(t, "max") for t in h])
+        h = step._drop(m.drop, _pooled(step, h, 2, lambda t: _pool(t, "max")))
         h = maybe_cat(step._drop(m.drop, _unet_conv(step, nxt(), h)), i)
         skips.append(h)
     for j in range(m.more_layers):
-        h = [_pool(t, "max") for t in h]
+        h = _pooled(step, h, 2, lambda t: _pool(t, "max"))
         h = maybe_cat(_unet_conv(step, nxt(), h), 5 + j)
         skips.append(h)
     h = skips[-1]
@@ -281,27 +310,32 @@ def _flax_conv(step: ShardedStep, m: FlaxConv, xs: Shards) -> Shards:
     plain net."""
     ax, p, nd = step.layout.axis, m.padding, xs[0].ndim - 2
     dt = _promoted(xs[0])
+    sizes = [x.shape[step.layout.dim] for x in xs]
     xs = [x.to(dt) for x in xs]
     if p:
         xs = halo_exchange(xs, ax, p, p, "zero")
     pads = tuple(0 if d == ax else p for d in range(nd))
     conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+    ws = step._rep(m.kernel)
     biases = step._rep(m.bias) if m.bias is not None else [None] * len(xs)
-    return [conv(x, w.to(dt), None if b is None else b.to(dt), stride=1, padding=pads)
-            for x, w, b in zip(xs, step._rep(m.kernel), biases)]
+    return on_shards(lambda x, i: conv(x, ws[i].to(dt), None if biases[i] is None
+                                       else biases[i].to(dt), stride=1, padding=pads),
+                     xs, step.layout.dim, sizes)
 
 
 def _window_sums(step: ShardedStep, ms: Shards, k: int, p: int) -> Shards:
     """The partial conv's window sum (``partial._window_sum``, stride 1) of
     each shard over a zero halo of ``p`` planes, unpadded along the axis."""
     ax, nd = step.layout.axis, ms[0].ndim - 2
+    sizes = [t.shape[step.layout.dim] for t in ms]
     if p:
         ms = halo_exchange(ms, ax, p, p, "zero")
     pads: List[int] = []
     for d in reversed(range(nd)):   # F.pad lists the last dim first
         pads += [0, 0] if d == ax else [p, p]
     pool = (F.avg_pool2d, F.avg_pool3d)[nd - 2]
-    return [pool(F.pad(t, pads), k, 1, divisor_override=1) for t in ms]
+    return on_shards(lambda t, i: pool(F.pad(t, pads), k, 1, divisor_override=1), ms,
+                     step.layout.dim, sizes)
 
 
 def _partial_conv(step: ShardedStep, m: PartialConv, xs: Shards, masks: Shards):
@@ -364,8 +398,9 @@ def _partial(step: ShardedStep, m: PartialUNet, xs: Shards, masks: Shards) -> Sh
 
 def _front(step: ShardedStep, a: Shards, b: Shards):
     """Each shard pair cropped to its smaller grid from the front
-    (``_crop_front``), which whole blocks leave alone along the axis."""
-    _whole_axis(step, [a, b])
+    (``_crop_front``): along the sharded axis a relayout onto the smaller
+    one's bounds."""
+    a, b = _onto_smallest(step, [a, b], front=True)
     sps = [[min(u, v) for u, v in zip(s.shape[2:], t.shape[2:])] for s, t in zip(a, b)]
     return ([_crop_front(s, sp) for s, sp in zip(a, sps)],
             [_crop_front(t, sp) for t, sp in zip(b, sps)])
@@ -460,8 +495,8 @@ def _cbam(step: ShardedStep, m: CBAM, xs: Shards) -> Shards:
 
 
 def _attention_unet(step: ShardedStep, m: AttentionUnet, xs: Shards) -> Shards:
-    """``AttentionUnet.forward`` over the shards: its 2x max pools are
-    local on whole blocks, its bilinear upsamples take the resize's
+    """``AttentionUnet.forward`` over the shards: its 2x max pools on each
+    shard's window of its outputs, its bilinear upsamples over the resize's
     replicate halo; with ``att != "cbam"`` the same walk without gates."""
     nxt = _children(m)
 
@@ -474,7 +509,7 @@ def _attention_unet(step: ShardedStep, m: AttentionUnet, xs: Shards) -> Shards:
         return h
 
     def pool(h: Shards) -> Shards:
-        return [F.max_pool2d(t, 2, 2) for t in h]
+        return _pooled(step, h, 2, lambda t: F.max_pool2d(t, 2, 2))
 
     d1 = att(block(xs))
     d2 = att(block(pool(d1)))
@@ -495,8 +530,9 @@ def _conv_norm(step: ShardedStep, nxt, xs: Shards) -> Shards:
 
 
 def _resnet_block(step: ShardedStep, m: ResNetBasicBlock, xs: Shards) -> Shards:
-    """``ResNetBasicBlock.forward``: its stride-2 convs on even-start shards
-    (the 1 x 1 projection is local), its Norms over the whole volume."""
+    """``ResNetBasicBlock.forward``: its stride-2 convs (the 1 x 1
+    projection among them) on each shard's window of its outputs, its
+    Norms over the whole volume."""
     nxt = _children(m)
     h = [F.relu(t) for t in _conv_norm(step, nxt, xs)]
     h = _conv_norm(step, nxt, h)
@@ -506,13 +542,14 @@ def _resnet_block(step: ShardedStep, m: ResNetBasicBlock, xs: Shards) -> Shards:
 
 
 def _stem_pool(step: ShardedStep, xs: Shards) -> Shards:
-    """``F.max_pool2d(h, 3, 2, padding=1)`` on even-start shards: one plane
-    of the left neighbour (-inf at the volume's start), unpadded along the
-    axis, padded by one along the other."""
-    ax = step.layout.axis
-    xs = halo_exchange(xs, ax, 1, 0, "-inf")
-    return [F.max_pool2d(x, 3, 2, padding=tuple(0 if d == ax else 1 for d in range(2)))
-            for x in xs]
+    """``F.max_pool2d(h, 3, 2, padding=1)`` on each shard's window of its
+    outputs (-inf past the volume's start), unpadded along the axis, padded
+    by one along the other."""
+    ax, dim = step.layout.axis, step.layout.dim
+    xs, out = windows(xs, ax, 3, 2, 1, "-inf")
+    pad = tuple(0 if d == ax else 1 for d in range(2))
+    return on_shards(lambda x, i: F.max_pool2d(x, 3, 2, padding=pad), xs, dim,
+                     [d - c for c, d in out])
 
 
 def _encoder(step: ShardedStep, m: Encoder, xs: Shards) -> Shards:

@@ -2,10 +2,10 @@
 outside the sharded walker's vocabulary in a module of the caller's own
 given to a spatially sharded solve, ROADMAP A.13c item 13) raises
 NotImplementedError naming its ROADMAP item,
-a sharded axis that is not a whole number of the net's blocks and a canvas
-of the wrong shape are rejected; the solver options, nets and conv
-formulations it serves (phase space, tapmm and the zoo nets over shards
-among them) build and run."""
+a sharded axis shorter than the mesh and a canvas of the wrong shape are
+rejected; the solver options, nets and conv formulations it serves (phase
+space, tapmm and the zoo nets over shards, on whole blocks of the net or
+not, among them) build and run."""
 import os
 
 import numpy as np
@@ -56,25 +56,30 @@ class Mine(torch.nn.Module):
 
 def test_cli_and_weights_refusals(tmp_path):
     """A sharded ``--net part`` run (with tapmm, which the shards serve) on
-    the lines gather, padded to the JAX package's multiple of 2, is refused
-    with ValueError: its 100 planes along axis 1 are not whole 32-plane
-    blocks of the net's five stride-2 steps; a module of the caller's own
+    the lines gather, padded to the JAX package's multiple of 2, which was
+    refused before uneven shards (its 100 planes along axis 1 are not whole
+    32-plane blocks of the net's five stride-2 steps), runs and writes its
+    bundle, its shards on 4-plane blocks; a module of the caller's own
     that rolls along the sharded axis (outside the sharded walker's
     vocabulary) is refused naming the op and ROADMAP A.13c item 13 (with an
     optimised canvas, which the shards serve); a mesh longer than the
-    sharded axis's blocks is a ValueError; a weights file that is not
-    msgpack is refused with its offset."""
-    with pytest.raises(ValueError, match="not a whole number of 32-plane blocks"):
-        cli.run(lines_cfg(spatial_shards=2, batch_patches=0, vmap_conv_mode="tapmm",
-                          net="part"), str(tmp_path), device="cpu")
+    sharded axis's blocks runs, one longer than the axis is a ValueError; a
+    weights file that is not msgpack is refused with its offset."""
+    out = cli.run(lines_cfg(spatial_shards=2, batch_patches=0, vmap_conv_mode="tapmm",
+                            net="part", outdir="part"), str(tmp_path), device="cpu")
+    assert completed_patches(out) == ["0"]
     img = np.zeros((16, 8, 1), np.float32)
     mesh = [torch.device("cpu")] * 2
     with pytest.raises(NotImplementedError, match=r"torch.roll along the sharded dim .*: "
                                                   r"ROADMAP A.13c item 13"):
         DIPSolver(tiny_cfg(opt_over="net,input"), device="cpu",
                   model=Mine()).solve(img, img, spatial_mesh=mesh)
-    with pytest.raises(ValueError, match="at most 4 shards"):
-        DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=mesh * 4)
+    img = np.random.RandomState(0).randn(16, 8, 1).astype(np.float32)
+    res = DIPSolver(tiny_cfg(), device="cpu").solve(img, np.ones_like(img),
+                                                    spatial_mesh=mesh * 4)
+    assert np.all(np.isfinite(res.history.loss)) and res.out_best.shape == img.shape
+    with pytest.raises(ValueError, match="8 planes is shorter than the mesh of 9 shards"):
+        DIPSolver(tiny_cfg(), device="cpu").solve(img, img, spatial_mesh=mesh * 4 + mesh[:1])
     bad = tmp_path / "weights.msgpack"
     bad.write_bytes(b"\xc1")  # the one byte msgpack never uses
     with pytest.raises(ValueError, match="offset 0"):

@@ -4,12 +4,14 @@ refuses (a net given as ``model=`` whose output does not fit the solve,
 and a module of the caller's own whose forward uses an op outside the
 sharded walker's vocabulary: ROADMAP A.13c item 13).
 
-* ``make_spatial_mesh`` raises past the devices that exist (the JAX one
-  truncates) and takes a list of one repeated device (``[cpu] * 8``, as the
-  JAX tests' 8 virtual CPU devices).
-* Boundaries lie on multiples of 2^L planes, even and uneven; a short
-  axis and an axis that is not spatial raise ``ValueError`` (the JAX
-  module asserts, or shards the batch dim of a negative axis).
+* ``make_spatial_mesh`` takes the devices that exist past them, with a
+  warning (as the JAX one truncates), and takes a list of one repeated
+  device (``[cpu] * 8``, as the JAX tests' 8 virtual CPU devices).
+* Boundaries lie on multiples of 2^L planes, even and uneven, and on a
+  narrower power-of-two block where the axis holds fewer than N of them;
+  an axis shorter than the mesh and an axis that is not spatial raise
+  ``ValueError`` (the JAX module asserts, or shards the batch dim of a
+  negative axis).
 * ``shard_solver_state`` splits the volume entries as the JAX
   ``tests/test_spatial.py::test_placement_specs`` places them and leaves
   parameters and trackers whole.
@@ -32,15 +34,17 @@ CPU = torch.device("cpu")
 
 
 def test_the_mesh_takes_repeats_and_raises_past_the_devices(monkeypatch):
+    """Past the devices the mesh takes those that exist and warns (the JAX
+    package's ``devs[:n]``)."""
     assert make_spatial_mesh(8, [CPU] * 8) == [CPU] * 8
     assert make_spatial_mesh(2, [CPU] * 8) == [CPU] * 2
-    with pytest.raises(RuntimeError, match="9 devices"):
-        make_spatial_mesh(9, [CPU] * 8)
+    with pytest.warns(RuntimeWarning, match="9 devices asked for, 8 given"):
+        assert make_spatial_mesh(9, [CPU] * 8) == [CPU] * 8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert make_spatial_mesh(4) == [torch.device("cuda", i) for i in range(4)]
-    with pytest.raises(RuntimeError, match="8 CUDA devices was asked for and 4 exist"):
-        make_spatial_mesh(8)
+    with pytest.warns(RuntimeWarning, match="8 devices asked for, 4 exist: the mesh takes 4"):
+        assert make_spatial_mesh(8) == [torch.device("cuda", i) for i in range(4)]
 
 
 @pytest.mark.parametrize("extent,n,block,want", [
@@ -56,12 +60,15 @@ def test_boundaries_lie_on_whole_blocks(extent, n, block, want):
 
 
 def test_a_short_axis_and_a_bad_axis_raise_value_errors():
-    with pytest.raises(ValueError, match="at most 4 shards"):
-        S.shard_bounds(16, 8, 4)
-    with pytest.raises(ValueError, match="whole number of 4-plane blocks"):
-        S.shard_bounds(18, 2, 4)
+    """More shards than blocks, or an axis of part blocks, split on the
+    largest power-of-two block that gives N; an axis shorter than the mesh
+    raises."""
+    assert S.shard_bounds(16, 8, 4) == [(2 * i, 2 * i + 2) for i in range(8)]
+    assert S.shard_bounds(18, 2, 4) == [(0, 10), (10, 18)]   # 9 blocks of 2
+    with pytest.raises(ValueError, match="7 planes is shorter than the mesh of 8 shards"):
+        S.shard_bounds(7, 8, 4)
     small = {"img": torch.zeros(1, 1, 24, 4)}   # x = 4 < 8 shards
-    with pytest.raises(ValueError, match="at most 4 shards"):
+    with pytest.raises(ValueError, match="shorter than the mesh of 8 shards"):
         shard_solver_state([CPU] * 8, 1, small, {})
     for axis in (2, -1):
         with pytest.raises(ValueError, match="spatial_axis"):

@@ -218,7 +218,9 @@ def test_each_phase_piece_over_shards_with_its_gradients(piece):
 
 def test_the_shards_lie_on_the_phase_net_s_block():
     # 2 levels, every resolution phased: resolution 1 at depth 1 needs
-    # whole 4-plane blocks, so a 16-plane axis takes at most 4 shards
+    # whole 4-plane blocks, so a 16-plane axis holds 4 of them; over 8
+    # shards (refused before uneven shards) each shard holds 2 planes, the
+    # phase grids' shards 1 or none, and the solve is the unsharded one's
     c = Config(datadim="2d", inputdepth=4, filters=[8, 16], skip=[4], phase_space=True,
                phase_levels=-1, epochs=1, scan_chunk=1)
     assert net_multiple(c) == 4
@@ -226,8 +228,13 @@ def test_the_shards_lie_on_the_phase_net_s_block():
     img = np.ones((8, 16, 1), np.float32)
     res = DIPSolver(c, device="cpu").solve(img, img, spatial_mesh=[CPU] * 4)
     assert np.all(np.isfinite(res.out_best))
-    with pytest.raises(ValueError, match="at most 4 shards"):
-        DIPSolver(c, device="cpu").solve(img, img, spatial_mesh=[CPU] * 8)
+    img, mask = one_patch()
+    img, mask = img[:8, :16], mask[:8, :16]
+    ref = DIPSolver(c, device="cpu").solve(img, mask, seed=0)
+    got = DIPSolver(c, device="cpu").solve(img, mask, seed=0, spatial_mesh=[CPU] * 8)
+    np.testing.assert_allclose(got.history.loss, ref.history.loss, rtol=1e-5)
+    np.testing.assert_allclose(got.out_best, ref.out_best, rtol=0,
+                               atol=1e-5 * float(np.abs(ref.out_best).max()))
     with pytest.raises(ValueError, match="phase level 1 needs spatial dims divisible by 4"):
         DIPSolver(dataclasses.replace(c, pad_multiple=2), device="cpu").solve(
             np.ones((6, 16, 1), np.float32), np.ones((6, 16, 1), np.float32),
