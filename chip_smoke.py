@@ -322,9 +322,10 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       and peak beside it;
    b. two 3-iteration solves over 2 shards with deterministic cuDNN:
       bit-equal;
-   c. the same module flipping its pooled map along H (outside the
-      walker's vocabulary): ``NotImplementedError`` naming the op and
-      ROADMAP A.13c item 13, every launch counter still 0;
+   c. the same module reading its pooled map's mean with ``.item()`` on
+      the shards (a host read, which ``jax.jit`` refuses too):
+      ``NotImplementedError`` naming the op and ROADMAP D.4, every launch
+      counter still 0;
    d. each kernel at the new shard shapes (the glue's upsample, any wgrad
       shape no earlier phase held), as 15d.
 
@@ -349,14 +350,31 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       within 1e-4 of the unsharded one's, two 2-shard solves bit-equal;
    d. each kernel at the new shard shapes, as 16d.
 
+18. every op of a caller's module over spatial shards (the walker's
+   relayout, window and whole routes): ``Caller18``, 16's ``Caller3D``
+   whose glue also rolls its 8-channel pooled map by 3 planes along H,
+   adds its flip, slices ``[..., 1:-1, :]`` and re-pads it circularly
+   (relayouts), runs a ``'valid'`` 3 x 3 x 3 conv re-padded by one zero
+   plane (a window), an ``rfft``/``irfft`` low-pass along H and a custom
+   ``autograd.Function`` (the whole route), a ``torch.no_grad()`` scale
+   and ``randn_like`` noise (drawn whole):
+   a. at the flagship volume, widths and flags, unsharded and over
+      [cuda:0] x 2 and x 4 along H, 6 iterations in chunks of 3: launches
+      exactly N x the unsharded solve's for all three kernels, at 16a's
+      shapes; the iteration-0 loss within 1e-4 of the unsharded solve's;
+      ``SolveResult.whole_ops`` exactly the FFT pair and the Function;
+      s/iteration and peak;
+   b. two 3-iteration solves over 2 shards with deterministic cuDNN:
+      bit-equal.
+
 9. the CUDA-only tests (``tests/test_torch_cuda*.py``) in a child pytest,
-   after phase 17; every one must pass.
+   after phase 18; every one must pass.
 
 Each phase's seconds are printed. The ``{"kernels": [...]}`` JSON is the
 next-to-last line (each kernel with its launches by shard count in 10a,
-11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, 16a, 17a-17c, and in phase 14; each
+11a, 11b, 12a, 12b, 13a-13c, 15a, 15b, 16a, 17a-17c, 18a, and in phase 14; each
 kernel with its rows at 10a's, 12a's, the zoo's and phases 15's, 16's and
-17's shard shapes), the ``{"phase17": ...}``, ``{"phase16": ...}``,
+17's shard shapes), the ``{"phase18": ...}``, ``{"phase17": ...}``, ``{"phase16": ...}``,
 ``{"phase15": ...}``, ``{"phase14": ...}``,
 ``{"phase13": ...}``,
 ``{"phase12": ...}``, ``{"phase11": ...}``, ``{"phase10": ...}``,
@@ -3735,7 +3753,7 @@ def zoo15_solve(dev, label: str, cfg, inputdepth: int, img, mask, mesh=None,
     del solver
     return {"shards": n, "launches": counts, "upsample_kernels": kinds,
             "losses": loss.tolist(), "s_per_iter": steady, "chunk_seconds": res.chunk_seconds,
-            "peak_bytes": peak,
+            "peak_bytes": peak, "whole_ops": [list(o) for o in res.whole_ops],
             "wgrad_shapes": [[ci, co, list(sp), c // cfg.epochs]
                              for (ci, co, sp), c in sorted(seen.items())],
             "upsample_shapes": [[c, list(sp), k // cfg.epochs]
@@ -3895,15 +3913,34 @@ CALLER16_UPS = 5
 LOSS0_TOL_16 = 1e-4
 
 
-def caller16(refused: bool = False):
+class Halve(torch.autograd.Function):
+    """A custom autograd Function of 18a's glue: half its input, its own
+    backward half the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return 0.5 * x
+
+    @staticmethod
+    def backward(ctx, g):
+        return 0.5 * g
+
+
+def caller16(refused: bool = False, routes: bool = False):
     """``Caller3D``, a module of the caller's own at the flagship's volume
     and widths, made from seed 0: the flagship MulResUnet as its child
     ``body``, and glue in the canvas's dtype: a 3 x 3 x 3 ``nn.Conv3d``
     (64 -> 8), a spatial mean into an ``nn.Linear`` gate, a 2 x 2 x 2
     average pool, the port's trilinear x2 ``upsample``, a 1 x 1 x 1
     ``nn.Conv3d`` head in float32 and a scalar ``scale``. With ``refused``
-    the glue flips the pooled map along H, an op outside the sharded
-    walker's vocabulary."""
+    the glue reads its map's mean with ``.item()``, a host read. With
+    ``routes`` (``Caller18``) the pooled map also takes each of the
+    walker's other routes along H before the upsample: a roll by 3 planes
+    plus its flip, a slice re-padded circularly, a ``'valid'`` 3 x 3 x 3
+    conv (8 -> 8, made after the other layers) re-padded by zeros, an
+    ``rfft``/``irfft`` low-pass in float32, ``Halve``, a scale by
+    ``1 / (1 + max |h|)`` taken under ``torch.no_grad()``, and
+    ``randn_like`` noise."""
     import torch.nn.functional as F
     from torch import nn
 
@@ -3918,15 +3955,29 @@ def caller16(refused: bool = False):
             self.gate = nn.Linear(8, 8)
             self.head = nn.Conv3d(8, 1, 1)
             self.scale = nn.Parameter(torch.tensor(0.1))
+            if routes:
+                self.mid = nn.Conv3d(8, 8, 3)
 
         def forward(self, x):
             dt = x.dtype
             h = F.conv3d(x, self.pre.weight.to(dt), self.pre.bias.to(dt), padding=1)
             h = F.leaky_relu(h, 0.2)
+            if refused:
+                h = h * h.mean().item()
             g = torch.sigmoid(self.gate(h.mean(dim=(2, 3, 4)).float()))
             h = F.avg_pool3d(h * g.to(dt)[:, :, None, None, None], 2)
-            if refused:
-                h = h.flip(3)
+            if routes:
+                h = torch.roll(h, 3, dims=3) + h.flip(3)
+                h = F.pad(h[..., 1:-1, :], (0, 0, 1, 1, 0, 0), mode="circular")
+                h = F.pad(F.conv3d(h, self.mid.weight.to(dt), self.mid.bias.to(dt)),
+                          (1, 1, 1, 1, 1, 1))
+                spec = torch.fft.rfft(h.float(), dim=3)
+                keep = (torch.arange(spec.shape[3], device=h.device) < CALLER18_KEEP).float()
+                h = torch.fft.irfft(spec * keep[:, None], n=h.shape[3], dim=3).to(dt)
+                h = Halve.apply(h)
+                with torch.no_grad():
+                    top = h.float().abs().amax()
+                h = h / (1.0 + top).to(dt) + 0.01 * torch.randn_like(h)
             h = upsample(h, 2, "trilinear")
             return self.body(x) + (self.scale * self.head(h.float())).to(dt)
 
@@ -3975,29 +4026,30 @@ def custom16_exactness(dev) -> dict:
 
 
 def custom16_refused(dev) -> dict:
-    """16c: ``Caller3D`` flipping its pooled map along H over 2 shards:
-    ``NotImplementedError`` naming the op and ROADMAP A.13c item 13 from
-    the walker's meta pass, with every launch counter still 0."""
-    from deep_prior_interpolation_tpu_torch import DIPSolver
-    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    """16c: ``Caller3D`` reading its map's mean with ``.item()``, walked
+    over 2 shards of the flagship canvas on the card (``ShardedStep`` on
+    the canvas's shards; a solve meets it earlier, in its unsharded meta
+    forward, as the unsharded solve does): ``NotImplementedError`` naming
+    the op and ROADMAP D.4, with every launch counter still 0."""
+    from deep_prior_interpolation_tpu_torch.parallel import spatial as S
 
-    img, mask = flagship_problem(256, 128, 128)
-    cfg = flagship_config(epochs=3, scan_chunk=3)
+    model = caller16(refused=True).to(dev)
+    layout = S.SpatialLayout([dev] * 2, SPATIAL_AXIS, (256, 128, 128), (256, 128, 128), 16)
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((1, 64, 256, 128, 128), generator=g, device=dev, dtype=torch.bfloat16)
     set_kernels(True)
     reset_counts()
     try:
-        DIPSolver(cfg, device=dev, model=caller16(refused=True)).solve(
-            img, mask, seed=0, spatial_mesh=[dev] * 2, spatial_axis=SPATIAL_AXIS)
+        S.ShardedStep(model, layout)(layout.split(x))
     except NotImplementedError as e:
         message = str(e)
     else:
-        fail("16c: a Caller3D that flips along the sharded axis ran over 2 shards")
+        fail("16c: a Caller3D that reads .item() of a shard list ran over 2 shards")
     counts = read_counts()
     log(f"16c: refused with {message!r}; launches {counts}")
-    if any(counts.values()) or not ("Tensor.flip along the sharded dim" in message
-                                    and "ROADMAP A.13c item 13" in message):
-        fail(f"16c: the refusal {message!r} does not name the op and A.13c item 13, or "
-             f"kernels launched first ({counts})")
+    if any(counts.values()) or not ("Tensor.item" in message and "ROADMAP D.4" in message):
+        fail(f"16c: the refusal {message!r} does not name the op and D.4, or kernels "
+             f"launched first ({counts})")
     return {"message": message, "launches": counts}
 
 
@@ -4344,6 +4396,77 @@ def uneven17_kernels(dev, p17: dict, done_wgrad: set, done_upsample: set) -> dic
     return {"wgrad": rows, "upsample": ups, "fused": fused}
 
 
+# ----------------------------------------------------------------------
+# phase 18: every op of a caller's module over spatial shards
+# ----------------------------------------------------------------------
+
+# what was predicted before the first card run of phase 18 (PERF.md)
+PREDICTED_18 = ("18a s/iteration at N = 1 / 2 / 4: 0.16-0.22 / 0.32-0.42 / 0.50-0.65, peak "
+                "13.8-14.6 / 16.2-17.2 / 16.3-17.4 GiB; iteration-0 losses within 3e-5 of the "
+                "unsharded one's; launches and kernel shapes 16a's; phase 18 under 45 s")
+CALLER18_KEEP = 16   # the low-pass keeps 16 of H's 33 frequencies
+CALLER18_WHOLE = ["torch.fft.rfft", "torch.fft.irfft", "Halve.apply"]
+LOSS0_TOL_18 = 1e-4
+
+
+def caller18():
+    """``Caller18``: ``caller16(routes=True)``."""
+    return caller16(routes=True)
+
+
+def custom18(dev, p16: dict) -> dict:
+    """18a: ``Caller18`` through ``DIPSolver(model=...)`` at the flagship
+    volume and flags, unsharded and over [cuda:0] x 2 and x 4 along H, 6
+    iterations in chunks of 3: launches N x the unsharded solve's, the
+    iteration-0 loss within 1e-4 of the unsharded solve's, ``whole_ops``
+    the FFT pair and ``Halve`` (none unsharded), every wgrad and upsample
+    shape one 16a held (16d)."""
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=6, scan_chunk=3)
+    out = zoo15_sharded(dev, "caller18", cfg, 64, img, mask, CALLER16_UPS, SPATIAL_SHARDS,
+                        make=caller18, tag="18a", tol=LOSS0_TOL_18, predicted=PREDICTED_18)
+    for n, r in out.items():
+        names = [o[0] for o in r["whole_ops"]]
+        want = [] if n == "1" else CALLER18_WHOLE
+        log(f"18a over {n} shard(s): whole route {r['whole_ops']} (expected {want})")
+        if names != want:
+            fail(f"18a over {n} shard(s): the whole route took {names}, not {want}")
+        for key in ("wgrad_shapes", "upsample_shapes"):
+            held = {json.dumps(v) for v in p16["16a"][n][key]}
+            new = [v for v in r[key] if json.dumps(v) not in held]
+            if new:
+                fail(f"18a over {n} shard(s): {key} {new} that 16a's checks did not hold")
+    return out
+
+
+def custom18_exactness(dev) -> dict:
+    """18b: ``Caller18`` over 2 shards, two 3-iteration solves with
+    deterministic cuDNN: history and ``out_best`` bit-equal."""
+    from deep_prior_interpolation_tpu_torch import DIPSolver
+    from deep_prior_interpolation_tpu_torch.data import flagship_problem
+
+    img, mask = flagship_problem(256, 128, 128)
+    cfg = flagship_config(epochs=3, scan_chunk=3)
+    set_kernels(True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [DIPSolver(cfg, device=dev, model=caller18()).solve(
+            img, mask, seed=0, spatial_mesh=[dev] * 2, spatial_axis=SPATIAL_AXIS)
+            for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = (np.array_equal(runs[0].history.loss, runs[1].history.loss)
+            and np.array_equal(runs[0].out_best, runs[1].out_best))
+    log(f"18b: Caller18 over 2 shards, losses {list(runs[0].history.loss)}; two solves "
+        f"bit-equal {same}")
+    if not same:
+        fail("18b: two sharded Caller18 solves from one seed are not bit-equal")
+    return {"two_runs_bit_equal": same, "losses": list(runs[0].history.loss)}
+
+
 # kernel families of the profile, by the first pattern a kernel name holds
 FAMILIES = [
     ("wgrad3d (kernel 2)", ("wgrad3d",)),
@@ -4581,6 +4704,11 @@ def main() -> None:
                                        done_wgrad, done_upsample)
         seconds["17_total"] = time.time() - t17
         log(f"phase 17: {seconds['17_total']:.1f} s")
+        t18 = time.time()
+        phase18 = {"18a": phase("18a_whole_routes", custom18, dev, phase16),
+                   "18b": phase("18b_whole_exactness", custom18_exactness, dev)}
+        seconds["18_total"] = time.time() - t18
+        log(f"phase 18: {seconds['18_total']:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cuda_tests = phase("9_cuda_tests", run_cuda_tests)
@@ -4694,6 +4822,14 @@ def main() -> None:
     upsample["spatial_shapes"] += rows16["upsample"] + rows17["upsample"]
     for entry, rows in ((fused, rows17["fused"]), (wgrad, rows17["wgrad"])):
         entry["max_abs_err"] = max([entry["max_abs_err"]] + [r["max_abs_err"] for r in rows])
+    phase18["seconds"] = {k: v for k, v in seconds.items() if k.startswith("18")}
+    log(json.dumps({"phase18": phase18}))
+    # phase 18's launches: Caller18 unsharded ("1") and by shard count (its
+    # shapes are 16a's, held in 16d)
+    for entry, key in ((fused, "fused_loss"), (fused_grad, "fused_loss_grad"),
+                       (wgrad, "wgrad3d"), (upsample, "upsample_bwd")):
+        entry["spatial_whole_launches"] = {"18a": {n: r["launches"][key]
+                                                   for n, r in phase18["18a"].items()}}
     lanes = lane_entries(survey8, kernels8)
     for entry in lanes:
         entry["convergence_launches"] = {k: phase14[f"{k}_{g}"]["launches"][entry["name"]]

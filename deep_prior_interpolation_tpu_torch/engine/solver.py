@@ -551,6 +551,10 @@ class SolveResult:
     snapshots: Dict[int, np.ndarray] = field(default_factory=dict)
     # pocs: the f-k projection of the best output (*spatial, C) float32
     pocs: Optional[np.ndarray] = None
+    # a sharded solve of a module of the caller's own: the ops of its
+    # forward that took the whole route (``parallel.spatial_custom.WholeOp``:
+    # gathered on the first shard's device, run whole, split back)
+    whole_ops: List[Any] = field(default_factory=list)
 
 
 def _profiled(profile_dir: str, fn):
@@ -899,9 +903,13 @@ class DIPSolver:
         *padded)`` raises ``TypeError`` (``check_net_output``), sharded or
         not. A module of the caller's own, which no library walk covers,
         runs its forward over the shards on the walker of
-        ``parallel/spatial_custom.py``; an op outside its vocabulary
-        raises ``NotImplementedError`` naming the op (ROADMAP A.13c item
-        13). Both are found before anything is drawn.
+        ``parallel/spatial_custom.py``, every op by one of its four routes
+        (the vocabulary on the shards, relayouts, windows, the whole route
+        on the first device; ``SolveResult.whole_ops`` lists the ops that
+        took the last); what the JAX package's jitted step refuses too (a
+        host read, a value-dependent shape, ``out=`` or an in-place write
+        into a plain tensor) raises ``NotImplementedError`` naming the op
+        and ROADMAP D.4. Both are found before anything is drawn.
         """
         args = (img, mask, seed, init_params, noise, verbose)
         if not checkpoint_path:
@@ -1066,4 +1074,5 @@ class DIPSolver:
                     for k, v in self.model.state_dict().items()},
             elapsed=elapsed, iters_run=iters_run, stopped_early=stopped,
             noise=extract_noise_canvas(s, st, data, regenerate, spatial),
-            chunk_seconds=chunk_seconds, snapshots=snapshots, pocs=pocs)
+            chunk_seconds=chunk_seconds, snapshots=snapshots, pocs=pocs,
+            whole_ops=list(st["spatial"].whole_ops) if layout is not None else [])

@@ -91,11 +91,17 @@ gives it to no other net), dropout, parameter noise, data forgetting, a
 shaped, a virtual or an optimised canvas. A net given to the solver
 (``DIPSolver(model=...)``) of a class no walk covers, a module of the
 caller's own, runs its forward over the shards on the walker of
-``parallel/spatial_custom.py``, which maps each op onto a stated
-vocabulary and dispatches the library nets it calls to their walks;
-``check_supported`` runs its meta pass before anything is drawn, which
-refuses an op outside the vocabulary (ROADMAP A.13c item 13) and finds
-the shard block.
+``parallel/spatial_custom.py``, which dispatches the library nets it
+calls to their walks and sends every other op by one of four routes (the
+walker's vocabulary on the shards; relayouts for slices, flips, rolls,
+concatenations and wrap pads along the axis; windows for any conv,
+deconv or pool; the whole route, gathered on the first device, for FFTs,
+custom autograd Functions and the rest, as GSPMD runs an op it cannot
+partition), custom ``Function.apply`` included; ``check_supported`` runs
+its meta pass before anything is drawn, which finds the shard block and
+refuses only what the JAX package's jitted step refuses too (host reads,
+value-dependent shapes, ``out=`` and in-place writes into a plain tensor:
+ROADMAP D.4).
 """
 from __future__ import annotations
 
@@ -177,8 +183,12 @@ def owned(bounds: Bounds, stride: int, n_out: int) -> Bounds:
     """The output planes of a stride-``stride`` op (``n_out`` of them) that
     each shard of ``bounds`` owns: those whose first input plane it holds
     (output o reads from input plane stride * o on), so shard ``[a, b)``
-    owns ``[ceil(a / stride), ceil(b / stride))``, clamped to ``n_out``."""
-    return [(min(-(-a // stride), n_out), min(-(-b // stride), n_out)) for a, b in bounds]
+    owns ``[ceil(a / stride), ceil(b / stride))``, clamped to ``n_out``;
+    the last shard also owns the outputs whose first plane lies past the
+    volume's end (a window padded by more than its own reach)."""
+    out = [(min(-(-a // stride), n_out), min(-(-b // stride), n_out)) for a, b in bounds]
+    out[-1] = (out[-1][0], n_out)
+    return out
 
 
 def rounded(bounds: Bounds, m: int) -> Bounds:
@@ -343,8 +353,9 @@ class _Relayout(torch.autograd.Function):
     holds it, however far away (an empty interval: no planes); planes past
     the volume's ends follow ``edge`` (``_source``): zeros, copies of the
     end plane (``"replicate"``), the mirror without the end plane
-    (``"reflect"``, as ``F.pad`` and ``jnp.pad`` reflect) or -inf
-    (``"-inf"``, a max pool's padding). Shard i's output lives on input
+    (``"reflect"``, as ``F.pad`` and ``jnp.pad`` reflect), the planes of
+    the other end (``"circular"``, ``F.pad``'s circular and ``jnp.pad``'s
+    wrap) or -inf (``"-inf"``, a max pool's padding). Shard i's output lives on input
     shard i's device. The backward adds each copied plane's gradient into
     the plane it was copied from, in a fixed order: into each shard the
     gradient of its own planes in its own output, then the copies in the
@@ -432,6 +443,8 @@ def _source(g: int, n: int, edge: str) -> Optional[int]:
         return g
     if edge == "replicate":
         return 0 if g < 0 else n - 1
+    if edge == "circular":
+        return g % n
     if edge == "reflect":
         s = -g if g < 0 else 2 * (n - 1) - g
         if not 0 <= s < n:
@@ -440,7 +453,8 @@ def _source(g: int, n: int, edge: str) -> Optional[int]:
         return s
     if edge in ("zero", "-inf"):
         return None
-    raise ValueError(f"edge is 'zero', 'replicate', 'reflect' or '-inf', got {edge!r}")
+    raise ValueError(f"edge is 'zero', 'replicate', 'reflect', 'circular' or '-inf', got "
+                     f"{edge!r}")
 
 
 def _halo_runs(sizes: Sequence[int], targets: Sequence[Tuple[int, int]],
@@ -544,6 +558,12 @@ def on_shards(fn, xs: Sequence[torch.Tensor], dim: int,
             for x, y in zip(xs, ys)]
 
 
+def _joined(xs: Sequence[torch.Tensor], dim: int, device: torch.device) -> torch.Tensor:
+    """The shards ``xs`` concatenated along ``dim`` on ``device``, in shard
+    order: ``_Gather``'s forward and ``_Split``'s backward."""
+    return torch.cat([x.to(device) for x in xs], dim)
+
+
 class _Gather(torch.autograd.Function):
     """N shards in, their concatenation along ``dim`` on ``device`` out; the
     backward splits the gradient into the shards' pieces, each moved to its
@@ -553,12 +573,39 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, dim: int, device: torch.device, *xs):
         ctx.dim, ctx.devices = dim, [x.device for x in xs]
         ctx.sizes = [x.shape[dim] for x in xs]
-        return torch.cat([x.to(device) for x in xs], dim)
+        return _joined(xs, dim, device)
 
     @staticmethod
     def backward(ctx, g):
         return (None, None, *(p.to(d) for p, d in zip(g.split(ctx.sizes, ctx.dim),
                                                       ctx.devices)))
+
+
+class _Split(torch.autograd.Function):
+    """A whole tensor in, its planes ``bounds[i]`` along ``dim`` out as shard
+    i, a contiguous copy on ``devices[i]`` (``SpatialLayout.split``'s
+    narrow and move); the backward gathers the shards' gradients on the
+    whole's device in shard order, as ``_Gather``'s forward does, so the
+    two are exact transposes."""
+
+    @staticmethod
+    def forward(ctx, dim: int, bounds: Tuple[Tuple[int, int], ...],
+                devices: Tuple[torch.device, ...], t):
+        ctx.dim, ctx.device = dim, t.device
+        return tuple(t.narrow(dim, a, b - a).to(d, copy=True,
+                                                memory_format=torch.contiguous_format)
+                     for (a, b), d in zip(bounds, devices))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return None, None, None, _joined(gs, ctx.dim, ctx.device)
+
+
+def split(t: torch.Tensor, dim: int, bounds: Bounds,
+          devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """``t`` as shards: shard i its planes ``bounds[i]`` along ``dim`` on
+    ``devices[i]``, differentiable (``_Split``: its backward gathers)."""
+    return list(_Split.apply(dim, tuple(tuple(b) for b in bounds), tuple(devices), t))
 
 
 class _Replicate(torch.autograd.Function):
@@ -588,9 +635,10 @@ def check_supported(model: torch.nn.Module, input_shape: Optional[Sequence[int]]
     For any other module (a module of the caller's own) with the canvas's
     ``input_shape``, the walker's meta pass (``spatial_custom.meta_pass``)
     over ``n`` meta shards along spatial ``axis``: it raises
-    ``NotImplementedError`` naming the op and ROADMAP A.13c item 13 for an
-    op outside the walker's vocabulary, before anything is drawn, and
-    returns the shard block it found."""
+    ``NotImplementedError`` naming the op and ROADMAP D.4 for what the JAX
+    package's jitted step refuses too (a host read, a value-dependent
+    shape, ``out=`` or an in-place write into a plain tensor), before
+    anything is drawn, and returns the shard block it found."""
     from .spatial_zoo import uncovered
     if uncovered(model) is None or input_shape is None:
         return None
@@ -616,6 +664,9 @@ class ShardedStep:
         self.model, self.layout = model, layout
         self._params = list(model.parameters())
         self._reps: Dict[int, List[torch.Tensor]] = {}
+        # the ops of a caller's module that its last forward ran whole
+        # (``spatial_custom.WholeOp``); empty for a library net
+        self.whole_ops: List[Any] = []
 
     # -- the step -----------------------------------------------------------
 

@@ -1,11 +1,9 @@
-"""What the port refuses: every feature it does not serve yet (an op
-outside the sharded walker's vocabulary in a module of the caller's own
-given to a spatially sharded solve, ROADMAP A.13c item 13) raises
-NotImplementedError naming its ROADMAP item,
-a sharded axis shorter than the mesh and a canvas of the wrong shape are
-rejected; the solver options, nets and conv formulations it serves (phase
-space, tapmm and the zoo nets over shards, on whole blocks of the net or
-not, among them) build and run."""
+"""What the port refuses: a sharded axis shorter than the mesh, a weights
+file that is not msgpack and a canvas of the wrong shape are rejected; the
+solver options, nets and conv formulations it serves (phase space, tapmm
+and the zoo nets over shards, on whole blocks of the net or not, and a
+module of the caller's own that rolls along the sharded axis, among them)
+build and run."""
 import os
 
 import numpy as np
@@ -60,21 +58,20 @@ def test_cli_and_weights_refusals(tmp_path):
     refused before uneven shards (its 100 planes along axis 1 are not whole
     32-plane blocks of the net's five stride-2 steps), runs and writes its
     bundle, its shards on 4-plane blocks; a module of the caller's own
-    that rolls along the sharded axis (outside the sharded walker's
-    vocabulary) is refused naming the op and ROADMAP A.13c item 13 (with an
-    optimised canvas, which the shards serve); a mesh longer than the
+    that rolls along the sharded axis, which the sharded walker refused
+    before its relayouts, runs with an optimised canvas (which the shards
+    serve) and follows its unsharded solve; a mesh longer than the
     sharded axis's blocks runs, one longer than the axis is a ValueError; a
     weights file that is not msgpack is refused with its offset."""
     out = cli.run(lines_cfg(spatial_shards=2, batch_patches=0, vmap_conv_mode="tapmm",
                             net="part", outdir="part"), str(tmp_path), device="cpu")
     assert completed_patches(out) == ["0"]
-    img = np.zeros((16, 8, 1), np.float32)
-    mesh = [torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match=r"torch.roll along the sharded dim .*: "
-                                                  r"ROADMAP A.13c item 13"):
-        DIPSolver(tiny_cfg(opt_over="net,input"), device="cpu",
-                  model=Mine()).solve(img, img, spatial_mesh=mesh)
     img = np.random.RandomState(0).randn(16, 8, 1).astype(np.float32)
+    mesh = [torch.device("cpu")] * 2
+    rolled = [DIPSolver(tiny_cfg(opt_over="net,input"), device="cpu", model=Mine()).solve(
+        img, np.ones_like(img), seed=0, spatial_mesh=m) for m in (None, mesh)]
+    np.testing.assert_allclose(rolled[1].history.loss, rolled[0].history.loss, rtol=1e-5)
+    assert rolled[1].out_best.shape == img.shape and rolled[1].whole_ops == []
     res = DIPSolver(tiny_cfg(), device="cpu").solve(img, np.ones_like(img),
                                                     spatial_mesh=mesh * 4)
     assert np.all(np.isfinite(res.history.loss)) and res.out_best.shape == img.shape

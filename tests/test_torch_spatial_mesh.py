@@ -1,8 +1,8 @@
 """The port's spatial mesh, shard boundaries, state placement and
 collectives (parallel/spatial.py) on the CPU, and what a sharded solve
-refuses (a net given as ``model=`` whose output does not fit the solve,
-and a module of the caller's own whose forward uses an op outside the
-sharded walker's vocabulary: ROADMAP A.13c item 13).
+refuses (a net given as ``model=`` whose output does not fit the solve),
+beside a module of the caller's own that moves planes along the sharded
+axis by slices or ``torch.roll``, which runs (relaid, ROADMAP A.13f).
 
 * ``make_spatial_mesh`` takes the devices that exist past them, with a
   warning (as the JAX one truncates), and takes a list of one repeated
@@ -194,9 +194,7 @@ class Rolled(torch.nn.Module):
 # what a sharded solve refuses when it starts, under options the shards
 # serve: a net given to the solver (``model=``) whose output is not the
 # tracked (1, outchannel, *padded), or that takes two inputs, with the
-# unsharded solve's TypeError; a module of the caller's own whose forward
-# slices or rolls along the sharded dim (ops outside the sharded walker's
-# vocabulary), naming the op and ROADMAP A.13c item 13
+# unsharded solve's TypeError
 REFUSED = [
     (lambda: SkipNet(4, filters=(4, 8), skip=(4,), filter_size_down=[3, 4]),
      {"vmap_conv_mode": "tapmm", "remat": True}, TypeError,
@@ -206,11 +204,11 @@ REFUSED = [
      r"output is \(4, 1, 32, 32\)"),
     (lambda: GridAttentionBlock(4), {"phase_space": True, "phase_levels": 1}, TypeError,
      "missing 1 required positional argument"),
-    (lambda: Rolled(by_slices=True), {"opt_over": "net,input"}, NotImplementedError,
-     r"Tensor.__getitem__ along the sharded dim .*: ROADMAP A.13c item 13"),
-    (lambda: Rolled(by_slices=False), {}, NotImplementedError,
-     r"torch.roll along the sharded dim .*: ROADMAP A.13c item 13"),
 ]
+# a module of the caller's own whose forward slices or rolls along the
+# sharded dim, refused before the relayout route, runs (an optimised canvas
+# with the slices)
+ROLLED = [(True, {"opt_over": "net,input"}), (False, {})]
 
 
 def test_each_a13c_item_is_refused_when_the_solve_starts(monkeypatch):
@@ -226,3 +224,21 @@ def test_each_a13c_item_is_refused_when_the_solve_starts(monkeypatch):
             DIPSolver(cfg, device="cpu", model=model()).solve(img, img,
                                                               spatial_mesh=[CPU] * 2)
     assert not drawn
+    # the modules that slice or roll along the sharded dim run, relaid (no
+    # op gathered), and follow their unsharded solves
+    rng = np.random.RandomState(0)
+    img = rng.randn(32, 32, 1).astype(np.float32)
+    mask = (rng.rand(32, 32, 1) > 0.5).astype(np.float32)
+    for by_slices, kw in ROLLED:
+        cfg = Config(**{**dict(datadim="2d", epochs=2, inputdepth=4, filters=[4, 8], skip=[4],
+                               gain=1.0), **kw})
+        runs = []
+        for mesh in (None, [CPU] * 2):
+            torch.manual_seed(0)
+            runs.append(DIPSolver(cfg, device="cpu", model=Rolled(by_slices)).solve(
+                img, mask, seed=0, spatial_mesh=mesh))
+        ref, got = runs
+        np.testing.assert_allclose(got.history.loss, ref.history.loss, rtol=1e-5)
+        np.testing.assert_allclose(got.out_best, ref.out_best, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref.out_best).max()))
+        assert got.whole_ops == []
