@@ -45,6 +45,12 @@ All of that state stays on the device as tensors. The host reads it once
 per chunk: one copy of the chunk's metrics and the ``done`` flag, which is
 also the chunk's synchronisation point.
 
+With the recorder of ``utils/spans.py`` on, a solve records its spans:
+``solve``, ``solve.prepare``, each ``chunk`` (its stamps are
+``SolveResult.chunk_seconds``) with its ``step``s (``step.forward``,
+``step.backward``, ``step.adam``, ``step.track``) and ``chunk.read``, and
+``solve.results`` with the bytes copied to the host (``host_bytes``).
+
 The same step serves B patches at once (``parallel/mesh.py``), each lane
 with its own parameters, Adam state, generators, trackers and ``done``
 flag: the parameters are (B, *shape) leaves viewing one (B, P) buffer, the
@@ -98,6 +104,7 @@ from ..ops.filters import convolve_kernel_1d, lowpass_butterworth_taps
 from ..ops.fused_loss import fused_loss_metrics
 from ..ops.noise import build_forgetting_data, data_forgetting_weights, get_noise
 from ..ops.pocs import fk_projection
+from ..utils import spans
 from ..utils.generic import nextpow2
 from .history import History, HistoryPOCS
 
@@ -544,7 +551,8 @@ class SolveResult:
     # the input canvas (*spatial, inputdepth), float32: the optimised one
     # under opt_over="net,input"
     noise: Optional[np.ndarray] = None
-    # wall seconds of each chunk, each ending at the chunk's host read
+    # wall seconds of each chunk, each ending at the chunk's host read: the
+    # stamps of its ``chunk`` span (``utils/spans.py``)
     chunk_seconds: List[float] = field(default_factory=list)
     # save_every: the last output (*spatial, C) float32 at each multiple of
     # save_every below epochs
@@ -557,32 +565,88 @@ class SolveResult:
     whole_ops: List[Any] = field(default_factory=list)
 
 
+def host_bytes(results: List[SolveResult]) -> int:
+    """The bytes of the arrays ``results`` hold, each copied to the host at
+    the end of its solve (the counter ``host_bytes`` of ``solve.results``):
+    the best output, the parameters, the canvas and the POCS projection."""
+    return sum(r.out_best.nbytes + sum(a.nbytes for a in (r.noise, r.pocs) if a is not None)
+               + sum(p.numel() * p.element_size() for p in r.params.values())
+               for r in results)
+
+
+def _union_length(intervals: List[Tuple[float, float]]) -> float:
+    """The length of the union of ``intervals`` (overlaps count once)."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def _profiled(profile_dir: str, fn):
     """Run ``fn`` under ``torch.profiler``; write ``trace.json`` (Chrome
-    trace) and ``ops.txt`` into ``profile_dir``: the window's wall time, the
-    device kernels' summed time and busy share, then the kernels by time
-    (on a CPU-only run: the operators by self CPU time)."""
+    trace) and ``ops.txt`` into ``profile_dir``: the window (from the first
+    span ``fn`` opens to the last it closes, so the profiler's own start
+    and stop lie outside it; for ``run_chunk``, its ``chunk`` span), the
+    device kernels' summed time and the busy share (the union of the
+    device's kernel, copy and memset intervals inside the window, over the
+    window), then the kernels by time (on a CPU-only run: the operators by
+    self CPU time, the busy share theirs). The trace also holds the
+    program's spans of ``fn`` (``utils/spans.py``, recorded for it if the
+    recorder is off) as ``X`` events of category ``program_span`` on each
+    host thread, on the trace's clock."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(profile_dir, exist_ok=True)
-    t0 = time.time()
-    with profile(activities=acts) as prof:
-        out = fn()
-    wall_us = (time.time() - t0) * 1e6
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    was_on, n_before = spans.on, len(spans.records)
+    spans.enable()
+    try:
+        with profile(activities=acts) as prof:
+            out = fn()
+    finally:
+        if not was_on:
+            spans.disable()
+    mine = spans.records[n_before:]
+    if not was_on:
+        del spans.records[n_before:]
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        trace = json.load(fh)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    if mine:   # the spans' clock is the trace's: time.time_ns() = base + ts µs
+        lo = (min(r.start_ns for r in mine) - base) * 1e-3
+        hi = (max(r.end_ns for r in mine) - base) * 1e-3
+    else:
+        lo = min(float(e["ts"]) for e in events)
+        hi = max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in events)
+    cats = ("kernel", "gpu_memcpy", "gpu_memset") if cuda else ("cpu_op",)
+    clipped = [(max(float(e["ts"]), lo), min(float(e["ts"]) + float(e.get("dur", 0.0)), hi))
+               for e in events if e.get("cat") in cats]
+    busy_us = _union_length([(a, b) for a, b in clipped if b > a])
+    wall_us = hi - lo
+    trace["traceEvents"] += [
+        {"ph": "X", "cat": "program_span", "name": r.name, "pid": os.getpid(),
+         "tid": r.thread, "ts": (r.start_ns - base) * 1e-3,
+         "dur": (r.end_ns - r.start_ns) * 1e-3,
+         "args": dict(r.attrs, id=r.id, parent=r.parent)} for r in mine]
+    with open(path, "w") as fh:
+        json.dump(trace, fh)
     if cuda:  # kernel rows only: operator rows repeat their kernels' time
         rows = [(e.self_device_time_total, e) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
     else:
         rows = [(e.self_cpu_time_total, e) for e in prof.key_averages()]
     rows.sort(key=lambda r: r[0], reverse=True)
-    busy = sum(t for t, _ in rows)
     with open(os.path.join(profile_dir, "ops.txt"), "w") as fh:
         fh.write(f"window {wall_us / 1e3:.3f} ms, {'device kernels' if cuda else 'cpu ops'} "
-                 f"{busy / 1e3:.3f} ms, busy share {busy / wall_us:.4f}\n")
+                 f"{sum(t for t, _ in rows) / 1e3:.3f} ms, busy share "
+                 f"{busy_us / wall_us:.4f}\n")
         for t, e in rows:
             fh.write(f"{t / 1e3:12.3f} ms {e.count:7d}x  {e.key}\n")
     return out
@@ -762,6 +826,27 @@ class DIPSolver:
         shards where ``st["spatial"]`` holds a ``parallel.spatial.ShardedStep``
         (the canvas, data and outputs lists of shards)."""
         flat = st["flat"]
+        with spans.span("step", "it", it):
+            with spans.span("step.forward"):
+                out, loss, ys, frozen = self._forward(it, st, data, hyper, s, gens,
+                                                      regenerate)
+            with spans.span("step.backward"):
+                grads = torch.autograd.grad(loss.sum() if isinstance(gens, list) else loss,
+                                            flat.leaves())
+            with spans.span("step.adam"):
+                flat.adam_step(grads, st["lr"], st["done"], frozen)
+            with spans.span("step.track"):
+                ys = self._track(it, st, hyper, s, loss, out, ys)
+            # the step's autograd graph goes here, inside its span
+            del out, loss, grads, frozen
+        return ys
+
+    def _forward(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings, gens,
+                 regenerate):
+        """The step's net input and noise, the net and the loss terms:
+        ``(out, loss, ys, frozen)``, ``frozen`` the parameters as they were
+        before parameter noise."""
+        flat = st["flat"]
         lanes = isinstance(gens, list)
         sharded = st.get("spatial")
         if sharded is not None:
@@ -773,26 +858,29 @@ class DIPSolver:
             frozen = flat.perturb([g["param"] for g in gens] if lanes else gens["param"])
         if lanes:
             out, loss, ys = self._lane_forward(inp, st, data, hyper, s)
-            grads = torch.autograd.grad(loss.sum(), flat.leaves())
         elif sharded is not None:
             net_out = sharded(inp, data["net_mask"] if s.takes_mask else None)
             out, main, ys = sharded.loss_terms(net_out, data, s, st["out_best"][0].dtype,
                                                flat.flat.device)
             whole = sharded.layout.gather(out, main.device) if s.pocs else None
             loss = _with_pocs(whole, main, ys, data, hyper, s)
-            grads = torch.autograd.grad(loss, flat.leaves())
         else:
             net_out = (self.model(inp, data["net_mask"]) if s.takes_mask
                        else self.model(inp))
             out, loss, ys = self._loss_terms(net_out, data["img"], data["mask"], data, hyper,
                                              s, st["out_best"].dtype)
-            grads = torch.autograd.grad(loss, flat.leaves())
-        done, lr = st["done"], st["lr"]
-        flat.adam_step(grads, lr, done, frozen)
+        return out, loss, ys, frozen
 
+    @staticmethod
+    def _track(it: int, st: Dict[str, Any], hyper, s: StepSettings, loss, out,
+               ys) -> Dict[str, torch.Tensor]:
+        """The step's trackers, after the update: the best output (``out``
+        a list of shards over spatial shards), the plateau's learning rate,
+        early stopping and ``done``; returns the step's metrics."""
+        done, lr = st["done"], st["lr"]
         with torch.no_grad():
             loss = loss.detach()
-            out = [o.detach() for o in out] if sharded is not None else out.detach()
+            out = [o.detach() for o in out] if isinstance(out, list) else out.detach()
             better = (loss <= st["loss_min"]) & ~done
             st["out_best"] = _where(better, out, st["out_best"])
             if s.track_last:
@@ -912,138 +1000,143 @@ class DIPSolver:
         and ROADMAP D.4. Both are found before anything is drawn.
         """
         args = (img, mask, seed, init_params, noise, verbose)
-        if not checkpoint_path:
-            return self._solve(*args, None, 0, profile_dir, spatial_mesh, spatial_axis)
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            return self._solve(*args, checkpoint_path, checkpoint_every, profile_dir,
-                               spatial_mesh, spatial_axis)
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
+        with spans.span("solve", "lanes", 1):
+            spans.attr("entry", "solve" if spatial_mesh is None else "spatial")
+            if not checkpoint_path:
+                return self._solve(*args, None, 0, profile_dir, spatial_mesh, spatial_axis)
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                return self._solve(*args, checkpoint_path, checkpoint_every, profile_dir,
+                                   spatial_mesh, spatial_axis)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
 
     def _solve(self, img: np.ndarray, mask: np.ndarray, seed: int,
                init_params: Optional[Mapping[str, Any]], noise: Optional[np.ndarray],
                verbose: bool, checkpoint_path: Optional[str], checkpoint_every: int,
                profile_dir: Optional[str], spatial_mesh=None,
                spatial_axis: int = 1) -> SolveResult:
-        cfg, dev = self.cfg, self.device
-        if img.shape != mask.shape:
-            raise ValueError("image and mask shapes must match")
-        spatial = tuple(img.shape[:-1])
-        padded = padded_spatial(spatial, pad_multiple_for(cfg))
-        s = StepSettings.from_config(cfg, spatial,
-                                     takes_mask=getattr(self.model, "takes_mask", False),
-                                     input_shape=(1, cfg.inputdepth) + padded)
-        if noise is not None:
-            s = dataclasses.replace(s, virtual_input=False)
-        if s.opt_input and cfg.dtype == "bfloat16":
-            raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
-                            "p - lr * d of the bfloat16 canvas is float32, and the JAX "
-                            "package's scan refuses a carry whose dtype changes")
-        check_net_output(self.model, s.input_shape, (1, self.outchannel) + padded,
-                         s.takes_mask)
-        layout = None
-        if spatial_mesh is not None:
-            from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported
-            walked = check_supported(
-                self.model, s.input_shape, len(spatial_mesh), spatial_axis, s.takes_mask,
-                torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
-            layout = SpatialLayout(spatial_mesh, spatial_axis, padded, spatial,
-                                   shard_block(cfg, self.model, walked))
+        with spans.span("solve.prepare"):
+            cfg, dev = self.cfg, self.device
+            if img.shape != mask.shape:
+                raise ValueError("image and mask shapes must match")
+            spatial = tuple(img.shape[:-1])
+            padded = padded_spatial(spatial, pad_multiple_for(cfg))
+            s = StepSettings.from_config(cfg, spatial,
+                                         takes_mask=getattr(self.model, "takes_mask", False),
+                                         input_shape=(1, cfg.inputdepth) + padded)
+            if noise is not None:
+                s = dataclasses.replace(s, virtual_input=False)
+            if s.opt_input and cfg.dtype == "bfloat16":
+                raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
+                                "p - lr * d of the bfloat16 canvas is float32, and the JAX "
+                                "package's scan refuses a carry whose dtype changes")
+            check_net_output(self.model, s.input_shape, (1, self.outchannel) + padded,
+                             s.takes_mask)
+            layout = None
+            if spatial_mesh is not None:
+                from ..parallel.spatial import ShardedStep, SpatialLayout, check_supported
+                walked = check_supported(
+                    self.model, s.input_shape, len(spatial_mesh), spatial_axis, s.takes_mask,
+                    torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+                layout = SpatialLayout(spatial_mesh, spatial_axis, padded, spatial,
+                                       shard_block(cfg, self.model, walked))
 
-        gens = _generators(seed, dev)
-        canvas_start = gens["canvas"].get_state()
+            gens = _generators(seed, dev)
+            canvas_start = gens["canvas"].get_state()
 
-        def regenerate() -> torch.Tensor:
-            """The raw canvas again, from its generator's first state."""
-            gens["canvas"].set_state(canvas_start)
-            return build_base_input(cfg, gens["canvas"], padded, dev)
+            def regenerate() -> torch.Tensor:
+                """The raw canvas again, from its generator's first state."""
+                gens["canvas"].set_state(canvas_start)
+                return build_base_input(cfg, gens["canvas"], padded, dev)
 
-        if noise is not None:
-            if tuple(noise.shape) != padded + (cfg.inputdepth,):
-                raise ValueError(f"noise must be {padded + (cfg.inputdepth,)}, "
-                                 f"got {tuple(noise.shape)}")
-            base_input = _to_channels_first(
-                noise, dev, torch.bfloat16 if cfg.dtype == "bfloat16"
-                else torch.float32)
-        elif s.virtual_input:
-            base_input = None
-        else:
-            base_input = build_base_input(cfg, gens["canvas"], padded, dev)
-        data = build_data(img, mask, base_input, dev,
-                          pocs_alpha=cfg.pocs_alpha if s.pocs else None,
-                          forget_factor=s.forget_factor,
-                          net_mask_shape=s.input_shape if s.takes_mask else None)
-        hyper = build_hyper(cfg, dev)
-        self._init_model(seed, init_params)
-        set_dropout_generator(self.model, gens["dropout"])
+            if noise is not None:
+                if tuple(noise.shape) != padded + (cfg.inputdepth,):
+                    raise ValueError(f"noise must be {padded + (cfg.inputdepth,)}, "
+                                     f"got {tuple(noise.shape)}")
+                base_input = _to_channels_first(
+                    noise, dev, torch.bfloat16 if cfg.dtype == "bfloat16"
+                    else torch.float32)
+            elif s.virtual_input:
+                base_input = None
+            else:
+                base_input = build_base_input(cfg, gens["canvas"], padded, dev)
+            data = build_data(img, mask, base_input, dev,
+                              pocs_alpha=cfg.pocs_alpha if s.pocs else None,
+                              forget_factor=s.forget_factor,
+                              net_mask_shape=s.input_shape if s.takes_mask else None)
+            hyper = build_hyper(cfg, dev)
+            self._init_model(seed, init_params)
+            set_dropout_generator(self.model, gens["dropout"])
 
-        f32 = dict(dtype=torch.float32, device=dev)
-        i32 = dict(dtype=torch.int32, device=dev)
-        out_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-        out_shape = (1, self.outchannel) + spatial
-        canvas = None
-        if s.opt_input:   # an optimised canvas: one leaf, or one a shard
-            canvas = base_input if layout is None else layout.split(base_input)
-        st: Dict[str, Any] = {
-            "flat": _FlatParams(self.model, canvas),
-            "lr": torch.tensor(cfg.lr, **f32),
-            "loss_min": torch.tensor(math.inf, **f32),
-            "out_best": torch.zeros(out_shape, dtype=out_dtype, device=dev),
-            "plateau_best": torch.tensor(math.inf, **f32),
-            "plateau_bad": torch.tensor(0, **i32),
-            "es_best": torch.tensor(0.0, **f32),
-            "es_bad": torch.tensor(0, **i32),
-            "done": torch.tensor(False, device=dev),
-        }
-        if s.opt_input:  # the optimised leaf replaces the stored canvas
-            data["base_input"] = base_input = None
-        if s.track_last:
-            st["out_last"] = torch.zeros(out_shape, dtype=out_dtype, device=dev)
-        if layout is not None:   # the whole canvas and data go once split
-            data, st = layout.shard(data, st)
-            st["spatial"] = ShardedStep(self.model, layout)
-            base_input = None
+            f32 = dict(dtype=torch.float32, device=dev)
+            i32 = dict(dtype=torch.int32, device=dev)
+            out_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+            out_shape = (1, self.outchannel) + spatial
+            canvas = None
+            if s.opt_input:   # an optimised canvas: one leaf, or one a shard
+                canvas = base_input if layout is None else layout.split(base_input)
+            st: Dict[str, Any] = {
+                "flat": _FlatParams(self.model, canvas),
+                "lr": torch.tensor(cfg.lr, **f32),
+                "loss_min": torch.tensor(math.inf, **f32),
+                "out_best": torch.zeros(out_shape, dtype=out_dtype, device=dev),
+                "plateau_best": torch.tensor(math.inf, **f32),
+                "plateau_bad": torch.tensor(0, **i32),
+                "es_best": torch.tensor(0.0, **f32),
+                "es_bad": torch.tensor(0, **i32),
+                "done": torch.tensor(False, device=dev),
+            }
+            if s.opt_input:  # the optimised leaf replaces the stored canvas
+                data["base_input"] = base_input = None
+            if s.track_last:
+                st["out_last"] = torch.zeros(out_shape, dtype=out_dtype, device=dev)
+            if layout is not None:   # the whole canvas and data go once split
+                data, st = layout.shard(data, st)
+                st["spatial"] = ShardedStep(self.model, layout)
+                base_input = None
 
-        chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
-        if cfg.save_every:
-            chunk = math.gcd(chunk, int(cfg.save_every)) or 1
-        n_chunks = math.ceil(cfg.epochs / chunk)
-        hist = HistoryPOCS(cfg.epochs) if s.pocs else History(cfg.epochs)
-        snapshots: Dict[int, np.ndarray] = {}
-        chunk_seconds: List[float] = []
-        start = time.time()
-        start_chunk, iters_run, stopped = 0, 0, False
+            chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
+            if cfg.save_every:
+                chunk = math.gcd(chunk, int(cfg.save_every)) or 1
+            n_chunks = math.ceil(cfg.epochs / chunk)
+            hist = HistoryPOCS(cfg.epochs) if s.pocs else History(cfg.epochs)
+            snapshots: Dict[int, np.ndarray] = {}
+            chunk_seconds: List[float] = []
+            start = time.time()
+            start_chunk, iters_run, stopped = 0, 0, False
 
-        if checkpoint_path:
-            checkpoint_path = ckpt_io.npz_path(checkpoint_path)
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            start_chunk, iters_run, final = self._resume(checkpoint_path, st, gens, hist)
-            if final:
-                start_chunk, stopped = n_chunks, iters_run < cfg.epochs
+            if checkpoint_path:
+                checkpoint_path = ckpt_io.npz_path(checkpoint_path)
+            if checkpoint_path and os.path.exists(checkpoint_path):
+                start_chunk, iters_run, final = self._resume(checkpoint_path, st, gens, hist)
+                if final:
+                    start_chunk, stopped = n_chunks, iters_run < cfg.epochs
 
-        fields = ("loss", "snr", "pcorr", "lr", "recorded")
-        if s.pocs:
-            fields += ("df", "reg", "eps", "th")
+            fields = ("loss", "snr", "pcorr", "lr", "recorded")
+            if s.pocs:
+                fields += ("df", "reg", "eps", "th")
 
-        def run_chunk(c: int) -> np.ndarray:
-            # the step's conv formulation, for its forward and its backward
-            with conv_impl(s.conv_mode):
-                ys = [self._step(it, st, data, hyper, s, gens, regenerate)
-                      for it in range(c * chunk, (c + 1) * chunk)]
-            # the one host read of the chunk (and its synchronisation point)
-            return torch.stack(
-                [torch.stack([y[f] for y in ys]) for f in fields]
-                + [st["done"].float().expand(len(ys))]).cpu().numpy()
+            def run_chunk(c: int) -> np.ndarray:
+                with spans.timed("chunk", "c", c) as timer:
+                    # the step's conv formulation, for its forward and its backward
+                    with conv_impl(s.conv_mode):
+                        ys = [self._step(it, st, data, hyper, s, gens, regenerate)
+                              for it in range(c * chunk, (c + 1) * chunk)]
+                    # the one host read of the chunk (and its synchronisation point)
+                    with spans.span("chunk.read"):
+                        packed = torch.stack(
+                            [torch.stack([y[f] for y in ys]) for f in fields]
+                            + [st["done"].float().expand(len(ys))]).cpu().numpy()
+                chunk_seconds.append(timer.seconds)
+                return packed
 
         for c in range(start_chunk, n_chunks):
-            t0 = time.time()
             if profile_dir and c == 1:
                 packed = _profiled(profile_dir, lambda: run_chunk(c))
             else:
                 packed = run_chunk(c)
-            chunk_seconds.append(time.time() - t0)
             host = dict(zip(fields + ("done",), packed))
             n_rec = min(int(host["recorded"].sum()), cfg.epochs - iters_run)
             hist.extend(host, n_rec)
@@ -1058,21 +1151,25 @@ class DIPSolver:
             if bool(host["done"][0]):
                 stopped = iters_run < cfg.epochs
                 break
-        elapsed = time.time() - start
-        if layout is not None and data["base_input"] is not None:
-            data = dict(data, base_input=layout.gather(data["base_input"]))
+        with spans.span("solve.results"):
+            elapsed = time.time() - start
+            if layout is not None and data["base_input"] is not None:
+                data = dict(data, base_input=layout.gather(data["base_input"]))
 
-        pocs = None
-        if s.pocs:
-            with torch.no_grad():
-                pocs = _to_channels_last(fk_projection(
-                    _whole(st, st["out_best"]).float(), data["pocs_wdata"],
-                    data["pocs_wmask"], hyper["pocs_thresh"]))
-        return SolveResult(
-            out_best=_to_channels_last(_whole(st, st["out_best"])), history=hist,
-            params={k: v.detach().cpu().clone()
-                    for k, v in self.model.state_dict().items()},
-            elapsed=elapsed, iters_run=iters_run, stopped_early=stopped,
-            noise=extract_noise_canvas(s, st, data, regenerate, spatial),
-            chunk_seconds=chunk_seconds, snapshots=snapshots, pocs=pocs,
-            whole_ops=list(st["spatial"].whole_ops) if layout is not None else [])
+            pocs = None
+            if s.pocs:
+                with torch.no_grad():
+                    pocs = _to_channels_last(fk_projection(
+                        _whole(st, st["out_best"]).float(), data["pocs_wdata"],
+                        data["pocs_wmask"], hyper["pocs_thresh"]))
+            result = SolveResult(
+                out_best=_to_channels_last(_whole(st, st["out_best"])), history=hist,
+                params={k: v.detach().cpu().clone()
+                        for k, v in self.model.state_dict().items()},
+                elapsed=elapsed, iters_run=iters_run, stopped_early=stopped,
+                noise=extract_noise_canvas(s, st, data, regenerate, spatial),
+                chunk_seconds=chunk_seconds, snapshots=snapshots, pocs=pocs,
+                whole_ops=list(st["spatial"].whole_ops) if layout is not None else [])
+            if spans.on:
+                spans.attr("host_bytes", host_bytes([result]))
+        return result

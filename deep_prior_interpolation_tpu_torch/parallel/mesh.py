@@ -42,10 +42,12 @@ from ..engine.history import History, HistoryPOCS
 from ..engine.solver import (DIPSolver, SolveResult, StepSettings, _generators,
                              _to_channels_first, _to_channels_last, _FlatParams,
                              _crop_center, build_base_input, build_data, build_hyper,
-                             check_net_output, pad_multiple_for, padded_spatial)
+                             check_net_output, host_bytes, pad_multiple_for,
+                             padded_spatial)
 from ..models import set_dropout_generator
 from ..ops.conv_vjp import conv_impl
 from ..ops.pocs import fk_projection
+from ..utils import spans
 
 Mesh = List[torch.device]
 
@@ -237,81 +239,97 @@ def solve_patches_batched(cfg: Config, solver: DIPSolver, patches: List[dict],
     patch: its history, ``iters_run``, ``stopped_early``, snapshots, best
     output, parameters, canvas, POCS projection and ``elapsed`` (the wall
     time until the chunk in which it stopped)."""
-    assert patches, "empty patch group"
-    spatial = tuple(patches[0]["image"].shape[:-1])
-    for p in patches:
-        assert tuple(p["image"].shape[:-1]) == spatial, \
-            "batched patches must share a shape; group by shape upstream"
-    if mesh is None and cfg.mesh_shape and cfg.mesh_shape > 1:
-        # a CPU solver's shards run on the CPU, one after another; a CUDA
-        # solver's over the cards that exist (all lanes on one card where
-        # there is one)
-        cpu = solver.device.type == "cpu"
-        mesh = make_mesh(cfg.mesh_shape, [solver.device] * cfg.mesh_shape if cpu else None)
-    devices = list(mesh) if mesh is not None else [solver.device]
-    n_real = len(patches)
-    extra = [init_params, noises]
-    while len(patches) % len(devices):
-        patches = patches + [patches[-1]]
-        extra = [None if e is None else list(e) + [e[-1]] for e in extra]
-    n = len(patches)
-    per = n // len(devices)
+    with spans.span("solve", "lanes", len(patches)):
+        spans.attr("entry", "batched")
+        return _solve_batched(cfg, solver, patches, mesh, init_params, noises)
 
-    padded = padded_spatial(spatial, pad_multiple_for(cfg))
-    input_shape = (1, cfg.inputdepth) + padded
-    s = StepSettings.from_config(cfg, spatial,
-                                 takes_mask=getattr(solver.model, "takes_mask", False),
-                                 input_shape=input_shape)
-    if noises is not None:
-        s = dataclasses.replace(s, virtual_input=False)
-    check_net_output(solver.model, input_shape, (1, solver.outchannel) + padded, s.takes_mask)
-    if s.opt_input and cfg.dtype == "bfloat16":
-        raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
-                        "p - lr * d of the bfloat16 canvas is float32, and the JAX "
-                        "package's scan refuses a carry whose dtype changes")
-    imgs = np.stack([np.asarray(p["image"], np.float32) for p in patches])
-    masks = np.stack([np.asarray(p["mask"], np.float32) for p in patches])
-    seeds = cfg.seed + np.arange(n)
-    groups = []
-    for m, dev in enumerate(devices):
-        lanes = slice(m * per, (m + 1) * per)
-        with _on(dev):
-            st, data = setup_patch_batch(
-                cfg, solver, s, imgs[lanes], masks[lanes], padded, input_shape,
-                seeds=seeds[lanes], device=dev,
-                init_params=None if extra[0] is None else extra[0][lanes],
-                noises=None if extra[1] is None else extra[1][lanes])
-            groups.append((dev, st, data, build_hyper(cfg, dev)))
 
-    chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
-    if cfg.save_every:
-        chunk = math.gcd(chunk, int(cfg.save_every)) or 1
-    n_chunks = math.ceil(cfg.epochs / chunk)
-    fields = ("loss", "snr", "pcorr", "lr", "recorded")
-    if s.pocs:
-        fields += ("df", "reg", "eps", "th")
-    hists = [HistoryPOCS(cfg.epochs) if s.pocs else History(cfg.epochs) for _ in range(n)]
-    iters_run = [0] * n
-    snapshots: List[Dict[int, np.ndarray]] = [{} for _ in range(n)]
-    lane_elapsed: List[Optional[float]] = [None] * n
-    chunk_seconds: List[float] = []
+def _solve_batched(cfg: Config, solver: DIPSolver, patches: List[dict], mesh: Optional[Mesh],
+                   init_params: Optional[Sequence[Optional[Mapping[str, Any]]]],
+                   noises: Optional[Sequence[np.ndarray]]) -> List[SolveResult]:
+    with spans.span("solve.prepare"):
+        assert patches, "empty patch group"
+        spatial = tuple(patches[0]["image"].shape[:-1])
+        for p in patches:
+            assert tuple(p["image"].shape[:-1]) == spatial, \
+                "batched patches must share a shape; group by shape upstream"
+        if mesh is None and cfg.mesh_shape and cfg.mesh_shape > 1:
+            # a CPU solver's shards run on the CPU, one after another; a CUDA
+            # solver's over the cards that exist (all lanes on one card where
+            # there is one)
+            cpu = solver.device.type == "cpu"
+            mesh = make_mesh(cfg.mesh_shape, [solver.device] * cfg.mesh_shape if cpu else None)
+        devices = list(mesh) if mesh is not None else [solver.device]
+        n_real = len(patches)
+        extra = [init_params, noises]
+        while len(patches) % len(devices):
+            patches = patches + [patches[-1]]
+            extra = [None if e is None else list(e) + [e[-1]] for e in extra]
+        n = len(patches)
+        per = n // len(devices)
 
-    def dispatch(group, c: int) -> torch.Tensor:
-        dev, st, data, hyper = group
-        with conv_impl(s.conv_mode), _on(dev):
-            set_dropout_generator(solver.model, [g["dropout"] for g in st["gens"]])
-            ys = [solver._step(it, st, data, hyper, s, st["gens"], st["regenerate"])
-                  for it in range(c * chunk, (c + 1) * chunk)]
-            return torch.stack([torch.stack([y[f] for y in ys]) for f in fields]
-                               + [st["done"].float().expand(len(ys), -1)])
+        padded = padded_spatial(spatial, pad_multiple_for(cfg))
+        input_shape = (1, cfg.inputdepth) + padded
+        s = StepSettings.from_config(cfg, spatial,
+                                     takes_mask=getattr(solver.model, "takes_mask", False),
+                                     input_shape=input_shape)
+        if noises is not None:
+            s = dataclasses.replace(s, virtual_input=False)
+        check_net_output(solver.model, input_shape, (1, solver.outchannel) + padded, s.takes_mask)
+        if s.opt_input and cfg.dtype == "bfloat16":
+            raise TypeError("opt_over with 'input' under dtype='bfloat16': the update "
+                            "p - lr * d of the bfloat16 canvas is float32, and the JAX "
+                            "package's scan refuses a carry whose dtype changes")
+        imgs = np.stack([np.asarray(p["image"], np.float32) for p in patches])
+        masks = np.stack([np.asarray(p["mask"], np.float32) for p in patches])
+        seeds = cfg.seed + np.arange(n)
+        groups = []
+        for m, dev in enumerate(devices):
+            lanes = slice(m * per, (m + 1) * per)
+            with _on(dev):
+                st, data = setup_patch_batch(
+                    cfg, solver, s, imgs[lanes], masks[lanes], padded, input_shape,
+                    seeds=seeds[lanes], device=dev,
+                    init_params=None if extra[0] is None else extra[0][lanes],
+                    noises=None if extra[1] is None else extra[1][lanes])
+                groups.append((dev, st, data, build_hyper(cfg, dev)))
 
-    start = time.time()
+        chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
+        if cfg.save_every:
+            chunk = math.gcd(chunk, int(cfg.save_every)) or 1
+        n_chunks = math.ceil(cfg.epochs / chunk)
+        fields = ("loss", "snr", "pcorr", "lr", "recorded")
+        if s.pocs:
+            fields += ("df", "reg", "eps", "th")
+        hists = [HistoryPOCS(cfg.epochs) if s.pocs else History(cfg.epochs) for _ in range(n)]
+        iters_run = [0] * n
+        snapshots: List[Dict[int, np.ndarray]] = [{} for _ in range(n)]
+        lane_elapsed: List[Optional[float]] = [None] * n
+        chunk_seconds: List[float] = []
+
+        def dispatch(group, c: int) -> List[Dict[str, torch.Tensor]]:
+            dev, st, data, hyper = group
+            with conv_impl(s.conv_mode), _on(dev):
+                set_dropout_generator(solver.model, [g["dropout"] for g in st["gens"]])
+                return [solver._step(it, st, data, hyper, s, st["gens"], st["regenerate"])
+                        for it in range(c * chunk, (c + 1) * chunk)]
+
+        def packed(group, ys: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+            dev, st = group[:2]
+            with _on(dev):
+                return torch.stack([torch.stack([y[f] for y in ys]) for f in fields]
+                                   + [st["done"].float().expand(len(ys), -1)])
+
+        start = time.time()
     for c in range(n_chunks):
-        t0 = time.time()
-        # every device's chunk is queued before the first is read
-        pending = [dispatch(g, c) for g in groups]
-        host = np.concatenate([p.cpu().numpy() for p in pending], axis=2)  # (F+1, K, B)
-        chunk_seconds.append(time.time() - t0)
+        with spans.timed("chunk", "c", c) as timer:
+            # every device's chunk is queued before the first is read
+            ys = [dispatch(g, c) for g in groups]
+            with spans.span("chunk.read"):
+                pending = [packed(g, y) for g, y in zip(groups, ys)]
+                # (F+1, K, B)
+                host = np.concatenate([p.cpu().numpy() for p in pending], axis=2)
+        chunk_seconds.append(timer.seconds)
         now = time.time() - start
         for b in range(n):
             lane = dict(zip(fields + ("done",), host[:, :, b]))
@@ -327,23 +345,26 @@ def solve_patches_batched(cfg: Config, solver: DIPSolver, patches: List[dict],
                     snapshots[m * per + j][end_iter] = _to_channels_last(st["out_last"][j])
         if all(e is not None for e in lane_elapsed):
             break
-    elapsed = time.time() - start
+    with spans.span("solve.results"):
+        elapsed = time.time() - start
 
-    results = []
-    for b in range(n_real):
-        m, j = divmod(b, per)
-        dev, st, data, hyper = groups[m]
-        pocs = None
-        if s.pocs:
-            with torch.no_grad(), _on(dev):
-                pocs = _to_channels_last(fk_projection(
-                    st["out_best"][j].float(), data["pocs_wdata"][j], data["pocs_wmask"][j],
-                    hyper["pocs_thresh"]))
-        results.append(SolveResult(
-            out_best=_to_channels_last(st["out_best"][j]), history=hists[b],
-            params=_lane_params(solver, st, j),
-            elapsed=lane_elapsed[b] if lane_elapsed[b] is not None else elapsed,
-            iters_run=iters_run[b], stopped_early=iters_run[b] < cfg.epochs,
-            noise=_lane_noise(s, st, data, j, spatial), chunk_seconds=list(chunk_seconds),
-            snapshots=snapshots[b], pocs=pocs))
+        results = []
+        for b in range(n_real):
+            m, j = divmod(b, per)
+            dev, st, data, hyper = groups[m]
+            pocs = None
+            if s.pocs:
+                with torch.no_grad(), _on(dev):
+                    pocs = _to_channels_last(fk_projection(
+                        st["out_best"][j].float(), data["pocs_wdata"][j], data["pocs_wmask"][j],
+                        hyper["pocs_thresh"]))
+            results.append(SolveResult(
+                out_best=_to_channels_last(st["out_best"][j]), history=hists[b],
+                params=_lane_params(solver, st, j),
+                elapsed=lane_elapsed[b] if lane_elapsed[b] is not None else elapsed,
+                iters_run=iters_run[b], stopped_early=iters_run[b] < cfg.epochs,
+                noise=_lane_noise(s, st, data, j, spatial), chunk_seconds=list(chunk_seconds),
+                snapshots=snapshots[b], pocs=pocs))
+        if spans.on:
+            spans.attr("host_bytes", host_bytes(results))
     return results
