@@ -35,7 +35,13 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    folded (bit-equal, the kernel each takes, the atomic
    ``upsample_bilinear2d_backward``); and ``F.interpolate``'s trilinear
    forward alone at the four 3D shapes beside its bound (no kernel of the
-   port's: a measurement).
+   port's: a measurement). The Norm's kernel pair (``ops/norm_act.py``) at
+   the flagship's 28 Norm shapes in bf16 and float32, with LeakyReLU fused
+   and without: held against the plain version in float32 from the same
+   input at the card tests' tolerances, then forward and backward timed
+   beside the design's bound and the least-traffic bound, the plain version
+   and ``F.batch_norm`` + ``F.leaky_relu`` (timed only), summed over each
+   resolution's Norms and the 70 of an iteration, with each one's launches.
 3. small: a tiny 3D solve with both kernels on the card against the same
    solve on the CPU (plain versions), same canvas and weights.
 4. main path: ``DIPSolver(cfg).solve(img, mask, seed=0)`` on the flagship
@@ -45,8 +51,11 @@ Phases, each of which ends the run with a non-zero exit code on failure:
    every kernel must have launched (fused loss forward and backward 9 times
    each, wgrad 9 x 32, upsample_bwd 9 x 4, all 36 on its TMA kernel), and
    hooks on the conv's weight gradient and the upsample's backward check that
-   their shapes are the 24 and the 4 of phase 2, each as often as listed there.
-   A 3-step solve with the kernels off must give the same iteration-0 loss.
+   their shapes are the 24 and the 4 of phase 2, each as often as listed there;
+   all 9 x 70 Norms of the steps on the kernel route, 9 x 70 x 2 launches of
+   each of the Norm pair's directions. A 3-step solve with the kernels off
+   (the Norm kernels on: phase 2 holds them) must give the same
+   iteration-0 loss.
 5. the CLI (``cli.run``, on the card by default), three paths, the
    launch counters set to 0 just before each and read just after:
    a. a 3D survey at the flagship's width: a (256, 256, 128) hyperbolic
@@ -134,10 +143,12 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       into 8 patches of (128, 64, 64) (the voxels of phase 4's one patch),
       6 iterations in chunks of 3: one batch of 8 lanes, launches of the
       lane kernels 6 / 6 / 192 / 24 (fused loss forward and backward, wgrad,
-      upsample backward) and none of the one-lane wrappers, hooks on the
+      upsample backward) and 840 / 840 of the lane Norm pair (6 x 70 x 2,
+      through the vmap rule), none of the one-lane wrappers, hooks on the
       lane wgrad's and the upsample's callers check their shapes, the
       bundles' keys; then the same 8 patches one after another
-      (``--batch_patches 0``): each lane's iteration-0 loss to rel 1e-3 of
+      (``--batch_patches 0``, 8 x 6 x 70 x 2 one-lane Norm launches a
+      direction): each lane's iteration-0 loss to rel 1e-3 of
       its solo solve (bf16, grouped against plain cuDNN convs); s/iteration
       of the batch and a patch beside the sequential run's and phase 4's,
       and the peak memory;
@@ -156,6 +167,9 @@ Phases, each of which ends the run with a non-zero exit code on failure:
       ``groups=8``, and the sum of launches x ms of an 8a iteration; the
       lane-folded upsample backward on the TMA kernel, one launch bit-equal to
       per-lane calls and to the plain version, beside the atomic backward;
+      the lane Norm pair at the widest Norm of each of the patch's levels,
+      two launches a direction, each lane bit-equal to a one-lane call,
+      timed beside the 8 one-lane calls;
    d. ``overlap_add_sharded`` and the repaired ``overlap_add`` on the card
       at 8a's tiling (8a's outputs) and an overlapping one: two calls
       bit-equal, within 1e-6 of a float64 numpy overlap-add.
@@ -385,6 +399,7 @@ and ``{"main_path": ...}`` lines before it, the last line ``{"ok": true,
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -806,6 +821,144 @@ def time_upsample_forward(dev) -> list:
     return rows
 
 
+# the flagship's Norm inputs, (C, spatial, Norms of that shape an
+# iteration): 70 Norms, 1.408e9 elements an iteration
+NORM_SHAPES = [
+    (4, _L[0], 2), (8, _L[0], 2), (13, _L[0], 2), (25, _L[0], 6), (16, _L[0], 3),
+    (25, _L[1], 1), (8, _L[1], 2), (17, _L[1], 2), (26, _L[1], 2), (51, _L[1], 6),
+    (32, _L[1], 3),
+    (51, _L[2], 1), (17, _L[2], 2), (35, _L[2], 2), (53, _L[2], 2), (105, _L[2], 6),
+    (64, _L[2], 3),
+    (105, _L[3], 1), (35, _L[3], 2), (71, _L[3], 2), (106, _L[3], 2), (212, _L[3], 6),
+    (128, _L[3], 3),
+    (212, _L[4], 1), (71, _L[4], 1), (142, _L[4], 1), (213, _L[4], 1), (426, _L[4], 3),
+]
+
+
+def _device_launches(fn, calls: int = 4) -> int:
+    """Kernels, copies and memsets one ``fn()`` puts on the card: the
+    profiler's device events of ``calls`` calls over ``calls``, rounded (a
+    session may drop an event)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return round(n / calls)
+
+
+def check_norm_act(dev, dtypes=(torch.bfloat16, torch.float32)) -> dict:
+    """The Norm's kernel pair (``ops/norm_act.py``) at the flagship's 28 Norm
+    shapes: first held against the plain version in float32 from the same
+    input (``check_against_plain`` of tests/test_torch_cuda_norm_act.py, its
+    tolerances; LeakyReLU fused and the identity), then forward and backward timed (LeakyReLU fused, as ConvNormAct
+    takes it) beside two bounds: the design's (6 + 10 bytes an element in
+    bf16, 12 + 20 in float32: x is read twice a direction, dz twice
+    backward) and the function's least traffic (4 + 6 in bf16, 8 + 12 in
+    float32: read x, write z; read x and dz, write dx), the plain version (``norm_act_plain``, autograd's backward)
+    and the library (``F.batch_norm(training=True)`` then ``F.leaky_relu``,
+    timed here only, never called by the port); the kernels' device time
+    from CUDA graphs of 20 calls, their eager time (events around
+    back-to-back calls, the host's dispatch included) beside it, as the
+    plain version's and the library's are timed; summed over each
+    resolution's Norms (the 70 of an iteration) and over all. Launches of
+    one Norm of each, forward and backward, from the profiler."""
+    import torch.nn.functional as F
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_cuda_norm_act import check_against_plain
+    from test_torch_norm_act import closed_backward
+
+    out = {}
+    for dt in dtypes:
+        es = torch.tensor([], dtype=dt).element_size()
+        rows, totals = [], collections.Counter()
+        for k, (c, sp, count) in enumerate(NORM_SHAPES):
+            g = torch.Generator(device=dev).manual_seed(k)
+            x = (torch.randn((1, c, *sp), generator=g, device=dev) + 0.5).to(dt)
+            dz = torch.randn((1, c, *sp), generator=g, device=dev).to(dt)
+            scale = torch.rand(c, generator=g, device=dev) + 0.5
+            bias = torch.randn(c, generator=g, device=dev)
+            for leaky in (k % 2 == 0, k % 2 == 1):
+                try:
+                    z, stats, dx, *_ = check_against_plain(x, dz, scale, bias, leaky)
+                except AssertionError as e:
+                    fail(f"norm_act {c} x {sp} {dt} (leaky {leaky}) disagrees with its plain "
+                         f"version: {e}")
+                err_z = float((z.float() - NA.norm_act_plain(x.float(), scale, bias,
+                                                             leaky=leaky)).abs().max())
+                err_dx = float((dx.float() - closed_backward(x[None], dz[None], stats[None],
+                                                              leaky)[0][0].float()).abs().max())
+                del z, stats, dx
+            z, stats = NA.norm_act_forward(x, scale, bias, leaky=True)
+            fwd = lambda: NA.norm_act_forward(x, scale, bias, leaky=True)  # noqa: E731
+            bwd = lambda: NA.norm_act_backward(x, dz, stats, True)  # noqa: E731
+            # device time from CUDA graphs of the calls; eager adds the host's dispatch
+            row = {"channels": c, "spatial": list(sp), "norms": count,
+                   "max_abs_err_z": err_z, "max_abs_err_dx": err_dx,
+                   "fwd_ms": graph_ms(fwd, 20), "bwd_ms": graph_ms(bwd, 20),
+                   "fwd_eager_ms": time_ms(fwd), "bwd_eager_ms": time_ms(bwd)}
+            n = x.numel()
+            row["fwd_bound_ms"] = bound_ms(3 * es * n, 0, dt)[0]
+            row["bwd_bound_ms"] = bound_ms(5 * es * n, 0, dt)[0]
+            row["fwd_least_ms"] = bound_ms(2 * es * n, 0, dt)[0]
+            row["bwd_least_ms"] = bound_ms(3 * es * n, 0, dt)[0]
+            ins = [x.clone().requires_grad_(), scale.clone().requires_grad_(),
+                   bias.clone().requires_grad_()]
+            for name, fn in (("plain", lambda: NA.norm_act_plain(*ins, leaky=True)),
+                             ("library", lambda: F.leaky_relu(F.batch_norm(
+                                 ins[0], None, None, ins[1], ins[2], training=True,
+                                 eps=1e-5), 0.2))):
+                y = fn()
+                row[f"{name}_fwd_ms"] = time_ms(fn)
+                row[f"{name}_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                    y, ins, dz, retain_graph=True))
+                if k in (0, len(NORM_SHAPES) - 1):
+                    row[f"{name}_launches"] = [_device_launches(fn), _device_launches(
+                        lambda: torch.autograd.grad(y, ins, dz, retain_graph=True))]
+                del y
+            if k in (0, len(NORM_SHAPES) - 1):
+                row["launches"] = [_device_launches(lambda: NA.norm_act_forward(
+                    x, scale, bias, leaky=True)), _device_launches(
+                    lambda: NA.norm_act_backward(x, dz, stats, True))]
+            for key in ("fwd_ms", "bwd_ms", "fwd_eager_ms", "bwd_eager_ms", "fwd_bound_ms",
+                        "bwd_bound_ms", "fwd_least_ms", "bwd_least_ms", "plain_fwd_ms",
+                        "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms"):
+                totals[f"{sp[0]}:{key}"] += count * row[key]
+                totals[key] += count * row[key]
+            rows.append(row)
+            del x, dz, z, stats, ins
+            log(f"norm_act {c} x {sp} {dt}: as its plain version (max abs err z {err_z:.3e}, "
+                f"dx {err_dx:.3e}); fwd {row['fwd_ms']:.4f} bwd {row['bwd_ms']:.4f} "
+                f"ms (eager {row['fwd_eager_ms']:.4f} / {row['bwd_eager_ms']:.4f}; bound "
+                f"{row['fwd_bound_ms']:.4f} / {row['bwd_bound_ms']:.4f}, least "
+                f"{row['fwd_least_ms']:.4f} / {row['bwd_least_ms']:.4f}); plain "
+                f"{row['plain_fwd_ms']:.4f} / {row['plain_bwd_ms']:.4f}; library "
+                f"{row['library_fwd_ms']:.4f} / {row['library_bwd_ms']:.4f}")
+        for res in [sp[0] for sp in _L] + [None]:
+            p = f"{res}:" if res else ""
+            kern = totals[p + "fwd_ms"] + totals[p + "bwd_ms"]
+            eager = totals[p + "fwd_eager_ms"] + totals[p + "bwd_eager_ms"]
+            bnd = totals[p + "fwd_bound_ms"] + totals[p + "bwd_bound_ms"]
+            least = totals[p + "fwd_least_ms"] + totals[p + "bwd_least_ms"]
+            log(f"norm_act {dt} {'resolution D=' + str(res) if res else 'all 70 Norms'}: "
+                f"kernels {kern:.4f} ms an iteration (fwd {totals[p + 'fwd_ms']:.4f}, bwd "
+                f"{totals[p + 'bwd_ms']:.4f}; eager {eager:.4f}), design bound {bnd:.4f} "
+                f"({bnd / kern:.1%} of it), least-traffic bound {least:.4f} "
+                f"({least / kern:.1%}); plain "
+                f"{totals[p + 'plain_fwd_ms'] + totals[p + 'plain_bwd_ms']:.4f}; library "
+                f"{totals[p + 'library_fwd_ms'] + totals[p + 'library_bwd_ms']:.4f}")
+        log(f"norm_act {dt} launches (fwd, bwd) a Norm: kernels {rows[0]['launches']}, plain "
+            f"{rows[0]['plain_launches']}, library {rows[0]['library_launches']}")
+        out[str(dt).split(".")[-1]] = {
+            "rows": rows, "totals": dict(totals),
+            "max_abs_err": max(max(r["max_abs_err_z"], r["max_abs_err_dx"]) for r in rows)}
+    return out
+
+
 def _valid_products(sp, k: int) -> int:
     """Positions x taps that read inside the volume (the padding taps do no work)."""
     p = (k - 1) // 2
@@ -916,12 +1069,32 @@ def flagship_flags() -> list:
     return flags
 
 
+@contextlib.contextmanager
+def tensor_op_norms():
+    """Every Norm on its tensor ops (``norm_act_plain``) within the block, as
+    a list of spatial shards takes them: an unsharded reference of a sharded
+    check then computes the shards' Norm arithmetic (the kernel pair rounds
+    once less)."""
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
+    real = NA.takes_kernel
+    NA.takes_kernel = lambda x, phase=1: False
+    try:
+        yield
+    finally:
+        NA.takes_kernel = real
+
+
 def set_kernels(on: bool) -> None:
     os.environ["DPI_PALLAS_WGRAD"] = "1" if on else "0"
 
 
+NORM_WRAPPERS = ("norm_act_forward", "norm_act_backward", "norm_act_forward_lanes",
+                 "norm_act_backward_lanes")
+
+
 def reset_counts() -> None:
     from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
     from deep_prior_interpolation_tpu_torch.ops import upsample as U
     from deep_prior_interpolation_tpu_torch.ops import wgrad as WG
     FL.fused_sums.launches = 0
@@ -930,6 +1103,16 @@ def reset_counts() -> None:
     U.upsample_bwd.launches = 0
     U.upsample_bwd.tma_launches = 0
     U.upsample_bwd.direct_launches = 0
+    for fn in NORM_WRAPPERS:
+        getattr(NA, fn).launches = 0
+
+
+def read_norm_counts() -> dict:
+    """The Norm kernel pair's launches, one-lane and lane, since the
+    counters were last set to 0 (read apart from ``read_counts``, whose
+    keys every phase compares whole)."""
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
+    return {fn: getattr(NA, fn).launches for fn in NORM_WRAPPERS}
 
 
 def read_upsample_kernels() -> dict:
@@ -1048,8 +1231,21 @@ def main_path(dev) -> dict:
     solver = DIPSolver(cfg, outchannel=1, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
+    norms = dict(NA.routes)
     res, counts, seen, seen_up = traced_solve(solver, img, mask)
     kinds = read_upsample_kernels()
+    norm_counts = read_norm_counts()
+    norms = {k: NA.routes[k] - norms.get(k, 0) for k in ("kernel", "plain")}
+    # plain: the solver's one shape pass of the net on the meta device
+    log(f"main path: Norms by route {norms} (expected kernel {9 * 70}, plain 70)")
+    if norms != {"kernel": 9 * 70, "plain": 70}:
+        fail(f"the main path's Norms took the routes {norms}")
+    want_norm = {"norm_act_forward": 9 * 70 * 2, "norm_act_backward": 9 * 70 * 2,
+                 "norm_act_forward_lanes": 0, "norm_act_backward_lanes": 0}
+    log(f"main path: Norm launches {norm_counts} (expected {want_norm})")
+    if norm_counts != want_norm:
+        fail(f"the main path's Norm launch counts are {norm_counts}")
     want = {(ci, co, sp): 9 * n for ci, co, sp, n in WGRAD_SHAPES}
     if dict(seen) != want:
         fail(f"the main path's wgrad shapes are {dict(seen)}, not {want}")
@@ -1080,7 +1276,8 @@ def main_path(dev) -> dict:
         f"peak memory {peak / 2**30:.2f} GiB")
     del solver
 
-    # the same solve with both kernels off: the same forward pass
+    # the same solve with both kernels off: the same forward pass (the Norm
+    # kernels on in both; phase 2 holds them against their plain version)
     set_kernels(False)
     off = DIPSolver(flagship_config(fused_loss=False, epochs=3), outchannel=1,
                     device=dev).solve(img, mask, seed=0)
@@ -1092,7 +1289,7 @@ def main_path(dev) -> dict:
     if not rel <= 1e-5:
         fail("iteration-0 loss differs with the kernels off")
     return {"counts": counts, "s_per_iter": steady, "peak_bytes": peak, "loss0": l_on,
-            "upsample_kernels": kinds, "losses": loss.tolist()}
+            "upsample_kernels": kinds, "losses": loss.tolist(), "norm_counts": norm_counts}
 
 
 # ----------------------------------------------------------------------
@@ -1953,12 +2150,18 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
         out = cli.run(flags("batched", BATCH_LANES), results_root=root)
     counts = read_lane_counts()
     kinds = read_upsample_kernels()
+    norm_counts = read_norm_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {"fused_loss_lanes": 6, "fused_loss_grad_lanes": 6, "wgrad3d_lanes": 6 * 32,
             "upsample_bwd": 6 * 4, "one_lane": 0}
-    log(f"8a batch: launches {counts} (expected {want}); upsample_bwd by kernel {kinds}")
+    want_norm = {"norm_act_forward": 0, "norm_act_backward": 0,
+                 "norm_act_forward_lanes": 6 * 70 * 2, "norm_act_backward_lanes": 6 * 70 * 2}
+    log(f"8a batch: launches {counts} (expected {want}); upsample_bwd by kernel {kinds}; "
+        f"Norm launches {norm_counts} (expected {want_norm}: vmap's lane pair)")
     if counts != want:
         fail(f"8a: the batch's launch counts are {counts}")
+    if norm_counts != want_norm:
+        fail(f"8a: the batch's Norm launch counts are {norm_counts}")
     if kinds != {"tma": 6 * 4, "direct": 0}:
         fail(f"8a: the batch's upsample launches by kernel are {kinds}")
     want_wg = {(ci, co, sp): 6 * n for ci, co, sp, n in BATCH_WGRAD_SHAPES}
@@ -1985,6 +2188,7 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
     with solves() as seq_rec:
         seq_out = cli.run(flags("sequential", 0), results_root=root)
     seq_counts = read_counts()
+    seq_norms = read_norm_counts()
     seq_peak = torch.cuda.max_memory_allocated()
     seq = [load_run(os.path.join(seq_out, f"{n}_run.npz")) for n in names]
     seq_steady = [r.chunk_seconds[1] / 3 for r in seq_rec.results]
@@ -1992,6 +2196,11 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
     if seq_counts != {"fused_loss": 48, "fused_loss_grad": 48, "wgrad3d": 8 * 6 * 32,
                       "upsample_bwd": 8 * 6 * 4}:
         fail(f"8a: the sequential run's launch counts are {seq_counts}")
+    want_norm = {"norm_act_forward": 8 * 6 * 70 * 2, "norm_act_backward": 8 * 6 * 70 * 2,
+                 "norm_act_forward_lanes": 0, "norm_act_backward_lanes": 0}
+    log(f"8a sequential: Norm launches {seq_norms} (expected {want_norm})")
+    if seq_norms != want_norm:
+        fail(f"8a: the sequential run's Norm launch counts are {seq_norms}")
     rels = []
     for name, b, s in zip(names, batched, seq):
         lb, ls = np.asarray(b["history"]["loss"]), np.asarray(s["history"]["loss"])
@@ -2010,7 +2219,8 @@ def batch_survey(dev, tmp: str, main: dict) -> dict:
     log(f"8a: peak memory batch {peak / 2**30:.2f} GiB, sequential {seq_peak / 2**30:.2f} GiB, "
         f"phase 4 {main['peak_bytes'] / 2**30:.2f} GiB")
     outputs = np.stack([b["output"][..., 0] for b in batched])
-    return {"launches": counts, "upsample_kernels": kinds, "s_per_iter": steady,
+    return {"launches": counts, "upsample_kernels": kinds, "norm_launches": norm_counts,
+            "s_per_iter": steady,
             "s_per_iter_per_patch": steady / BATCH_LANES,
             "sequential_s_per_iter_per_patch": statistics.median(seq_steady),
             "peak_memory_bytes": peak, "sequential_peak_memory_bytes": seq_peak,
@@ -2156,6 +2366,51 @@ def lane_wgrad_row(dev, ci: int, co: int, sp, n: int, g) -> dict:
     return row
 
 
+# 8c's lane Norms: the widest Norm of each of the patch's levels
+LANE_NORMS = [(25, _H[0]), (51, _H[1]), (105, _H[2]), (212, _H[3]), (426, _H[4])]
+
+
+def lane_norm_row(dev, c: int, sp) -> dict:
+    """8c: the Norm's lane pair at (8 lanes, 1, C, *sp) in bf16, each lane
+    with its own scale and bias, LeakyReLU fused: two launches a direction,
+    each lane bit-equal to a one-lane call on its input; timed beside the
+    8 one-lane calls it stands for."""
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
+    b = BATCH_LANES
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = (torch.randn((b, 1, c) + sp, generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    dz = torch.randn((b, 1, c) + sp, generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.rand((b, c), generator=g, device=dev) + 0.5
+    bias = torch.randn((b, c), generator=g, device=dev)
+    before = read_norm_counts()
+    z, stats = NA.norm_act_forward_lanes(x, scale, bias, leaky=True)
+    grads = NA.norm_act_backward_lanes(x, dz, stats, True)
+    launched = {k: v - before[k] for k, v in read_norm_counts().items()}
+    same = launched == {"norm_act_forward": 0, "norm_act_backward": 0,
+                        "norm_act_forward_lanes": 2, "norm_act_backward_lanes": 2}
+    for i in range(b):
+        zi, si = NA.norm_act_forward(x[i], scale[i], bias[i], leaky=True)
+        gi = NA.norm_act_backward(x[i], dz[i], si, True)
+        same = same and torch.equal(z[i], zi) and torch.equal(stats[i], si) and all(
+            torch.equal(u[i], v) for u, v in zip(grads, gi))
+
+    def one_lane():
+        for i in range(b):
+            NA.norm_act_backward(x[i], dz[i], NA.norm_act_forward(
+                x[i], scale[i], bias[i], leaky=True)[1], True)
+    row = {"lanes": b, "channels": c, "spatial": list(sp), "bit_equal_to_lanes": same,
+           "launches": launched,
+           "fwd_ms": graph_ms(lambda: NA.norm_act_forward_lanes(x, scale, bias, leaky=True), 20),
+           "bwd_ms": graph_ms(lambda: NA.norm_act_backward_lanes(x, dz, stats, True), 20),
+           "one_lane_ms": graph_ms(one_lane, 5)}
+    log(f"8c norm_act lanes {b} x {c} x {sp} bf16: launches {launched}, each lane bit-equal to "
+        f"a one-lane call {same}; fwd {row['fwd_ms']:.4f} bwd {row['bwd_ms']:.4f} ms, "
+        f"{b} one-lane calls {row['one_lane_ms']:.4f} ms")
+    if not same:
+        fail(f"8c: the lane Norm at {b} x {c} x {sp} is not each lane's one-lane call")
+    return row
+
+
 def lane_kernels(dev, survey: dict) -> dict:
     """8c: the lane-batched kernels against their plain versions, timed."""
     from torch.func import vmap
@@ -2210,8 +2465,10 @@ def lane_kernels(dev, survey: dict) -> dict:
                         "plain_ms": plain_ms, "library_ms": lib, "bound_ms": b_ms,
                         "bound_by": b_by, "launches_per_iteration": 1, "bit_equal_to_lanes": same,
                         "bit_equal_to_plain": plain})
+    norm_rows = [lane_norm_row(dev, c, sp) for c, sp in LANE_NORMS]
     return {"fused": fused, "wgrad": rows, "wgrad_ms_per_iteration": per_iter,
-            "wgrad_library_ms_per_iteration": lib_iter, "upsample": up_rows}
+            "wgrad_library_ms_per_iteration": lib_iter, "upsample": up_rows,
+            "norm": norm_rows}
 
 
 def batch_assembly(dev, survey: dict) -> dict:
@@ -2288,7 +2545,37 @@ def lane_entries(survey: dict, kernels: dict) -> list:
           "shapes": kernels["wgrad"], **{k: head[k] for k in
                                          ("ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by")}}
-    return [fwd, bwd, wg]
+    norm = {"name": "norm_act_lanes", "route": "cuda",
+            "source": "deep_prior_interpolation_tpu_torch/csrc/norm_act.cu", "replaces": None,
+            "launches": {k: survey["norm_launches"][k] for k in
+                         ("norm_act_forward_lanes", "norm_act_backward_lanes")},
+            "tolerance": "each lane bit-equal to a one-lane launch", "shapes": kernels["norm"]}
+    return [fwd, bwd, wg, norm]
+
+
+def norm_entries(main: dict, checked: dict) -> list:
+    """The Norm pair's entries of the kernels line: phase 4's launches, the
+    figures of phase 2 summed over an iteration's 70 Norms (bf16, the
+    flagship's dtype; float32 beside)."""
+    out = []
+    for d in ("fwd", "bwd"):
+        name = "norm_act_forward" if d == "fwd" else "norm_act_backward"
+        entry = {"name": name, "route": "cuda",
+                 "source": "deep_prior_interpolation_tpu_torch/csrc/norm_act.cu",
+                 "replaces": None, "launches": main["norm_counts"][name],
+                 "shape": [1, 25, *_L[0]],
+                 "max_abs_err": max(v["max_abs_err"] for v in checked.values()),
+                 "tolerance": "z one ulp + 1e-5 of max |z|; statistics, dscale, dbias rel "
+                              "1e-4; dx one ulp + 1e-4 of max |dx| (float32 plain version)"}
+        for dt, v in checked.items():
+            t = v["totals"]
+            entry[dt] = {"ms_per_iteration": t[f"{d}_ms"],
+                         "bound_ms_per_iteration": t[f"{d}_bound_ms"],
+                         "least_ms_per_iteration": t[f"{d}_least_ms"],
+                         "plain_ms_per_iteration": t[f"plain_{d}_ms"],
+                         "library_ms_per_iteration": t[f"library_{d}_ms"]}
+        out.append(entry)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -2450,7 +2737,9 @@ def spatial_gradients(dev, main: dict) -> dict:
     precision is held to its own error: float32 with TF32 off no further
     than TF32 (PyTorch's default for float32 convs) moves the unsharded
     gradients, bfloat16 (phase 4's dtype) no further than the unsharded
-    bf16 gradients lie from the float32 ones; beside them, how far moving
+    bf16 gradients lie from the float32 ones (the unsharded nets on the
+    Norm's tensor ops, the shards' arithmetic; the Norm kernels' bf16 error
+    printed beside them); beside them, how far moving
     every canvas entry one float32 ulp moves the unsharded gradients. The
     tight check is the CPU's, in float64 at this width
     (``tests/test_torch_spatial_flagship.py``). Then the witness for 10a's
@@ -2474,10 +2763,12 @@ def spatial_gradients(dev, main: dict) -> dict:
     settings = SimpleNamespace(fused_loss=True, loss="mae")
     set_kernels(True)
 
-    def grads(net, x, n):
+    def grads(net, x, n, kernels=False):
         params = list(net.parameters())
         if n == 1:
-            loss = fused_loss_metrics(net(x), img, mask)[0]
+            # the unsharded reference on the shards' Norm arithmetic, unless asked
+            with contextlib.nullcontext() if kernels else tensor_op_norms():
+                loss = fused_loss_metrics(net(x), img, mask)[0]
         else:
             layout = SpatialLayout([dev] * n, SPATIAL_AXIS, _L[0], _L[0], 16)
             step = ShardedStep(net, layout)
@@ -2530,6 +2821,8 @@ def spatial_gradients(dev, main: dict) -> dict:
     ref16 = grads(net, x16, 1)
     own = res["bfloat16_own"] = held("bfloat16 unsharded against float32 (bf16's own error)",
                                      net, ref16, ref32, None)
+    res["bfloat16_kernels"] = held("bfloat16 unsharded, the Norm kernels, against float32",
+                                   net, grads(net, x16, 1, kernels=True), ref32, None)
     for n in SPATIAL_SHARDS:
         res[f"bfloat16_{n}"] = held(f"bfloat16, {n} shards against unsharded", net,
                                     grads(net, x16, n), ref16, own)
@@ -4512,6 +4805,7 @@ def profile_flagship(dev, out_dir: str, **kw) -> None:
 
 # the CUDA-only tests (each skips without a card), run by the smoke test on it
 CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
+              "tests/test_torch_cuda_norm_act.py",
               "tests/test_torch_cuda_upsample.py", "tests/test_torch_cuda_upsample_tma.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
               "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py",
@@ -4585,6 +4879,7 @@ def main() -> None:
     upsample = phase("2_upsample", check_upsample, dev)
     upsample["lines_2d"] = phase("2_upsample_2d", check_upsample_2d, dev)
     upsample["forward"] = phase("2_upsample_forward", time_upsample_forward, dev)
+    norm_act = phase("2_norm_act", check_norm_act, dev)
     small = phase("3_small_solve", check_small_solve, dev)
     main = phase("4_main_path", main_path, dev)
     if "--profile" in sys.argv[1:]:
@@ -4831,10 +5126,12 @@ def main() -> None:
         entry["spatial_whole_launches"] = {"18a": {n: r["launches"][key]
                                                    for n, r in phase18["18a"].items()}}
     lanes = lane_entries(survey8, kernels8)
-    for entry in lanes:
+    for entry in lanes[:3]:
         entry["convergence_launches"] = {k: phase14[f"{k}_{g}"]["launches"][entry["name"]]
                                          for k, g in (("14b", "g25d"), ("14c", "gpocs"))}
-    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample] + lanes}))
+    log(json.dumps({"norm_act": norm_act}))
+    log(json.dumps({"kernels": [fused, fused_grad, wgrad, upsample] + norm_entries(main, norm_act)
+                    + lanes}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -103,6 +103,7 @@ from ..ops.conv_vjp import conv_impl
 from ..ops.filters import convolve_kernel_1d, lowpass_butterworth_taps
 from ..ops.fused_loss import fused_loss_metrics
 from ..ops.noise import build_forgetting_data, data_forgetting_weights, get_noise
+from ..ops.norm_act import routes as norm_routes
 from ..ops.pocs import fk_projection
 from ..utils import spans
 from ..utils.generic import nextpow2
@@ -828,8 +829,12 @@ class DIPSolver:
         flat = st["flat"]
         with spans.span("step", "it", it):
             with spans.span("step.forward"):
+                k0, p0 = norm_routes["kernel"], norm_routes["plain"]
                 out, loss, ys, frozen = self._forward(it, st, data, hyper, s, gens,
                                                       regenerate)
+                # the step's Norms on each route (ops/norm_act.py)
+                spans.attr("norm_kernel", norm_routes["kernel"] - k0)
+                spans.attr("norm_plain", norm_routes["plain"] - p0)
             with spans.span("step.backward"):
                 grads = torch.autograd.grad(loss.sum() if isinstance(gens, list) else loss,
                                             flat.leaves())

@@ -10,7 +10,9 @@ is a name-for-name transpose.
 * ``Norm`` is batch-of-1 BatchNorm without running statistics: normalise
   over all non-channel axes with float32 statistics (float64 ones for a
   float64 input), eps 1e-5; ``g`` and ``b`` are formed in float32 and
-  applied in the input dtype.
+  applied in the input dtype, or on the card by the kernel pair of
+  ``ops/norm_act.py`` in float32 with the activation after it, rounded
+  once to the input dtype.
 * ``Conv`` pads (k-1)//2 on each side, so stride 2 gives ceil(n/2); the
   input and the float32 kernel are cast to the compute dtype, and the bias
   is added in that dtype. ``pad="reflection"`` reflects instead and
@@ -46,8 +48,10 @@ from torch import nn
 from torch.func import functional_call
 from torch.overrides import handle_torch_function, has_torch_function
 
+from ..ops import norm_act as NA
 from ..ops import phase_space as ps
 from ..ops.conv_vjp import conv_same
+from ..ops.norm_act import _bcast, _lanes
 from ..ops.upsample import linear_upsample2x
 
 
@@ -67,17 +71,6 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     return table[name]
 
 
-def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:
-    """(C,) -> (1, C, 1, ...) for an ndim-rank activation."""
-    return v.view((1, -1) + (1,) * (ndim - 2))
-
-
-def _lanes(v: torch.Tensor, b: int) -> torch.Tensor:
-    """(C,) -> (C*b,), each entry ``b`` times in a row (a phase tensor's
-    channels); its backward sums, with no atomics."""
-    return v.unsqueeze(1).expand(-1, b).reshape(-1)
-
-
 class Norm(nn.Module):
     """Batch-of-1 BatchNorm: normalise over all non-channel axes.
 
@@ -85,7 +78,13 @@ class Norm(nn.Module):
     channel ``c`` occupies ``phase`` consecutive channels: the per-channel
     sums are folded over those after the reduction and ``g``, ``b``
     repeated over them, so the result is the phase tensor of the plain
-    Norm's."""
+    Norm's.
+
+    ``act`` names the activation that follows (``get_activation``). A plain
+    CUDA tensor of bfloat16 or float32 in a Norm of phase 1 takes the
+    kernel pair of ``ops/norm_act.py``, LeakyReLU fused into it and any
+    other activation applied after; every other input the tensor ops of
+    ``norm_act_plain``."""
 
     def __init__(self, channels: int, eps: float = 1e-5, phase: int = 1):
         super().__init__()
@@ -93,22 +92,15 @@ class Norm(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(_promoted(x))
-        axes = [0] + list(range(2, x.ndim))
-        s1 = torch.sum(xf, dim=axes)
-        s2 = torch.sum(xf * xf, dim=axes)
-        n = float(x.numel() // x.shape[1]) * self.phase
-        if self.phase > 1:
-            s1 = s1.view(-1, self.phase).sum(-1)
-            s2 = s2.view(-1, self.phase).sum(-1)
-        mean = s1 / n
-        var = torch.clamp(s2 / n - mean * mean, min=0.0)
-        g = self.scale * torch.rsqrt(var + self.eps)
-        b = self.bias - mean * g
-        if self.phase > 1:
-            g, b = _lanes(g, self.phase), _lanes(b, self.phase)
-        return x * _bcast(g.to(x.dtype), x.ndim) + _bcast(b.to(x.dtype), x.ndim)
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        leaky = act == "LeakyReLU"
+        if NA.takes_kernel(x, self.phase):
+            NA.routes["kernel"] += 1
+            y = NA.norm_act(x, self.scale, self.bias, self.eps, leaky)
+        else:
+            NA.routes["plain"] += 1
+            y = NA.norm_act_plain(x, self.scale, self.bias, self.eps, self.phase, leaky)
+        return y if leaky or act is None else get_activation(act)(y)
 
 
 class Conv(nn.Module):
@@ -181,10 +173,10 @@ class ConvNormAct(nn.Module):
                            use_bias, dtype=dtype, phase_in=phase_in, phase_out=phase_out,
                            phase_depth=phase_depth)
         self.Norm_0 = Norm(features, phase=2 ** (ndim * phase_depth) if phase_out else 1)
-        self.act = get_activation(act)
+        self.act_name, self.act = act, get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.Norm_0(self.Conv_0(x)))
+        return self.Norm_0(self.Conv_0(x), act=self.act_name)
 
 
 def center_crop_to(x: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:

@@ -251,7 +251,7 @@ class MulResUnet(nn.Module):
         self.upsample_mode = upsample_mode
         self.phase_space, self.phase_levels = phase_space, phase_levels
         self.phase_deep_levels = phase_deep_levels
-        self.act = get_activation(act)
+        self.act_name, self.act = act, get_activation(act)
         self.drop = Dropout(dropout)
         last = None if (isinstance(last_act, str)
                         and last_act.lower() == "none") else last_act
@@ -336,9 +336,11 @@ class MulResUnet(nn.Module):
         ph, dp = self.phased(i - 1), max(self.pdepth(i - 1), 1)
         s = self._block(names["path"], i, h) if names["path"] else None
         d = self.get_submodule(names["down"])(h)
-        if names["norm"]:
-            d = self.get_submodule(names["norm"])(d)
-        d = self.drop(self.act(d))
+        if names["norm"]:   # the Norm applies the activation (ops/norm_act.py)
+            d = self.get_submodule(names["norm"])(d, act=self.act_name)
+        else:
+            d = self.act(d)
+        d = self.drop(d)
         d = self._block(names["enc"], i, d)
         if i < len(self.filters) - 1:
             d = self._level(i + 1, d)

@@ -11,8 +11,9 @@ after it: with ``--trace 1`` against the traced chunk's Chrome trace, read
 (``benchmark/spantrace.py``) before the harness deletes it. ``--spans 0``
 is the harness's run unchanged, for the recorder's cost against it. The last
 line of standard output is one JSON object (also appended to ``--out``):
-the harness's result line, the nine readings (``spantrace.readings``) and
-the checks of the spans against the clocks around them:
+the harness's result line, the nine readings (``spantrace.readings``), the
+Norms a step on the kernel and the plain route (``norms``) and the checks of
+the spans against the clocks around them:
 
 * ``attributed``: the share of the traced chunk's kernels launched inside a
   span; ``idle_named_s`` against ``idle_no_host_op_s``: the traced idle
@@ -136,6 +137,18 @@ def checks(records, result: dict, walls, tr) -> dict:
     return out
 
 
+def norm_routes(records) -> dict:
+    """The Norms of the window's steps by route (``step.forward``'s
+    ``norm_kernel`` and ``norm_plain``): a step's counts and the kernel's
+    share of all."""
+    fwd = [r.attrs for r in records if r.name == "step.forward"]
+    k = sum(a.get("norm_kernel", 0) for a in fwd)
+    p = sum(a.get("norm_plain", 0) for a in fwd)
+    return {"steps": len(fwd), "kernel_per_step": k / max(len(fwd), 1),
+            "plain_per_step": p / max(len(fwd), 1),
+            "kernel_share": k / (k + p) if k + p else None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -185,6 +198,7 @@ def main(argv=None) -> int:
     if args.spans and rc == 0:
         tr = kept.get("trace")
         line["readings"] = spantrace.readings(records, tr)
+        line["norms"] = norm_routes(records)
         line["checks"] = checks(records, result, walls, tr)
         if tr is not None:
             line["idle_spans"] = tr.idle_spans
