@@ -4810,7 +4810,7 @@ CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
               "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py",
               "tests/test_torch_cuda_spatial_phase.py", "tests/test_torch_cuda_spatial_zoo.py",
-              "tests/test_torch_cuda_spatial_zoo_options.py"]
+              "tests/test_torch_cuda_spatial_zoo_options.py", "tests/test_torch_cuda_skip3d.py"]
 
 
 # the one skip reason the CUDA tests may give, and only on a one-card machine

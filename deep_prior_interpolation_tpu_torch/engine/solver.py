@@ -50,6 +50,10 @@ With the recorder of ``utils/spans.py`` on, a solve records its spans:
 ``SolveResult.chunk_seconds``) with its ``step``s (``step.forward``,
 ``step.backward``, ``step.adam``, ``step.track``) and ``chunk.read``, and
 ``solve.results`` with the bytes copied to the host (``host_bytes``).
+``step.forward`` counts the step's Norms by route (``norm_kernel``,
+``norm_plain``, and ``norm_act_fused``: those whose LeakyReLU ran inside the
+kernel), ``step.backward`` the weight gradients of its 3D stride-1 convs of
+k > 1 by route (``wgrad_kernel``, ``wgrad_library``).
 
 The same step serves B patches at once (``parallel/mesh.py``), each lane
 with its own parameters, Adam state, generators, trackers and ``done``
@@ -99,7 +103,7 @@ from ..models import (AttMulResUnet, AttentionUnet, Ensemble, PartialUNet, SkipN
 from ..models.blocks import Compact, meta_forward
 from ..ops import losses as L
 from ..ops import wgrad as wgrad_ops
-from ..ops.conv_vjp import conv_impl
+from ..ops.conv_vjp import conv_impl, wgrad_routes
 from ..ops.filters import convolve_kernel_1d, lowpass_butterworth_taps
 from ..ops.fused_loss import fused_loss_metrics
 from ..ops.noise import build_forgetting_data, data_forgetting_weights, get_noise
@@ -653,6 +657,11 @@ def _profiled(profile_dir: str, fn):
     return out
 
 
+# the step spans' counters (span attribute, route of the counter)
+_NORM_COUNTERS = (("norm_kernel", "kernel"), ("norm_plain", "plain"),
+                  ("norm_act_fused", "fused"))
+_WGRAD_COUNTERS = (("wgrad_kernel", "kernel"), ("wgrad_library", "library"))
+
 _TRACKERS = ("lr", "loss_min", "out_best", "out_last", "plateau_best",
              "plateau_bad", "es_best", "es_bad", "done")
 # the generators the step draws from: its input noise, the parameter noise
@@ -829,15 +838,19 @@ class DIPSolver:
         flat = st["flat"]
         with spans.span("step", "it", it):
             with spans.span("step.forward"):
-                k0, p0 = norm_routes["kernel"], norm_routes["plain"]
+                n0 = dict(norm_routes)
                 out, loss, ys, frozen = self._forward(it, st, data, hyper, s, gens,
                                                       regenerate)
                 # the step's Norms on each route (ops/norm_act.py)
-                spans.attr("norm_kernel", norm_routes["kernel"] - k0)
-                spans.attr("norm_plain", norm_routes["plain"] - p0)
+                for key, route in _NORM_COUNTERS:
+                    spans.attr(key, norm_routes[route] - n0.get(route, 0))
             with spans.span("step.backward"):
+                w0 = dict(wgrad_routes)
                 grads = torch.autograd.grad(loss.sum() if isinstance(gens, list) else loss,
                                             flat.leaves())
+                # the step's stride-1 3D dW on each route (ops/conv_vjp.py)
+                for key, route in _WGRAD_COUNTERS:
+                    spans.attr(key, wgrad_routes[route] - w0.get(route, 0))
             with spans.span("step.adam"):
                 flat.adam_step(grads, st["lr"], st["done"], frozen)
             with spans.span("step.track"):

@@ -96,6 +96,8 @@ class Norm(nn.Module):
         leaky = act == "LeakyReLU"
         if NA.takes_kernel(x, self.phase):
             NA.routes["kernel"] += 1
+            if leaky:
+                NA.routes["fused"] += 1
             y = NA.norm_act(x, self.scale, self.bias, self.eps, leaky)
         else:
             NA.routes["plain"] += 1

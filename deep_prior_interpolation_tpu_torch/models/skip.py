@@ -5,7 +5,9 @@ conv), Norm everywhere, an optional 1x1 refinement conv on the way up,
 nearest or linear upsampling, stride / avg / max / lanczos downsampling and
 zero or reflection padding; 2D and 3D, recursive over scales. The children
 are made in the flax module's call order and carry its names (``Conv_0``,
-``Norm_0``, ...).
+``Norm_0``, ...). Each Norm that an activation follows applies it
+(``Norm.forward(h, act)``), so that on the card LeakyReLU runs inside the
+Norm's kernel pair; the concatenation's Norm has none after it.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ class SkipNet(Compact):
         self.filter_skip_size, self.use_bias, self.pad = filter_skip_size, use_bias, pad
         self.upsample_mode, self.downsample_mode = upsample_mode, downsample_mode
         self.need1x1_up = need1x1_up
-        self.act = get_activation(act)
+        self.act_name, self.act = act, get_activation(act)
         last = None if (isinstance(last_act, str) and last_act.lower() == "none") else last_act
         self.last_act = get_activation(last)
         self.drop = Dropout(dropout)
@@ -86,7 +88,7 @@ class SkipNet(Compact):
         down_modes = _per_scale(self.downsample_mode, n)
         fs_down = _per_scale(self.filter_size_down, n)
         fs_up = _per_scale(self.filter_size_up, n)
-        act, drop = self.act, self.drop
+        drop = self.drop
 
         def conv_block(h, features, k, stride=1, down_mode="stride"):
             """A pooling or lanczos mode turns the strided conv into a
@@ -103,28 +105,28 @@ class SkipNet(Compact):
                 h = lanczos_downsample(h, stride, 2 if pool == "lanczos2" else 3)
             return h
 
-        def norm(h):
-            return self.child("Norm", lambda: Norm(h.shape[1]))(h)
+        def norm(h, act=None):
+            return self.child("Norm", lambda: Norm(h.shape[1]))(h, act)
 
         def level(i: int, h: torch.Tensor) -> torch.Tensor:
             s = None
             if skip_ch[i] != 0:
                 s = conv_block(h, skip_ch[i], self.filter_skip_size)
-                s = drop(act(norm(s)))
+                s = drop(norm(s, self.act_name))
             d = conv_block(h, self.filters[i], fs_down[i], stride=2, down_mode=down_modes[i])
-            d = drop(act(norm(d)))
+            d = drop(norm(d, self.act_name))
             d = conv_block(d, self.filters[i], fs_down[i])
-            d = drop(act(norm(d)))
+            d = drop(norm(d, self.act_name))
             if i < n - 1:
                 d = level(i + 1, d)
             d = upsample(d, 2, up_modes[i])
             y = concat_crop([s, d]) if s is not None else d
             y = norm(y)
             y = conv_block(y, self.filters[i], fs_up[i])
-            y = drop(act(norm(y)))
+            y = drop(norm(y, self.act_name))
             if self.need1x1_up:
                 y = conv_block(y, self.filters[i], 1)
-                y = drop(act(norm(y)))
+                y = drop(norm(y, self.act_name))
             return y
 
         x = level(0, x)

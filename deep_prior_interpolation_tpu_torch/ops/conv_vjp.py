@@ -43,15 +43,20 @@ grouped cuDNN conv over (N, B*C, *sp) with ``groups=B`` (the JAX package's
 kernel's lane launch (``wgrad3d_lanes``) where the gate admits the lane's
 conv, else per lane to the packed or folded form, else to the grouped
 library weight gradient. "tapmm" takes one batched float32 product a tap.
+
+``wgrad_routes`` counts the weight gradients of the 3D stride-1 convs with a
+kernel wider than 1 by where they ran: ``kernel`` (``wgrad3d`` or
+``wgrad3d_lanes``, one a conv) and ``library`` (``conv3d_weight``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import math
 import os
 import threading
-from typing import Iterator, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,7 +64,8 @@ from torch.overrides import handle_torch_function, has_torch_function
 
 from .wgrad import wgrad3d, wgrad3d_lanes, wgrad_supported
 
-__all__ = ["conv_halo", "conv_same", "conv_impl", "current_conv_impl", "use_wgrad_kernel"]
+__all__ = ["conv_halo", "conv_same", "conv_impl", "current_conv_impl", "use_wgrad_kernel",
+           "wgrad_routes"]
 
 _FWD = {2: F.conv2d, 3: F.conv3d}
 _DX = {2: torch.nn.grad.conv2d_input, 3: torch.nn.grad.conv3d_input}
@@ -70,6 +76,14 @@ Padding = Union[int, Sequence[Tuple[int, int]]]
 
 # the conv formulation of the calling thread, switched by conv_impl
 _IMPL_TLS = threading.local()
+
+# dW of the 3D stride-1 convs of k > 1 by route: "kernel", "library"
+wgrad_routes: Dict[str, int] = collections.Counter()
+
+
+def _count_wgrad(route: str, w: torch.Tensor, stride: int, lane_dims: int = 0) -> None:
+    if w.ndim - lane_dims == 5 and stride == 1 and w.shape[-1] > 1:
+        wgrad_routes[route] += 1
 
 
 def current_conv_impl() -> str:
@@ -339,8 +353,10 @@ def _conv_grads(ctx, dy: torch.Tensor, halo: Optional[int] = None):
             spec = [0, 0] * nd
             spec[2 * (nd - 1 - halo)] = spec[2 * (nd - 1 - halo) + 1] = (k - 1) // 2
             dw = wgrad3d(x, F.pad(dy, spec), k).to(w.dtype)
+            _count_wgrad("kernel", w, stride)
         elif use_wgrad_kernel(x.shape, w.shape, stride, pads):
             dw = wgrad3d(x, dy, k).to(w.dtype)
+            _count_wgrad("kernel", w, stride)
         elif _use_packed(x.shape, w.shape, stride, pads, x.element_size()):
             wg = _packed_wgrad if stride == 1 else _folded_wgrad
             dw = wg(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
@@ -348,8 +364,10 @@ def _conv_grads(ctx, dy: torch.Tensor, halo: Optional[int] = None):
             dw = _tap_conv_weight(x, dy, tuple(w.shape), stride, pads).to(w.dtype)
         elif sym:
             dw = _library(_DW[nd], w.dtype, x, w.shape, dy, stride=stride, padding=padding)
+            _count_wgrad("library", w, stride)
         else:
             dw = _library(_DW[nd], w.dtype, F.pad(x, _flat(pads)), w.shape, dy, stride=stride)
+            _count_wgrad("library", w, stride)
     return dx, dw
 
 
@@ -488,6 +506,7 @@ class _ConvSameLanes(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             if use_wgrad_kernel(lane_x, lane_w, stride, pads):
                 dw = wgrad3d_lanes(x[:, 0], dy[:, 0], w.shape[3]).to(w.dtype)
+                _count_wgrad("kernel", w, stride, lane_dims=1)
             elif _use_packed(lane_x, lane_w, stride, pads, x.element_size()):
                 wg_fn = _packed_wgrad if stride == 1 else _folded_wgrad
                 dw = torch.stack([wg_fn(x[i], dy[i], lane_w, stride, pads)
@@ -498,6 +517,7 @@ class _ConvSameLanes(torch.autograd.Function):
                 xin = xg if sym else F.pad(xg, _flat(pads))
                 dw = _library(_DW[nd], w.dtype, xin, wg.shape, dyg, stride=stride,
                               padding=padding if sym else 0, groups=b).reshape(w.shape)
+                _count_wgrad("library", w, stride, lane_dims=1)
         return dx, dw, None, None, None
 
 

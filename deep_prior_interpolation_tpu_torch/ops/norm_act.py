@@ -29,7 +29,8 @@ and ``norm_act`` under ``torch.func.vmap``, through its vmap rule.
 ``takes_kernel`` is the route ``Norm.forward`` takes: the kernels for a
 plain CUDA tensor (no ``__torch_function__``: a list of spatial shards keeps
 the tensor ops) of bfloat16 or float32, a Norm of phase 1; ``routes`` counts
-the Norms on each route.
+the Norms on each route, and under ``fused`` those of the kernels' route
+whose LeakyReLU ran inside them.
 """
 from __future__ import annotations
 
@@ -54,7 +55,8 @@ _TARGET_BLOCKS = 1024
 _MAX_UNITS = 16   # 16-byte units a thread at most
 _STAT = 8         # floats a channel of the forward's statistics: g, b, mean, rstd, scale, keep
 
-routes: Dict[str, int] = collections.Counter()   # Norms by route: "kernel", "plain"
+# Norms by route: "kernel", "plain"; "fused": the kernel's with LeakyReLU inside
+routes: Dict[str, int] = collections.Counter()
 
 
 def _bcast(v: torch.Tensor, ndim: int) -> torch.Tensor:

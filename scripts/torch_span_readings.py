@@ -12,8 +12,10 @@ after it: with ``--trace 1`` against the traced chunk's Chrome trace, read
 is the harness's run unchanged, for the recorder's cost against it. The last
 line of standard output is one JSON object (also appended to ``--out``):
 the harness's result line, the nine readings (``spantrace.readings``), the
-Norms a step on the kernel and the plain route (``norms``) and the checks of
-the spans against the clocks around them:
+Norms a step on the kernel and the plain route and those with LeakyReLU
+inside the kernel (``norms``), the weight gradients a step of the 3D
+stride-1 convs on the wgrad kernel and in the library (``wgrads``) and the
+checks of the spans against the clocks around them:
 
 * ``attributed``: the share of the traced chunk's kernels launched inside a
   span; ``idle_named_s`` against ``idle_no_host_op_s``: the traced idle
@@ -139,14 +141,28 @@ def checks(records, result: dict, walls, tr) -> dict:
 
 def norm_routes(records) -> dict:
     """The Norms of the window's steps by route (``step.forward``'s
-    ``norm_kernel`` and ``norm_plain``): a step's counts and the kernel's
-    share of all."""
+    ``norm_kernel`` and ``norm_plain``): a step's counts, the kernel's share
+    of all, and a step's Norms whose LeakyReLU ran inside the kernel
+    (``norm_act_fused``)."""
     fwd = [r.attrs for r in records if r.name == "step.forward"]
     k = sum(a.get("norm_kernel", 0) for a in fwd)
     p = sum(a.get("norm_plain", 0) for a in fwd)
+    f = sum(a.get("norm_act_fused", 0) for a in fwd)
     return {"steps": len(fwd), "kernel_per_step": k / max(len(fwd), 1),
             "plain_per_step": p / max(len(fwd), 1),
+            "fused_per_step": f / max(len(fwd), 1),
             "kernel_share": k / (k + p) if k + p else None}
+
+
+def wgrad_routes(records) -> dict:
+    """The weight gradients of the window's steps' 3D stride-1 convs of k > 1
+    by route (``step.backward``'s ``wgrad_kernel`` and ``wgrad_library``), a
+    step's counts."""
+    bwd = [r.attrs for r in records if r.name == "step.backward"]
+    n = max(len(bwd), 1)
+    return {"steps": len(bwd),
+            "kernel_per_step": sum(a.get("wgrad_kernel", 0) for a in bwd) / n,
+            "library_per_step": sum(a.get("wgrad_library", 0) for a in bwd) / n}
 
 
 def main(argv=None) -> int:
@@ -199,6 +215,7 @@ def main(argv=None) -> int:
         tr = kept.get("trace")
         line["readings"] = spantrace.readings(records, tr)
         line["norms"] = norm_routes(records)
+        line["wgrads"] = wgrad_routes(records)
         line["checks"] = checks(records, result, walls, tr)
         if tr is not None:
             line["idle_spans"] = tr.idle_spans

@@ -261,16 +261,18 @@ def test_the_route_and_its_counter(monkeypatch, case):
 
 
 def test_the_kernel_route_and_its_counter(card, monkeypatch):
-    """Where ``takes_kernel`` holds, ``Norm.forward`` counts a kernel Norm and
-    computes the kernels' arithmetic with LeakyReLU fused, within a rounding
-    of the tensor ops; another activation runs after it."""
+    """Where ``takes_kernel`` holds, ``Norm.forward`` counts a kernel Norm (and
+    with LeakyReLU a fused one) and computes the kernels' arithmetic with
+    LeakyReLU fused, within a rounding of the tensor ops; another activation
+    runs after it."""
     for dtype in (torch.bfloat16, torch.float32):
         x, scale, bias = _inputs((1, 8, 4, 6, 6), 70, dtype)
         norm = Norm(8)
         for act in ("LeakyReLU", "Tanh"):
             monkeypatch.setattr(NA, "routes", NA.collections.Counter())
             y = norm(x, act=act)
-            assert dict(NA.routes) == {"kernel": 1}
+            assert dict(NA.routes) == ({"kernel": 1, "fused": 1} if act == "LeakyReLU"
+                                       else {"kernel": 1})
             want = get_activation(act)(seed_norm(x, norm.scale, norm.bias))
             tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
             torch.testing.assert_close(y.float(), want.float(), rtol=tol,
@@ -287,10 +289,11 @@ def _problem(seed):
 @pytest.mark.parametrize("entry,on_card", [("solve", False), ("solve", True),
                                            ("batched", True)])
 def test_the_steps_norms_on_their_spans(monkeypatch, entry, on_card):
-    """A tiny 3D MulResUnet solve (22 Norms a step): ``step.forward`` reads
-    norm_kernel / norm_plain 22 / 0 through the kernel route (under vmap in
-    the batched entry) and 0 / 22 on the CPU's; the kernel route's closed form
-    solves as the tensor ops do, to float32 rounding."""
+    """A tiny 3D MulResUnet solve (22 Norms a step, 15 with LeakyReLU
+    after them): ``step.forward`` reads norm_kernel / norm_plain /
+    norm_act_fused 22 / 0 / 15 through the kernel route (under vmap in the
+    batched entry) and 0 / 22 / 0 on the CPU's; the kernel route's closed
+    form solves as the tensor ops do, to float32 rounding."""
     cfg = Config(datadim="3d", epochs=2, scan_chunk=2, inputdepth=4, filters=[4, 8],
                  skip=[4], gain=1.0)
     losses = {}
@@ -308,6 +311,7 @@ def test_the_steps_norms_on_their_spans(monkeypatch, entry, on_card):
         finally:
             spans.disable()
         fwd = [r.attrs for r in spans.drain() if r.name == "step.forward"]
-        assert fwd == [{"norm_kernel": 22 if on else 0, "norm_plain": 0 if on else 22}] * 2
+        assert fwd == [{"norm_kernel": 22 if on else 0, "norm_plain": 0 if on else 22,
+                        "norm_act_fused": 15 if on else 0}] * 2
         losses[on] = np.asarray([r.history.loss for r in res])
     np.testing.assert_allclose(losses[on_card], losses[False], rtol=1e-5)
