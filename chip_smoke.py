@@ -47,15 +47,26 @@ Phases, each of which ends the run with a non-zero exit code on failure:
 4. main path: ``DIPSolver(cfg).solve(img, mask, seed=0)`` on the flagship
    (256, 128, 128) volume, MulResUnet 3D at filters [16..256], inputdepth 64,
    bf16, ``fused_loss`` and ``DPI_PALLAS_WGRAD=1``, 9 iterations in chunks
-   of 3. The launch counters are set to 0 just before and read just after;
-   every kernel must have launched (fused loss forward and backward 9 times
-   each, wgrad 9 x 32, upsample_bwd 9 x 4, all 36 on its TMA kernel), and
-   hooks on the conv's weight gradient and the upsample's backward check that
-   their shapes are the 24 and the 4 of phase 2, each as often as listed there;
-   all 9 x 70 Norms of the steps on the kernel route, 9 x 70 x 2 launches of
-   each of the Norm pair's directions. A 3-step solve with the kernels off
-   (the Norm kernels on: phase 2 holds them) must give the same
-   iteration-0 loss.
+   of 3, the step's forward and backward from the solve's CUDA graph: step
+   0 eager, step 1 captured, 7 replayed (``graph_routes``), and no capture
+   that fell back to eager steps (its ``RuntimeWarning`` fails the run). A
+   one-step solve first sets up what a shape's first call sets up (the
+   wgrad tuner's timing launches), so the device trace of the solve
+   (``torch.profiler``) holds its 9 steps' kernels alone: every kernel must
+   have run (fused loss forward and backward 9 times each, wgrad 9 x 32,
+   upsample_bwd 9 x 4, all 36 on its TMA kernel, 9 x 70 x 2 of each of the
+   Norm pair's directions). A replayed step calls no Python, so the launch
+   counters, the Norms' routes and the hooks on the conv's weight gradient
+   and the upsample's backward count the eager and the captured step: 2 x
+   the same, the hooks' shapes the 24 and the 4 of phase 2, each as often as
+   listed there, and 2 x 70 Norms on the kernel route (70 more plain: the
+   solver's shape pass on the meta device). A 3-step solve with the kernels
+   off (the Norm kernels on: phase 2 holds them) must give the same
+   iteration-0 loss. Every other phase's solves run their steps eagerly
+   (``engine/solver.py`` ``_GRAPHS`` off): they count the launches and the
+   shapes that the wrappers and hooks see from Python; the step graph's
+   card tests (``tests/test_torch_cuda_step_graph.py``, phase 9) hold the
+   graphed solves bit for bit against the eager ones.
 5. the CLI (``cli.run``, on the card by default), three paths, the
    launch counters set to 0 just before each and read just after:
    a. a 3D survey at the flagship's width: a (256, 256, 128) hyperbolic
@@ -1221,35 +1232,82 @@ def traced_solve(solver, img, mask, **kw):
     return res, counts, seen.wgrad, seen.upsample
 
 
+# the port's kernels in a device trace, by the counter of ``read_counts``
+# (the upsample's by ``read_upsample_kernels``) and of ``read_norm_counts``
+TRACE_KERNELS = (("fused_loss", r"\bloss_sums_kernel\b"),
+                 ("fused_loss_grad", r"\bloss_grad_kernel\b"),
+                 ("wgrad3d", r"\bwgrad3d_(mma|fma)\b"),
+                 ("upsample_bwd", r"\bupsample_bwd_(tma|direct)\b"),
+                 ("tma", r"\bupsample_bwd_tma\b"), ("direct", r"\bupsample_bwd_direct\b"),
+                 ("norm_act_forward", r"\bnorm_(stats|apply)_kernel\b"),
+                 ("norm_act_backward", r"\bnorm_(grad_sums|grad)_kernel\b"))
+
+
+def traced_kernels(prof) -> dict:
+    """The port's kernels that a ``torch.profiler`` session saw run on the
+    card, by ``TRACE_KERNELS``' names."""
+    import re
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {key: sum(1 for n in names if re.search(rx, n)) for key, rx in TRACE_KERNELS}
+
+
 def main_path(dev) -> dict:
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
     from deep_prior_interpolation_tpu_torch import DIPSolver
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
+    from deep_prior_interpolation_tpu_torch.engine import solver as S
+    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
 
     img, mask = flagship_problem(256, 128, 128)
     cfg = flagship_config()
     set_kernels(True)
     solver = DIPSolver(cfg, outchannel=1, device=dev)
+    DIPSolver(flagship_config(epochs=1, scan_chunk=1), outchannel=1, device=dev).solve(
+        img, mask, seed=0)
+    S._GRAPHS = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    from deep_prior_interpolation_tpu_torch.ops import norm_act as NA
-    norms = dict(NA.routes)
-    res, counts, seen, seen_up = traced_solve(solver, img, mask)
+    norms, routes = dict(NA.routes), dict(S.graph_routes)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            res, counts, seen, seen_up = traced_solve(solver, img, mask)
+            torch.cuda.synchronize()
+    finally:
+        S._GRAPHS = False
     kinds = read_upsample_kernels()
     norm_counts = read_norm_counts()
     norms = {k: NA.routes[k] - norms.get(k, 0) for k in ("kernel", "plain")}
+    routes = {k: n - routes.get(k, 0) for k, n in S.graph_routes.items()
+              if n != routes.get(k, 0)}
+    traced = traced_kernels(prof)
+    fell_back = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    log(f"main path: steps by route {routes} (expected eager 1, captured 1, replayed 7); "
+        f"runtime warnings {fell_back}")
+    if routes != {"eager": 1, "captured": 1, "replayed": 7} or fell_back:
+        fail(f"the main path's steps took the routes {routes}, warnings {fell_back}")
+    want_traced = {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 32,
+                   "upsample_bwd": 9 * 4, "tma": 9 * 4, "direct": 0,
+                   "norm_act_forward": 9 * 70 * 2, "norm_act_backward": 9 * 70 * 2}
+    log(f"main path: the port's kernels in the device trace {traced} (expected {want_traced})")
+    if traced != want_traced:
+        fail(f"the main path's device trace holds the port's kernels {traced}")
+    # below, what Python called: the eager step 0 and the captured step 1
     # plain: the solver's one shape pass of the net on the meta device
-    log(f"main path: Norms by route {norms} (expected kernel {9 * 70}, plain 70)")
-    if norms != {"kernel": 9 * 70, "plain": 70}:
+    log(f"main path: Norms by route {norms} (expected kernel {2 * 70}, plain 70)")
+    if norms != {"kernel": 2 * 70, "plain": 70}:
         fail(f"the main path's Norms took the routes {norms}")
-    want_norm = {"norm_act_forward": 9 * 70 * 2, "norm_act_backward": 9 * 70 * 2,
+    want_norm = {"norm_act_forward": 2 * 70 * 2, "norm_act_backward": 2 * 70 * 2,
                  "norm_act_forward_lanes": 0, "norm_act_backward_lanes": 0}
     log(f"main path: Norm launches {norm_counts} (expected {want_norm})")
     if norm_counts != want_norm:
         fail(f"the main path's Norm launch counts are {norm_counts}")
-    want = {(ci, co, sp): 9 * n for ci, co, sp, n in WGRAD_SHAPES}
+    want = {(ci, co, sp): 2 * n for ci, co, sp, n in WGRAD_SHAPES}
     if dict(seen) != want:
         fail(f"the main path's wgrad shapes are {dict(seen)}, not {want}")
-    want_up = {(c, sp): 9 for c, sp in UPSAMPLE_SHAPES}
+    want_up = {(c, sp): 2 for c, sp in UPSAMPLE_SHAPES}
     if dict(seen_up) != want_up:
         fail(f"the main path's upsample shapes are {dict(seen_up)}, not {want_up}")
     log(f"main path: wgrad and upsample shapes as listed in the kernel phase "
@@ -1258,22 +1316,27 @@ def main_path(dev) -> dict:
     loss = np.asarray(res.history.loss)
     log(f"main path: losses {loss.tolist()}")
     log(f"main path: snr {np.asarray(res.history.snr).tolist()}")
-    log(f"main path: launches {counts} (expected fused_loss 9, fused_loss_grad 9, "
-        f"wgrad3d {9 * 32}, upsample_bwd {9 * 4})")
+    log(f"main path: launches called from Python {counts} (expected fused_loss 2, "
+        f"fused_loss_grad 2, wgrad3d {2 * 32}, upsample_bwd {2 * 4})")
     if not (len(loss) == 9 and np.all(np.isfinite(loss))):
         fail("the flagship loss is not finite for 9 iterations")
     if res.out_best.shape != img.shape or not np.all(np.isfinite(res.out_best)):
         fail(f"out_best has shape {res.out_best.shape} or is not finite")
-    if counts != {"fused_loss": 9, "fused_loss_grad": 9, "wgrad3d": 9 * 32,
-                  "upsample_bwd": 9 * 4}:
+    if counts != {"fused_loss": 2, "fused_loss_grad": 2, "wgrad3d": 2 * 32,
+                  "upsample_bwd": 2 * 4}:
         fail(f"the main path's launch counts are {counts}")
-    log(f"main path: upsample_bwd launches by kernel {kinds} (expected tma {9 * 4}, direct 0)")
-    if kinds != {"tma": 9 * 4, "direct": 0}:
+    log(f"main path: upsample_bwd launches by kernel {kinds} (expected tma {2 * 4}, direct 0)")
+    if kinds != {"tma": 2 * 4, "direct": 0}:
         fail(f"the main path's upsample launches by kernel are {kinds}")
     steady = statistics.median(res.chunk_seconds[1:]) / cfg.scan_chunk
     log(f"main path: chunk seconds {res.chunk_seconds}")
-    log(f"main path: steady s/iteration {steady:.4f} (median of chunks 2..), "
-        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"main path: steady s/iteration {steady:.4f} (median of chunks 2.., under the "
+        f"profiler), peak memory {peak / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+    # the solve's launches, as the kernels' table reports them: the trace's
+    counts = {k: traced[k] for k in counts}
+    kinds = {k: traced[k] for k in kinds}
+    norm_counts = {k: traced.get(k, 0) for k in norm_counts}
     del solver
 
     # the same solve with both kernels off: the same forward pass (the Norm
@@ -4810,7 +4873,8 @@ CUDA_TESTS = ["tests/test_torch_cuda.py", "tests/test_torch_cuda_wgrad.py",
               "tests/test_torch_cuda_phase.py", "tests/test_torch_cuda_lanes.py",
               "tests/test_torch_cuda_spatial.py", "tests/test_torch_cuda_spatial_options.py",
               "tests/test_torch_cuda_spatial_phase.py", "tests/test_torch_cuda_spatial_zoo.py",
-              "tests/test_torch_cuda_spatial_zoo_options.py", "tests/test_torch_cuda_skip3d.py"]
+              "tests/test_torch_cuda_spatial_zoo_options.py", "tests/test_torch_cuda_skip3d.py",
+              "tests/test_torch_cuda_step_graph.py"]
 
 
 # the one skip reason the CUDA tests may give, and only on a one-card machine
@@ -4842,6 +4906,11 @@ def run_cuda_tests() -> str:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from deep_prior_interpolation_tpu_torch.engine import solver as S
+    # every solve's steps eagerly but the main path's (phase 4): the phases
+    # count what the kernels' wrappers and hooks see from Python, which a
+    # step replayed from a CUDA graph does not call
+    S._GRAPHS = False
     if "--resume-child" in sys.argv[1:]:
         resume_child(sys.argv[sys.argv.index("--resume-child") + 1])
         return

@@ -55,6 +55,20 @@ With the recorder of ``utils/spans.py`` on, a solve records its spans:
 kernel), ``step.backward`` the weight gradients of its 3D stride-1 convs of
 k > 1 by route (``wgrad_kernel``, ``wgrad_library``).
 
+A solve on one CUDA device whose step draws nothing from the host
+(``takes_step_graph``) runs the step's forward and backward from one CUDA
+graph (``_StepGraph``): its first step eagerly, on the stream the graph is
+captured on, its second captured and replayed, every later one replayed;
+where the capture fails (a net that copies from the host) the solve stays
+eager, with a warning. Adam and the trackers stay eager after each
+replay. ``graph_routes`` counts the steps by route (``eager``,
+``captured``, ``replayed``), each ``step`` span carries its route
+(``step_graph``), and a replay has a span of its own (``step.replay``,
+with the Norm and weight-gradient counters of the captured step) in place
+of ``step.forward`` and ``step.backward``. A replay calls no Python, so
+the kernels' launch and route counters count the eager and the captured
+step only: a replayed step's kernels are in the device trace.
+
 The same step serves B patches at once (``parallel/mesh.py``), each lane
 with its own parameters, Adam state, generators, trackers and ``done``
 flag: the parameters are (B, *shape) leaves viewing one (B, P) buffer, the
@@ -83,11 +97,13 @@ item.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -669,6 +685,157 @@ _TRACKERS = ("lr", "loss_min", "out_best", "out_last", "plateau_best",
 _STEP_GENERATORS = ("noise", "param", "dropout")
 
 
+# the steps by how their forward and backward ran (``_StepGraph``): "eager",
+# "captured" (into the solve's CUDA graph, then replayed once), "replayed"
+graph_routes: Dict[str, int] = collections.Counter()
+# False keeps every step eager on the card too (tests compare the two, and
+# chip_smoke.py counts what the kernels' wrappers see from Python)
+_GRAPHS = True
+# the stream each device's step graphs are captured on, one a device, so
+# that the kernels' scratch keyed by the stream is made once
+_capture_streams: Dict[int, Any] = {}
+
+
+def takes_step_graph(device: Union[str, torch.device], s: StepSettings,
+                     mesh: Optional[List[torch.device]] = None, spatial: bool = False) -> bool:
+    """Whether a solve's step runs its forward and backward from a CUDA
+    graph: on a CUDA device, with the lanes on it alone (``mesh`` None or
+    of one device), not split over spatial shards (``spatial``: a spatial
+    mesh given), and with a step that reads nothing from the host:
+    ``virtual_input`` resets a generator from the host every step and data
+    forgetting indexes its ramp by the step number."""
+    return (torch.device(device).type == "cuda" and not spatial
+            and (mesh is None or len(mesh) == 1)
+            and not s.virtual_input and s.forget_factor == 0)
+
+
+def _span_counts() -> Dict[str, int]:
+    """The step spans' counters as they stand, by span attribute: the Norms
+    by route (``ops/norm_act.py``) and the 3D stride-1 dW by route
+    (``ops/conv_vjp.py``)."""
+    return {**{key: norm_routes[route] for key, route in _NORM_COUNTERS},
+            **{key: wgrad_routes[route] for key, route in _WGRAD_COUNTERS}}
+
+
+def _tensors(*values) -> List[torch.Tensor]:
+    """The tensors in ``values`` and in the lists, tuples and dicts among them."""
+    out: List[torch.Tensor] = []
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (list, tuple)):
+            out += _tensors(*v)
+        elif isinstance(v, dict):
+            out += _tensors(*v.values())
+    return out
+
+
+class _StepGraph:
+    """A solve's step forward and backward (``DIPSolver._forward_backward``)
+    as one CUDA graph, captured at its second step and replayed from then on.
+
+    The first step runs eagerly on the capture stream, so that what the
+    step sets up at its first call is there before the capture: the wgrad
+    tuner's grids (it synchronises while it times), the kernels' scratch of
+    the stream, cuDNN's plans, cuBLAS's workspace. The generators that step
+    drew from are registered with the graph, so a replay draws what an eager
+    step would from their states. The allocator releases no cached block
+    while a capture is under way, so the first step's, cached in its default
+    pool, are released before the capture: the capture has the memory the
+    eager step had. A replay runs on the caller's stream; the step's loss and
+    metrics are copied out of the graph's memory, which the next replay
+    overwrites. The graph and its memory pool belong to the solve (its
+    ``st``) and go with it. A replay calls no Python: the kernels' launch and
+    route counters count the eager and the captured step only, and a
+    replay's span carries the captured step's Norm and dW counters."""
+
+    def __init__(self, gens, device: torch.device):
+        self.gens = [g[k] for g in (gens if isinstance(gens, list) else [gens])
+                     for k in _STEP_GENERATORS]
+        index = torch.device(device).index
+        self.index = torch.cuda.current_device() if index is None else index
+        if self.index not in _capture_streams:
+            _capture_streams[self.index] = torch.cuda.Stream(self.index)
+        self.stream = _capture_streams[self.index]
+        self.drawn: Optional[List[torch.Generator]] = None
+        self.graph = None
+        self.eager = False   # the capture failed: the solve's steps stay eager
+        self.outputs = None
+        self.counts: Dict[str, int] = {}   # the captured step's span counters
+
+    def run(self, step):
+        """``(route, outputs)``: ``step()``'s ``(out, loss, ys, frozen,
+        grads)`` run eagerly at the first call, captured and replayed at the
+        second, replayed at every later one; eagerly from then on where the
+        capture failed."""
+        if self.graph is not None:
+            with spans.span("step.replay"):
+                for key, n in self.counts.items():
+                    spans.attr(key, n)
+                return "replayed", self._replay()
+        if self.drawn is None or self.eager:
+            before = [g.get_offset() for g in self.gens]
+            outputs = self._eager(step)
+            if self.drawn is None:
+                self.drawn = [g for g, b in zip(self.gens, before) if g.get_offset() != b]
+            return "eager", outputs
+        graph = torch.cuda.CUDAGraph()
+        for g in self.drawn:
+            graph.register_generator_state(g)
+        torch.cuda.empty_cache()
+        counts = _span_counts()
+        error = None
+        self.stream.wait_stream(torch.cuda.current_stream(self.stream.device))
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin()
+            try:
+                out, loss, ys, frozen, grads = step()
+            except Exception as err:   # pylint: disable=broad-except
+                error = err
+            try:
+                graph.capture_end()
+            except RuntimeError as err:
+                error = error or err
+        if error is not None:
+            # what the first step ran eagerly cannot be captured (it reads
+            # from the host, or synchronises with it): nothing ran, the
+            # generators are where they were (the launch counters keep the
+            # calls the capture made)
+            warnings.warn(f"the step cannot be captured in a CUDA graph and runs eagerly: "
+                          f"{type(error).__name__}: {error}", RuntimeWarning, stacklevel=3)
+            self.eager = True
+            return "eager", self._eager(step)
+        self.outputs = out.detach(), loss.detach(), ys, frozen, grads
+        self.counts = {k: n - counts[k] for k, n in _span_counts().items()}
+        self.graph = graph
+        with spans.span("step.replay"):
+            return "captured", self._replay()
+
+    def _eager(self, step):
+        """``step()`` on the capture stream, its outputs handed to the
+        caller's."""
+        caller = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            outputs = step()
+        caller.wait_stream(self.stream)
+        for t in _tensors(outputs):   # read on the caller's stream
+            t.record_stream(caller)
+        return outputs
+
+    def _replay(self):
+        self.graph.replay()
+        out, loss, ys, frozen, grads = self.outputs
+        return out, loss.clone(), {k: v.clone() for k, v in ys.items()}, frozen, grads
+
+
+def _step_graph(gens, device, s: StepSettings, mesh: Optional[List[torch.device]] = None,
+                spatial: bool = False) -> Optional[_StepGraph]:
+    """The solve's step graph where ``takes_step_graph`` admits it, else None."""
+    ok = _GRAPHS and takes_step_graph(device, s, mesh, spatial)
+    return _StepGraph(gens, device) if ok else None
+
+
 def _generators(seed: int, device) -> Dict[str, torch.Generator]:
     """The canvas's generator and the step's, each seeded from ``seed`` by
     a CPU generator, so no two share a stream."""
@@ -836,21 +1003,14 @@ class DIPSolver:
         shards where ``st["spatial"]`` holds a ``parallel.spatial.ShardedStep``
         (the canvas, data and outputs lists of shards)."""
         flat = st["flat"]
+        graph = st.get("graph")
         with spans.span("step", "it", it):
-            with spans.span("step.forward"):
-                n0 = dict(norm_routes)
-                out, loss, ys, frozen = self._forward(it, st, data, hyper, s, gens,
-                                                      regenerate)
-                # the step's Norms on each route (ops/norm_act.py)
-                for key, route in _NORM_COUNTERS:
-                    spans.attr(key, norm_routes[route] - n0.get(route, 0))
-            with spans.span("step.backward"):
-                w0 = dict(wgrad_routes)
-                grads = torch.autograd.grad(loss.sum() if isinstance(gens, list) else loss,
-                                            flat.leaves())
-                # the step's stride-1 3D dW on each route (ops/conv_vjp.py)
-                for key, route in _WGRAD_COUNTERS:
-                    spans.attr(key, wgrad_routes[route] - w0.get(route, 0))
+            def forward_backward():
+                return self._forward_backward(it, st, data, hyper, s, gens, regenerate)
+            route, (out, loss, ys, frozen, grads) = (
+                ("eager", forward_backward()) if graph is None else graph.run(forward_backward))
+            graph_routes[route] += 1
+            spans.attr("step_graph", route)
             with spans.span("step.adam"):
                 flat.adam_step(grads, st["lr"], st["done"], frozen)
             with spans.span("step.track"):
@@ -858,6 +1018,26 @@ class DIPSolver:
             # the step's autograd graph goes here, inside its span
             del out, loss, grads, frozen
         return ys
+
+    def _forward_backward(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings,
+                          gens, regenerate):
+        """The step's device work up to the update: ``(out, loss, ys,
+        frozen, grads)``, in the spans ``step.forward`` and ``step.backward``
+        with their counters."""
+        with spans.span("step.forward"):
+            n0 = dict(norm_routes)
+            out, loss, ys, frozen = self._forward(it, st, data, hyper, s, gens, regenerate)
+            # the step's Norms on each route (ops/norm_act.py)
+            for key, route in _NORM_COUNTERS:
+                spans.attr(key, norm_routes[route] - n0.get(route, 0))
+        with spans.span("step.backward"):
+            w0 = dict(wgrad_routes)
+            grads = torch.autograd.grad(loss.sum() if isinstance(gens, list) else loss,
+                                        st["flat"].leaves())
+            # the step's stride-1 3D dW on each route (ops/conv_vjp.py)
+            for key, route in _WGRAD_COUNTERS:
+                spans.attr(key, wgrad_routes[route] - w0.get(route, 0))
+        return out, loss, ys, frozen, grads
 
     def _forward(self, it: int, st: Dict[str, Any], data, hyper, s: StepSettings, gens,
                  regenerate):
@@ -1114,6 +1294,7 @@ class DIPSolver:
                 data, st = layout.shard(data, st)
                 st["spatial"] = ShardedStep(self.model, layout)
                 base_input = None
+            st["graph"] = _step_graph(gens, dev, s, spatial=layout is not None)
 
             chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
             if cfg.save_every:

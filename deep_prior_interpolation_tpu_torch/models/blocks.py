@@ -38,6 +38,7 @@ is a name-for-name transpose.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -264,6 +265,14 @@ def lanczos_kernel_1d(factor: int, support: int) -> torch.Tensor:
     return val / torch.sum(val)
 
 
+@functools.lru_cache(maxsize=None)
+def _lanczos_taps(factor: int, support: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``lanczos_kernel_1d`` on ``device`` in ``dtype``, made once: a step
+    captured in a CUDA graph copies nothing from the host."""
+    return lanczos_kernel_1d(factor, support).to(device, dtype)
+
+
 def lanczos_downsample(x: torch.Tensor, factor: int, support: int = 2) -> torch.Tensor:
     """Separable Lanczos anti-aliased downsample of the spatial dims of an
     (N, C, *spatial) tensor: per dim, edge padding and a stride-``factor``
@@ -288,7 +297,7 @@ def lanczos_pass(x: torch.Tensor, ax: int, factor: int, support: int,
     ``lanczos_halo`` (none where ``padded`` is false: x then carries those
     planes, a spatial shard's halo) and a stride-``factor`` correlation
     with the 1-D taps."""
-    taps = lanczos_kernel_1d(factor, support).to(x.device, x.dtype)
+    taps = _lanczos_taps(factor, support, x.device, x.dtype)
     xm = x.movedim(ax, -1)
     lead = xm.shape[:-1]
     xr = xm.reshape(-1, 1, xm.shape[-1])

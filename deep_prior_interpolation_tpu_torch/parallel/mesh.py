@@ -15,6 +15,9 @@ one step, as the JAX package's ``jax.vmap`` of its step does:
     seeded as a solo solve with seed ``cfg.seed + i`` seeds them, so lane i
     computes what that solve computes, but for the rounding of the batched
     ops;
+  * on one CUDA device the step's forward and backward run from one CUDA
+    graph a solve, as a solo solve's do (``engine/solver.py``
+    ``takes_step_graph``);
   * a mesh of M devices takes B / M lanes each (the batch is padded to a
     multiple of M by repeating its last patch); the host dispatches each
     device's chunk in turn from one thread, so the devices run at once, and
@@ -41,8 +44,8 @@ from ..data.patcher import _grid_starts, add_tiles
 from ..engine.history import History, HistoryPOCS
 from ..engine.solver import (DIPSolver, SolveResult, StepSettings, _generators,
                              _to_channels_first, _to_channels_last, _FlatParams,
-                             _crop_center, build_base_input, build_data, build_hyper,
-                             check_net_output, host_bytes, pad_multiple_for,
+                             _crop_center, _step_graph, build_base_input, build_data,
+                             build_hyper, check_net_output, host_bytes, pad_multiple_for,
                              padded_spatial)
 from ..models import set_dropout_generator
 from ..ops.conv_vjp import conv_impl
@@ -293,6 +296,7 @@ def _solve_batched(cfg: Config, solver: DIPSolver, patches: List[dict], mesh: Op
                     init_params=None if extra[0] is None else extra[0][lanes],
                     noises=None if extra[1] is None else extra[1][lanes])
                 groups.append((dev, st, data, build_hyper(cfg, dev)))
+        groups[0][1]["graph"] = _step_graph(groups[0][1]["gens"], devices[0], s, mesh=devices)
 
         chunk = max(1, min(cfg.scan_chunk, cfg.epochs))
         if cfg.save_every:

@@ -279,7 +279,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> Dict[str, int]:
-    """Each kernel wrapper's launches since :func:`reset_counts`."""
+    """Each kernel wrapper's launches since :func:`reset_counts`, as called
+    from Python: a step replayed from a solve's CUDA graph adds none."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 

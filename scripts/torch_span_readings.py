@@ -14,8 +14,11 @@ line of standard output is one JSON object (also appended to ``--out``):
 the harness's result line, the nine readings (``spantrace.readings``), the
 Norms a step on the kernel and the plain route and those with LeakyReLU
 inside the kernel (``norms``), the weight gradients a step of the 3D
-stride-1 convs on the wgrad kernel and in the library (``wgrads``) and the
-checks of the spans against the clocks around them:
+stride-1 convs on the wgrad kernel and in the library (``wgrads``), the
+steps by how their forward and backward ran (``graph``: the ``step``
+spans' ``step_graph``, eager, captured or replayed from the solve's CUDA
+graph, the replayed share and the mean ``step.replay`` span outside the
+traced chunk) and the checks of the spans against the clocks around them:
 
 * ``attributed``: the share of the traced chunk's kernels launched inside a
   span; ``idle_named_s`` against ``idle_no_host_op_s``: the traced idle
@@ -41,9 +44,11 @@ patches, once the harness records the spans and reads them itself.
 from __future__ import annotations
 
 import argparse
+import collections
 import io
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -139,12 +144,19 @@ def checks(records, result: dict, walls, tr) -> dict:
     return out
 
 
+def _counted(records, name: str, key: str) -> list:
+    """The attributes of the spans that count a step's ``key``: ``name``,
+    or a replay of the step graph, which carries the captured step's."""
+    return [r.attrs for r in records if r.name == name
+            or (r.name == "step.replay" and key in r.attrs)]
+
+
 def norm_routes(records) -> dict:
     """The Norms of the window's steps by route (``step.forward``'s
-    ``norm_kernel`` and ``norm_plain``): a step's counts, the kernel's share
-    of all, and a step's Norms whose LeakyReLU ran inside the kernel
-    (``norm_act_fused``)."""
-    fwd = [r.attrs for r in records if r.name == "step.forward"]
+    ``norm_kernel`` and ``norm_plain``, or a replay's): a step's counts, the
+    kernel's share of all, and a step's Norms whose LeakyReLU ran inside the
+    kernel (``norm_act_fused``)."""
+    fwd = _counted(records, "step.forward", "norm_kernel")
     k = sum(a.get("norm_kernel", 0) for a in fwd)
     p = sum(a.get("norm_plain", 0) for a in fwd)
     f = sum(a.get("norm_act_fused", 0) for a in fwd)
@@ -156,13 +168,29 @@ def norm_routes(records) -> dict:
 
 def wgrad_routes(records) -> dict:
     """The weight gradients of the window's steps' 3D stride-1 convs of k > 1
-    by route (``step.backward``'s ``wgrad_kernel`` and ``wgrad_library``), a
-    step's counts."""
-    bwd = [r.attrs for r in records if r.name == "step.backward"]
+    by route (``step.backward``'s ``wgrad_kernel`` and ``wgrad_library``, or
+    a replay's), a step's counts."""
+    bwd = _counted(records, "step.backward", "wgrad_kernel")
     n = max(len(bwd), 1)
     return {"steps": len(bwd),
             "kernel_per_step": sum(a.get("wgrad_kernel", 0) for a in bwd) / n,
             "library_per_step": sum(a.get("wgrad_library", 0) for a in bwd) / n}
+
+
+def graph_routes(records, tr=None) -> dict:
+    """The window's steps by how their forward and backward ran (the
+    ``step`` spans' ``step_graph``), the share replayed from a solve's CUDA
+    graph, and the mean ``step.replay`` span (ms) of the replayed steps
+    outside the traced chunk (``tr``), which CUPTI stretches."""
+    steps = [r for r in records if r.name == "step"]
+    routes = collections.Counter(r.attrs.get("step_graph") for r in steps)
+    replayed = {r.id for r in steps if r.attrs.get("step_graph") == "replayed"}
+    replays = [r.end_ns - r.start_ns for r in records if r.name == "step.replay"
+               and r.parent in replayed
+               and not (tr is not None and r.end_ns >= tr.lo_ns and r.start_ns <= tr.hi_ns)]
+    return {"routes": dict(routes),
+            "replayed_share": routes["replayed"] / len(steps) if steps else None,
+            "replay_ms": 1e-6 * statistics.fmean(replays) if replays else None}
 
 
 def main(argv=None) -> int:
@@ -216,6 +244,7 @@ def main(argv=None) -> int:
         line["readings"] = spantrace.readings(records, tr)
         line["norms"] = norm_routes(records)
         line["wgrads"] = wgrad_routes(records)
+        line["graph"] = graph_routes(records, tr)
         line["checks"] = checks(records, result, walls, tr)
         if tr is not None:
             line["idle_spans"] = tr.idle_spans

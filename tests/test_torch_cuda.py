@@ -143,7 +143,13 @@ def test_pocs_solve_and_resume_on_cuda(cuda, tmp_path, monkeypatch):
     from deep_prior_interpolation_tpu_torch.data import flagship_problem
     from deep_prior_interpolation_tpu_torch.models import init_weights
 
+    from deep_prior_interpolation_tpu_torch.engine import solver as S
+
     monkeypatch.setenv("DPI_PALLAS_WGRAD", "1")
+    # the launch counters count calls from Python, which a step replayed from
+    # the solve's CUDA graph does not make: the solves step eagerly
+    # (tests/test_torch_cuda_step_graph.py holds the graphed ones to them)
+    monkeypatch.setattr(S, "_GRAPHS", False)
     # nearest upsampling (a gather backward, where trilinear's sums with
     # atomics) and deterministic cuDNN: two card runs of one state agree
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)

@@ -126,8 +126,13 @@ def test_a_small_batched_solve_launches_once_for_all_lanes(cuda, monkeypatch):
     step for the batch (wgrad once a same-pad 3x3x3 conv); the lanes' first
     losses equal their solo solves' on the card to rel 1e-4 (float32)."""
     from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+    from deep_prior_interpolation_tpu_torch.engine import solver as S
     from deep_prior_interpolation_tpu_torch.parallel import solve_patches_batched
     monkeypatch.setenv("DPI_PALLAS_WGRAD", "1")
+    # the launch counters count calls from Python, which a step replayed from
+    # the batch's CUDA graph does not make: the batch steps eagerly
+    # (tests/test_torch_cuda_step_graph.py holds the graphed batch to it)
+    monkeypatch.setattr(S, "_GRAPHS", False)
     rng = np.random.RandomState(0)
     patches = [{"image": rng.randn(16, 16, 16, 1).astype(np.float32),
                 "mask": (rng.rand(16, 16, 16, 1) > 0.4).astype(np.float32), "name": str(i)}

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from deep_prior_interpolation_tpu_torch import Config, DIPSolver
+from deep_prior_interpolation_tpu_torch.engine import solver as S
 from deep_prior_interpolation_tpu_torch.models import AttentionUnet, Ensemble, SkipNet, UNet
 from deep_prior_interpolation_tpu_torch.ops import fused_loss as FL
 from deep_prior_interpolation_tpu_torch.ops import upsample as U
@@ -51,6 +52,11 @@ def cuda(monkeypatch):
     monkeypatch.setattr(WG, "_tune", first_grid)
     monkeypatch.setattr(WG, "_tuned", {})
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    # the launch counters count calls from Python, which a step replayed
+    # from a one-device solve's CUDA graph does not make: the unsharded
+    # reference steps eagerly (tests/test_torch_cuda_step_graph.py holds the
+    # graphed solve against the eager one)
+    monkeypatch.setattr(S, "_GRAPHS", False)
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     yield torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
